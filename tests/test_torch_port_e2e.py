@@ -1,0 +1,171 @@
+"""Port parity, end to end: the tiny RarARMM through sample -> decode ->
+re-encode -> detect against the JAX package, and the generate entry point.
+
+Weights come from JAX PRNG keys (adaLN gates randomized, so attention
+reaches the logits) and are bridged into the port. Tokens must be equal
+with an f32 cache, both greedy and when the port is fed JAX's Gumbel noise;
+with the packed4 cache, greedy tokens must agree on at least 95% of the
+positions, the bound JAX's own packed-vs-int8 test sets.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wmar_tpu.core.detect import detect as jax_detect
+from wmar_tpu.core.spec import WatermarkSpec as JSpec
+from wmar_tpu.models import GenParams as JGenParams
+from wmar_tpu.models import RarARMM as JRarARMM
+from wmar_tpu.models import maskgit_vqgan as jmg
+from wmar_tpu.models import rar as jrar
+from wmar_tpu_torch import bridge
+from wmar_tpu_torch.core.detect import detect as port_detect
+from wmar_tpu_torch.core.spec import WatermarkSpec as TSpec
+from wmar_tpu_torch.models import GenParams as TGenParams
+from wmar_tpu_torch.models import RarARMM as TRarARMM
+from wmar_tpu_torch.models import maskgit_vqgan as tmg
+from wmar_tpu_torch.models import rar as trar
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(embed_dim=32, depth=2, num_heads=2, intermediate_size=64, image_seq_len=16,
+           codebook_size=32, num_classes=4)
+VQ = dict(resolution=8, hidden_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+          z_channels=16, n_embed=32, embed_dim=16)
+METHOD = "linear-rand-h=1-d=2.0-g=0.25"
+CLASSES = np.array([0, 1, 2, 3, 1, 2])
+
+
+def _pair(jax_cache, port_cache):
+    cfg = jrar.RARConfig(**CFG)
+    params = jrar.init_rar_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(9)
+    params["blocks"] = [
+        {**blk, "adaln": {"w": jnp.asarray(rng.standard_normal(blk["adaln"]["w"].shape) * 0.05, jnp.float32),
+                          "b": blk["adaln"]["b"]}}
+        for blk in params["blocks"]
+    ]
+    vq_cfg = jmg.MaskGitVQConfig(**VQ)
+    vq_params = jmg.MaskGitVQGAN(vq_cfg).init(jax.random.PRNGKey(1), jnp.zeros((1, 8, 8, 3)))
+    jw = JRarARMM(params, cfg, vq_params, vq_cfg, cache_dtype=jax_cache)
+    jw.set_watermarker(JSpec.from_string(METHOD, vocab_size=32, spatial_dim=4))
+
+    rar = bridge.load_rar(trar.RAR(trar.RARConfig(**CFG)), jax.tree.map(np.asarray, params))
+    vq = bridge.load_maskgit(tmg.MaskGitVQGAN(tmg.MaskGitVQConfig(**VQ)), jax.tree.map(np.asarray, vq_params))
+    tw = TRarARMM(rar, vq, cache_dtype=port_cache, device="cpu")
+    tw.set_watermarker(TSpec.from_string(METHOD, vocab_size=32, spatial_dim=4))
+    return jw, tw
+
+
+def _gen(cls, **kw):
+    return cls(guidance_scale=4.0, **kw)
+
+
+@pytest.mark.parametrize("top_k,top_p", [(None, None), (10, 0.9)])
+def test_sample_decode_detect_fed_noise(top_k, top_p):
+    """f32 cache, watermarked draws fed JAX's per-step noise
+    (``gumbel(fold_in(rng, step))``): tokens equal; then decode (atol 1e-4),
+    re-encode (codes equal) and detect (p-values at rtol 1e-4)."""
+    jw, tw = _pair(jnp.float32, torch.float32)
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jw.sample(CLASSES, _gen(JGenParams, top_k=top_k, top_p=top_p), apply_watermark=True, rng=key))
+    k = top_k or 32
+    noise = np.stack([np.array(jax.random.gumbel(jax.random.fold_in(key, s), (len(CLASSES), k), jnp.float32))
+                      for s in range(16)])
+    got = tw.sample(CLASSES, _gen(TGenParams, top_k=top_k, top_p=top_p), apply_watermark=True,
+                    noise=torch.as_tensor(noise))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    jimgs = jw.codes_to_images(jnp.asarray(want))
+    timgs = tw.codes_to_images(got)
+    np.testing.assert_allclose(timgs.numpy(), np.asarray(jimgs), atol=1e-4, rtol=0)
+    jre = np.asarray(jw.images_to_codes(jimgs))
+    tre = tw.images_to_codes(timgs)
+    np.testing.assert_array_equal(tre.numpy(), jre)
+    for codes_j, codes_t in ((want, got), (jre, tre)):
+        pj = np.asarray(jax_detect(jw.watermark_spec, jw.greenlist, jnp.asarray(codes_j)), np.float64)
+        pt = port_detect(tw.watermark_spec, tw.greenlist, codes_t)
+        np.testing.assert_allclose(pt, pj, rtol=1e-4)
+
+
+def test_sample_greedy_f32_tokens_equal():
+    jw, tw = _pair(jnp.float32, torch.float32)
+    want = np.asarray(jw.sample(CLASSES, _gen(JGenParams, greedy=True), apply_watermark=True,
+                                rng=jax.random.PRNGKey(0)))
+    got = tw.sample(CLASSES, _gen(TGenParams, greedy=True), apply_watermark=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sample_greedy_packed4_agreement():
+    """packed4 cache: JAX runs its Pallas kernel in interpret mode (bf16
+    dots), the port the kernel's plain float32 version; greedy tokens agree
+    on >= 95% of the positions."""
+    jw, tw = _pair("packed4", "packed4")
+    want = np.asarray(jw.sample(CLASSES, _gen(JGenParams, greedy=True), apply_watermark=True,
+                                rng=jax.random.PRNGKey(0)))
+    got = tw.sample(CLASSES, _gen(TGenParams, greedy=True), apply_watermark=True).numpy()
+    agree = float((got == want).mean())
+    assert agree >= 0.95, f"greedy agreement {agree}"
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_generate_entry_point_result_tree(tmp_path):
+    """``python -m wmar_tpu_torch.generate`` writes the same file names as
+    JAX ``generate.py`` with the same flags, records and all."""
+    argv = ["--model", "rar", "--tiny", "--no_augs", "--conditioning", "0,3",
+            "--num_samples_per_conditioning", "2", "--batch_size", "3", "--max_roundtrips", "2",
+            "--cache_dtype", "packed4"]
+    port_out, jax_out = tmp_path / "port", tmp_path / "jax"
+    run = subprocess.run([sys.executable, "-m", "wmar_tpu_torch.generate", *argv, "--device", "cpu",
+                          "--outdir", str(port_out)], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert "wrote 12 records" in run.stdout
+    sys.path.insert(0, REPO)
+    try:
+        import generate
+    finally:
+        sys.path.remove(REPO)
+    generate.main(argv + ["--outdir", str(jax_out)])
+    assert _tree(port_out) == _tree(jax_out)
+    assert len(_tree(port_out)) == 4 * 3 * 3
+
+
+def test_chip_smoke_phases_on_cpu():
+    """``chip_smoke.py``'s kernel and main-path phases at a tiny size on the
+    CPU, where the kernel wrapper takes its plain version: every check of
+    theirs passes, so the script's own logic is tested before the card."""
+    import chip_smoke
+
+    kern = chip_smoke.phase_kernels("cpu", b=4, t=10, h=2, shapes=(("tiny", 3, 20),), valid_lens=(1, 2, 5, 10))
+    assert 0 < kern["max_abs_err"] < 2e-2
+    wrapper = chip_smoke.build_rar(
+        "cpu", trar.RARConfig(embed_dim=64, depth=2, num_heads=2, intermediate_size=128, image_seq_len=16,
+                              codebook_size=64, num_classes=10),
+        tmg.MaskGitVQConfig(**{**VQ, "n_embed": 64}))
+    assert "w_q" in wrapper.rar.blocks[0].attn.qkv.params() and wrapper.cache_dtype == "packed4"
+    out = chip_smoke.phase_main_path("cpu", wrapper, classes=8)
+    assert len(out["seconds"]) == 2 and out["launches"] == 0  # plain version on the CPU: no kernel launches
+    assert out["green_fraction"] > 0.4 and 0 <= out["median_raw_pvalue"] <= 1
+
+
+def test_generate_refuses_what_is_not_ported(tmp_path):
+    from wmar_tpu_torch import generate as tgen
+
+    base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
+    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--model", "taming"],
+                  ["--weight_dtype", "int4"], ["--cache_dtype", "packed"]):
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            tgen.main(base + ["--device", "cpu"] + extra)
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        tgen.main(["--model", "rar", "--tiny", "--outdir", str(tmp_path), "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA"):
+            tgen.main(base)
