@@ -3,20 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at full width and checks it, in phases:
+Drives the port's two main paths once at full width and checks them, in
+phases:
 
-1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a),
-   print the build time, the card's name and power limit, and the TF32
-   switches (both off, so float32 matmuls and convolutions are exact);
-2. kernel vs plain: ``packed4_decode_attention`` at the decode shapes of
-   RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88)
-   against its plain float32 version, and both timed at the RAR-XL shape;
-3. main path: RAR-XL with int8 weights, a packed4 KV cache and the
-   ``linear-rand-h=1-d=2.0-g=0.25`` watermark through the port's
-   ``generate_and_evaluate`` on 64 classes (one warm-up batch, one timed),
-   with random weights from a seed; checks codes, images, p-values, the
-   green fraction, and that every decode-attention call went through the
-   kernel (255 steps x 32 layers per batch).
+1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
+   one nvcc per source, in parallel), print the build time, the card's
+   name and power limit, and the TF32 switches (both off, so float32
+   matmuls and convolutions are exact);
+2. kernel vs plain: kernel #1 (``packed4_decode_attention``) at the decode
+   shapes of RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D
+   48/80/88); kernel #2 (``packed_decode_attention_q8``) at the RAR-XL
+   shape; kernels #3 and #4 (``packed_decode_attention_q8_chunked``,
+   ``packed4_decode_attention_chunked``) at the Chameleon-7B shape (24 rows,
+   32 heads of 128, 1043 slots, 32 layers) with a ragged ``start`` that
+   blanks the first chunk of the CFG rows and once a random ``key_mask``;
+   each against its plain float32 version, and each timed beside it at
+   full fill;
+3. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
+   watermark through the port's ``generate_and_evaluate`` on 64 classes,
+   a warm-up batch on the int8 packed cache (kernel #2) and a timed one on
+   the packed4 cache (kernel #1), with random weights from a seed; checks
+   codes, images, p-values, the green fraction, and that every
+   decode-attention call went through its kernel (255 steps x 32 layers
+   per batch);
+4. Chameleon path: CHAMELEON_7B at full width and depth with int8 weights,
+   the CHAMELEON_F16 tokenizer, the synthetic 65,536-entry vocabulary and
+   tokenizer, 8 prompts of distinct lengths (24 CFG rows), temperature 0.9,
+   top-p 0.9, the same watermark and one round trip, through
+   ``generate_and_evaluate``: a warm-up batch on the packed cache (kernel
+   #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
+   layers each; checks image tokens, 512 px images in [-1, 1], p-values,
+   the green fraction and the launch counts, and prints peak memory.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -48,6 +65,34 @@ ABS_FLOOR = 1e-6
 SEED = 0
 CLASSES = 64
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
+# 8 prompts whose first 16 characters differ in length, so the CFG rows are ragged
+PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls",
+           "a tall ship", "an old bridge at night"]
+
+
+def _kernels():
+    """(name, launching wrapper, source, TPU kernel it replaces) of every kernel."""
+    from wmar_tpu_torch.ops import flash_decode as fd
+
+    return [
+        ("packed4_decode_attention", fd.packed4_decode_attention,
+         "wmar_tpu_torch/csrc/packed4_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:677"),
+        ("packed_decode_attention_q8", fd.packed_decode_attention_q8,
+         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:127"),
+        ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
+         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
+        ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
+         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:353"),
+    ]
+
+
+def reset_launches() -> None:
+    for _, fn, _, _ in _kernels():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn, _, _ in _kernels()}
 
 
 def card_line() -> str:
@@ -74,10 +119,10 @@ def phase_build() -> float:
     return seconds
 
 
-def _filled_cache(n_layers, b, h, t, d, gen, device):
-    from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache
+def _filled_cache(n_layers, b, h, t, d, gen, device, kind="packed4"):
+    from wmar_tpu_torch.engine.kvcache import KVCache
 
-    cache = Packed4QuantKVCache.zeros(n_layers, b, h, t, d, device=device)
+    cache = KVCache.zeros(n_layers, b, h, t, d, kind, device=device)
     for li in range(n_layers):
         k = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
         v = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
@@ -151,8 +196,94 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
     return result
 
 
-class _RecordingRarARMM:
-    """Wraps a RarARMM and keeps what the pipeline sampled and decoded."""
+def _check_close(label: str, got, want, q_dtype) -> float:
+    """Max abs error of a kernel output against its plain float32 version,
+    within the tolerance stated at the top of this file."""
+    rel = BF16_REL_TOL if q_dtype == torch.bfloat16 else F32_REL_TOL
+    if got.shape != want.shape or got.dtype != q_dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)} {got.dtype}")
+    err = (got.float() - want).abs().max().item()
+    tol = rel * want.abs().max().item() + ABS_FLOOR
+    if not err <= tol:
+        raise AssertionError(f"{label}: max abs err {err} > {tol}")
+    return err
+
+
+def cfg_starts(rows: int, blank: int) -> torch.Tensor:
+    """A ragged ``start`` shaped like the instruct-CFG batch: the first third
+    (full-prompt rows) starts at 0, 1, 2, ...; the other two thirds at
+    ``blank``, ``blank + 1``, ..., which blanks their first chunk when
+    ``blank >= 128``."""
+    third = rows // 3
+    return torch.cat([torch.arange(third), blank + torch.arange(rows - third)]).to(torch.int32)
+
+
+def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32, 128, 32),
+                         rar_lens=(1, 2, 129, 258), cham_lens=(1, 128, 129, 600, 1043), blank=130,
+                         reps=50) -> dict:
+    """Kernels #2-#4 against their plain versions, and timed beside them at
+    full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``."""
+    from wmar_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    out = {}
+    cases = [("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
+              "packed", rar, rar_lens, False),
+             ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
+              fd.packed_decode_attention_q8_plain, "packed", cham, cham_lens, True),
+             ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
+              fd.packed4_decode_attention_plain, "packed4", cham, cham_lens, True)]
+    for name, launch, plain, kind, (b, t, h, d, n_layers), lens_list, masked in cases:
+        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+        start0 = cfg_starts(b, blank).to(device)
+        key_mask0 = torch.rand((b, t), generator=gen, device=device) < 0.7
+        worst = 0.0
+        for q_dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
+            for layer in (0, n_layers - 1):
+                for n in lens_list:
+                    lens = torch.full((1,), n, dtype=torch.int32, device=device)
+                    start = torch.clamp(start0, max=n - 1)  # every row keeps a valid slot
+                    key_mask = key_mask0.clone()
+                    key_mask[torch.arange(b, device=device), start.long()] = True
+                    for st, km in ((None, None), (start, None), (start, key_mask)) if masked else ((None, None),):
+                        got = launch(q, cache.kv, cache.scale, layer, lens, start=st, key_mask=km)
+                        if got.is_cuda:
+                            torch.cuda.synchronize()  # a fault in the kernel shows here
+                        want = plain(q.float(), cache.kv, cache.scale, layer, n, st, km)
+                        err = _check_close(f"{name} {q_dtype} layer={layer} valid_len={n} start={st is not None} "
+                                           f"key_mask={km is not None}", got, want, q_dtype)
+                        worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
+        variants = "none, start, start + key_mask" if masked else "none"
+        print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}): ok, valid_len {list(lens_list)}, "
+              f"masks {variants}, layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
+        out[name] = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan")}
+        if torch.device(device).type != "cuda":  # times only on the card
+            continue
+        q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+        lens = torch.full((1,), t, dtype=torch.int32, device=device)
+        st = start0 if masked else None
+        times = _time_pair(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st),
+                           lambda li: plain(q, cache.kv, cache.scale, li, lens, st), n_layers, reps)
+        nbytes = b * t * h * d * (2 if kind == "packed" else 1) + 4 * b * h * t
+        if masked:  # slots before start are not read
+            nbytes = int(nbytes * (1 - float(st.float().mean()) / t))
+        out[name] = {"max_abs_err": worst, "ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3])}
+        print(f"time {name}, full cache{' with the ragged start' if masked else ''} (plain, kernel, kernel, "
+              f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; kernel reads {nbytes / 1e6:.1f} MB "
+              f"= {nbytes / (out[name]['ms'] * 1e-3) / 1e9:.0f} GB/s")
+        del cache
+    return out
+
+
+def _time_pair(kernel_fn, plain_fn, n_layers: int, reps: int) -> list:
+    """Median ms of (plain, kernel, kernel, plain), in turns on one card."""
+    return [_median_ms(plain_fn, n_layers, reps), _median_ms(kernel_fn, n_layers, reps),
+            _median_ms(kernel_fn, n_layers, reps), _median_ms(plain_fn, n_layers, reps)]
+
+
+class _Recording:
+    """Wraps an ARMM wrapper and keeps what the pipeline sampled and decoded."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -196,69 +327,143 @@ def build_rar(device, cfg=None, vq_cfg=None):
     return wrapper
 
 
-def phase_main_path(device, wrapper, classes: int = CLASSES) -> dict:
-    from wmar_tpu_torch.core import green_fraction
+def _drive(device, wrapper, conds, gen_params, caches, batch_size) -> tuple:
+    """One ``generate_and_evaluate`` batch per cache type, with every launch
+    count set to 0 just before and read just after. Returns (records of
+    the last batch, seconds per batch, launch counts, the recording)."""
     from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
-    from wmar_tpu_torch.models import GenParams
-    from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention
 
-    wrapper = _RecordingRarARMM(wrapper)
-    cfg = wrapper.rar_cfg
-    gen_params = GenParams(temperature=1.0, guidance_scale=4.0)
-    eval_params = EvalParams(max_roundtrips=1)
-    per_batch = (cfg.image_seq_len - 1) * cfg.depth
+    rec = _Recording(wrapper)
     is_cuda = torch.device(device).type == "cuda"
-    if is_cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-
-    packed4_decode_attention.launches = 0
     seconds = []
     records = []
-    for bi in range(2):  # warm-up batch, then the timed one
-        conds = [(bi * classes + i) % cfg.num_classes for i in range(classes)]
+    reset_launches()
+    for bi, cache in enumerate(caches):
+        wrapper.cache_dtype = cache
         with tempfile.TemporaryDirectory() as outdir:
             if is_cuda:
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            records = generate_and_evaluate(outdir, wrapper, conds, gen_params, eval_params, None,
-                                            batch_size=classes, seed=SEED + bi, log_fn=lambda s: print(f"  {s}"))
+            records = generate_and_evaluate(outdir, rec, conds[bi], gen_params, EvalParams(max_roundtrips=1), None,
+                                            batch_size=batch_size, seed=SEED + bi,
+                                            log_fn=lambda s, c=cache: print(f"  [{c}] {s}"))
             if is_cuda:
                 torch.cuda.synchronize(device)
             seconds.append(time.perf_counter() - t0)
-    launches = packed4_decode_attention.launches
-    if is_cuda and launches != 2 * per_batch:
-        raise AssertionError(f"kernel launches {launches} != 2 batches x {per_batch}")
+    return records, seconds, launches(), rec
 
-    side = wrapper.image_size
-    codes, imgs = wrapper.sampled[-1], wrapper.decoded[-2]  # the timed batch's sample and its first decode
-    if tuple(codes.shape) != (classes, cfg.image_seq_len) or codes.min() < 0 or codes.max() >= cfg.codebook_size:
-        raise AssertionError(f"codes {tuple(codes.shape)} in [{codes.min()}, {codes.max()}]")
-    if tuple(imgs.shape) != (classes, side, side, 3) or not torch.isfinite(imgs).all() \
+
+def _check_launches(device, counts: dict, want: dict, path: str) -> None:
+    """On the card every count must be exactly as wanted; on the CPU the
+    wrappers take their plain versions, so every count is 0."""
+    if torch.device(device).type != "cuda":
+        want = {k: 0 for k in want}
+    want = {**{k: 0 for k in counts}, **want}
+    if counts != want:
+        raise AssertionError(f"{path}: kernel launches {counts} != {want}")
+
+
+def _check_outputs(path, codes, imgs, records, n_rows, seq_len, side, valid_code, spec, greenlist, margin) -> dict:
+    from wmar_tpu_torch.core import green_fraction
+
+    if tuple(codes.shape) != (n_rows, seq_len) or not bool(valid_code(codes).all()):
+        raise AssertionError(f"{path}: codes {tuple(codes.shape)} in [{codes.min()}, {codes.max()}]")
+    if tuple(imgs.shape) != (n_rows, side, side, 3) or not torch.isfinite(imgs).all() \
             or imgs.min() < -1 or imgs.max() > 1:
-        raise AssertionError(f"images {tuple(imgs.shape)} in [{imgs.min()}, {imgs.max()}]")
+        raise AssertionError(f"{path}: images {tuple(imgs.shape)} in [{imgs.min()}, {imgs.max()}]")
     pvals = np.array([r["pvalue"] for r in records])
-    if len(pvals) != 2 * classes or not (np.isfinite(pvals).all() and (pvals >= 0).all() and (pvals <= 1).all()):
-        raise AssertionError(f"p-values {pvals}")
-    frac = green_fraction(wrapper.watermark_spec, wrapper.greenlist, codes).float().mean().item()
-    gamma = wrapper.watermark_spec.gamma
-    if not frac > gamma + 0.15:
-        raise AssertionError(f"green fraction {frac} not well above gamma {gamma}")
+    if len(pvals) != 2 * n_rows or not (np.isfinite(pvals).all() and (pvals >= 0).all() and (pvals <= 1).all()):
+        raise AssertionError(f"{path}: p-values {pvals}")
+    frac = green_fraction(spec, greenlist, codes).float().mean().item()
+    if not frac > spec.gamma + margin:
+        raise AssertionError(f"{path}: green fraction {frac} not above gamma {spec.gamma} + {margin}")
     raw_p = np.array([r["pvalue"] for r in records if r["param"] == 0])
-    peak = torch.cuda.max_memory_allocated(device) / 2**30 if is_cuda else float("nan")
-    out = {
-        "launches": launches,
-        "seconds": seconds,
-        "imgs_per_s": classes / seconds[1],
-        "green_fraction": frac,
-        "median_raw_pvalue": float(np.median(raw_p)),
-        "peak_gib": peak,
-    }
-    print(f"main path: RAR {cfg.embed_dim} wide x {cfg.depth} layers, int8 weights, packed4 cache, {WATERMARK}, "
-          f"{classes} classes, 1 round trip: "
-          f"warm-up {seconds[0]:.2f} s, timed {seconds[1]:.2f} s = {out['imgs_per_s']:.2f} imgs/s "
-          f"(generate_and_evaluate end to end, files included); kernel launches {launches} "
-          f"= 2 x {per_batch}; green fraction {frac:.3f} (gamma {gamma}); median raw p-value "
-          f"{out['median_raw_pvalue']:.3e}; peak memory {peak:.2f} GiB")
+    return {"green_fraction": frac, "median_raw_pvalue": float(np.median(raw_p))}
+
+
+def _peak_gib(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 2**30 if torch.device(device).type == "cuda" else float("nan")
+
+
+def phase_main_path(device, wrapper, classes: int = CLASSES) -> dict:
+    """The RAR path: a warm-up batch on the int8 packed cache (kernel #2),
+    then a timed one on the packed4 cache (kernel #1)."""
+    from wmar_tpu_torch.models import GenParams
+
+    cfg = wrapper.rar_cfg
+    per_batch = (cfg.image_seq_len - 1) * cfg.depth
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    conds = [[(bi * classes + i) % cfg.num_classes for i in range(classes)] for bi in range(2)]
+    records, seconds, counts, rec = _drive(device, wrapper, conds, GenParams(temperature=1.0, guidance_scale=4.0),
+                                           ("packed", "packed4"), classes)
+    _check_launches(device, counts, {"packed_decode_attention_q8": per_batch, "packed4_decode_attention": per_batch},
+                    "RAR path")
+    gates = _check_outputs("RAR path", rec.sampled[-1], rec.decoded[-2], records, classes, cfg.image_seq_len,
+                           wrapper.image_size, lambda c: (c >= 0) & (c < cfg.codebook_size),
+                           wrapper.watermark_spec, wrapper.greenlist, 0.15)
+    peak = _peak_gib(device)
+    out = {"launches": counts, "seconds": seconds, "imgs_per_s": classes / seconds[1], "peak_gib": peak, **gates}
+    print(f"RAR path: RAR {cfg.embed_dim} wide x {cfg.depth} layers, int8 weights, {WATERMARK}, {classes} classes, "
+          f"1 round trip: warm-up (packed cache) {seconds[0]:.2f} s, timed (packed4 cache) {seconds[1]:.2f} s "
+          f"= {out['imgs_per_s']:.2f} imgs/s (generate_and_evaluate end to end, files included); kernel launches "
+          f"{counts}, {per_batch} per batch; green fraction {gates['green_fraction']:.3f} (gamma "
+          f"{wrapper.watermark_spec.gamma}); median raw p-value {gates['median_raw_pvalue']:.3e}; "
+          f"peak memory {peak:.2f} GiB")
+    return out
+
+
+def build_chameleon(device, lcfg=None, vq_cfg=None, vocab=None):
+    """CHAMELEON_7B and the CHAMELEON_F16 tokenizer unless other configs are
+    given, with random weights from ``SEED`` (int8 linears, bf16 the rest),
+    the synthetic full-size vocabulary and tokenizer of the JAX bench."""
+    from wmar_tpu_torch.core import WatermarkSpec
+    from wmar_tpu_torch.generate import synthetic_tokenizer
+    from wmar_tpu_torch.models import (
+        CHAMELEON_7B, CHAMELEON_F16, ChameleonARMM, ChameleonVocab, init_llama_params, init_taming_vqgan,
+        quantize_llama_params_int8)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lcfg = lcfg or CHAMELEON_7B
+    vq_cfg = vq_cfg or CHAMELEON_F16
+    vocab = vocab or ChameleonVocab.synthetic(n_codes=vq_cfg.n_embed, n_text=lcfg.vocab_size - vq_cfg.n_embed - 6)
+    params = quantize_llama_params_int8(init_llama_params(lcfg, gen, dtype=torch.bfloat16, device=device),
+                                        compute_dtype=torch.bfloat16)
+    vq = init_taming_vqgan(vq_cfg, gen, dtype=torch.bfloat16, device=device)
+    wrapper = ChameleonARMM(params, lcfg, vocab, vq, tokenizer=synthetic_tokenizer(16),
+                            image_seq_len=vq_cfg.codes_per_side**2, cache_dtype="packed4", device=device)
+    wrapper.set_watermarker(WatermarkSpec.from_string(WATERMARK, vocab_size=wrapper.get_total_vocab_size(),
+                                                      spatial_dim=wrapper.codes_size))
+    return wrapper
+
+
+def phase_chameleon(device, wrapper, prompts=PROMPTS) -> dict:
+    """The Chameleon path: a warm-up batch on the int8 packed cache (kernel
+    #3), then a timed one on the packed4 cache (kernel #4)."""
+    from wmar_tpu_torch.models import GenParams
+
+    per_batch = (wrapper.image_seq_len - 1) * wrapper.llama_cfg.n_layers
+    n = len(prompts)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    records, seconds, counts, rec = _drive(device, wrapper, [prompts, prompts],
+                                           GenParams(temperature=0.9, top_k=None, top_p=0.9), ("packed", "packed4"), n)
+    _check_launches(device, counts, {"packed_decode_attention_q8_chunked": per_batch,
+                                     "packed4_decode_attention_chunked": per_batch}, "Chameleon path")
+    mask = wrapper.vocab.image_token_mask
+    gates = _check_outputs("Chameleon path", rec.sampled[-1], rec.decoded[-2], records, n, wrapper.image_seq_len,
+                           wrapper.image_size, lambda c: mask.to(c.device)[c], wrapper.watermark_spec,
+                           wrapper.greenlist, 0.10)
+    peak = _peak_gib(device)
+    out = {"launches": counts, "seconds": seconds, "imgs_per_s": n / seconds[1], "peak_gib": peak, **gates}
+    cfg = wrapper.llama_cfg
+    print(f"Chameleon path: Llama {cfg.dim} wide x {cfg.n_layers} layers, {cfg.n_heads} heads, vocab "
+          f"{wrapper.vocab.vocab_size}, int8 weights, {WATERMARK}, {n} prompts ({3 * n} CFG rows), "
+          f"{wrapper.image_seq_len} tokens, {wrapper.image_size} px, 1 round trip: warm-up (packed cache) "
+          f"{seconds[0]:.2f} s, timed (packed4 cache) {seconds[1]:.2f} s = {out['imgs_per_s']:.3f} imgs/s "
+          f"(generate_and_evaluate end to end, files included); kernel launches {counts}, {per_batch} per batch; "
+          f"green fraction {gates['green_fraction']:.3f} (gamma {wrapper.watermark_spec.gamma}); median raw "
+          f"p-value {gates['median_raw_pvalue']:.3e}; peak memory {peak:.2f} GiB")
     return out
 
 
@@ -269,20 +474,34 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
-    phase_build()
-    kern = phase_kernels(device)
-    main_path = phase_main_path(device, build_rar(device))
-    print(f"card: {card_line()}; total {time.perf_counter() - t0:.1f} s")
+    phases = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t
+        print(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    numbers = {"packed4_decode_attention": timed("kernel #1", phase_kernels, device)}
+    numbers.update(timed("kernels #2-#4", phase_packed_kernels, device))
+    rar = timed("RAR path", lambda: phase_main_path(device, build_rar(device)))
+    torch.cuda.empty_cache()
+    cham = timed("Chameleon path", lambda: phase_chameleon(device, build_chameleon(device)))
+    counts = {**rar["launches"], **{k: v for k, v in cham["launches"].items() if v}}
+    print(f"card: {card_line()}; phases {json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
+          f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "packed4_decode_attention",
+        "name": name,
         "route": "cuda",
-        "source": "wmar_tpu_torch/csrc/packed4_decode_attention.cu",
-        "replaces": "wmar_tpu/ops/flash_decode.py:677",
-        "launches": main_path["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": counts[name],
+        "max_abs_err": numbers[name]["max_abs_err"],
+        "ms": numbers[name]["ms"],
+        "plain_ms": numbers[name]["plain_ms"],
+    } for name, _, source, replaces in _kernels()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

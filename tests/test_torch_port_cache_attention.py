@@ -116,14 +116,21 @@ def test_packed4_plain_vs_jax_decode_attention(d):
 
 
 def test_packed4_wrapper_refuses_the_chunked_cases():
+    """JAX's routing rule: from 1024 slots on the wrapper takes the chunked
+    path (its plain version on the CPU), with or without ``start`` and
+    ``key_mask``; below 1024 slots a masked call raises ``ValueError``."""
     tc = tkv.Packed4QuantKVCache.zeros(1, 2, 2, 1024, 8)
-    q = torch.zeros((2, 2, 1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed4_decode_attention(q, tc.kv, tc.scale, 0, 5)
+    tc.write(0, 0, torch.randn((2, 2, 6, 8)), torch.randn((2, 2, 6, 8)))
+    q = torch.randn((2, 2, 1, 8))
+    start = torch.tensor([0, 2], dtype=torch.int32)
+    torch.testing.assert_close(packed4_decode_attention(q, tc.kv, tc.scale, 0, 5),
+                               packed4_decode_attention_plain(q, tc.kv, tc.scale, 0, 5), rtol=0, atol=0)
+    torch.testing.assert_close(packed4_decode_attention(q, tc.kv, tc.scale, 0, 5, start=start),
+                               packed4_decode_attention_plain(q, tc.kv, tc.scale, 0, 5, start), rtol=0, atol=0)
     small = tkv.Packed4QuantKVCache.zeros(1, 2, 2, 16, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed4_decode_attention(q, small.kv, small.scale, 0, 5, start=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="chunked"):
+        packed4_decode_attention(q, small.kv, small.scale, 0, 5, start=start)
+    with pytest.raises(ValueError, match="chunked"):
         packed4_decode_attention(q, small.kv, small.scale, 0, 5, key_mask=torch.ones((2, 16), dtype=torch.bool))
 
 

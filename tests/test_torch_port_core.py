@@ -56,7 +56,7 @@ def test_hash_bits_identical():
         np.asarray(jhash.fmix32(jnp.asarray(x.astype(np.uint32)))).astype(np.int64))
 
 
-@pytest.mark.parametrize("vocab", [64, 1024, 16384])
+@pytest.mark.parametrize("vocab", [64, 1024, 16384, 65536])
 @pytest.mark.parametrize("split", ["rand", "stratifiedrand"])
 @pytest.mark.parametrize("seeding", ["fixed", "linear", "spatial"])
 def test_hash_greenlist_bit_identical(vocab, split, seeding):

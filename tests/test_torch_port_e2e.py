@@ -152,7 +152,9 @@ def test_chip_smoke_phases_on_cpu():
         tmg.MaskGitVQConfig(**{**VQ, "n_embed": 64}))
     assert "w_q" in wrapper.rar.blocks[0].attn.qkv.params() and wrapper.cache_dtype == "packed4"
     out = chip_smoke.phase_main_path("cpu", wrapper, classes=8)
-    assert len(out["seconds"]) == 2 and out["launches"] == 0  # plain version on the CPU: no kernel launches
+    # plain versions on the CPU: no kernel launches; the batches ran on both packed caches
+    assert len(out["seconds"]) == 2 and set(out["launches"].values()) == {0}
+    assert wrapper.cache_dtype == "packed4"
     assert out["green_fraction"] > 0.4 and 0 <= out["median_raw_pvalue"] <= 1
 
 
@@ -161,7 +163,7 @@ def test_generate_refuses_what_is_not_ported(tmp_path):
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
     for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--model", "taming"],
-                  ["--weight_dtype", "int4"], ["--cache_dtype", "packed"]):
+                  ["--weight_dtype", "int4"], ["--interleaved", "spec.json"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
     with pytest.raises(SystemExit, match="ROADMAP"):

@@ -8,7 +8,8 @@ imports no JAX, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache
+from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
+from wmar_tpu_torch.ops import flash_decode as fd
 from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -23,9 +24,9 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _cache(n_layers, b, h, t, d, device, seed=0):
+def _cache(n_layers, b, h, t, d, device, seed=0, cls=Packed4QuantKVCache):
     g = torch.Generator(device=device).manual_seed(seed)
-    cache = Packed4QuantKVCache.zeros(n_layers, b, h, t, d, device=device)
+    cache = cls.zeros(n_layers, b, h, t, d, device=device)
     for li in range(n_layers):
         k, v = (torch.randn((b, h, t, d), generator=g, device=device) for _ in range(2))
         cache.write(li, 0, k, v)
@@ -53,6 +54,70 @@ def test_kernel_matches_plain(device, d, q_dtype):
             assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
             err = (got.float() - want).abs().max().item()
             assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, err)
+
+
+# (wrapper that launches the kernel, its plain version, cache class, T)
+PACKED_KERNELS = {
+    "q8": (fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain, PackedQuantKVCache, 40),
+    "q8_chunked": (fd.packed_decode_attention_q8_chunked, fd.packed_decode_attention_q8_plain,
+                   PackedQuantKVCache, 1100),
+    "packed4_chunked": (fd.packed4_decode_attention_chunked, fd.packed4_decode_attention_plain,
+                        Packed4QuantKVCache, 1100),
+}
+
+
+@pytest.mark.parametrize("kernel", list(PACKED_KERNELS))
+@pytest.mark.parametrize("d", [16, 20, 80, 88, 128, 256])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
+    """Kernels #2-#4 against their plain float32 versions, with and without
+    a ragged ``start`` and a random ``key_mask`` on the chunked ones, at the
+    tolerances of kernel #1. Every row keeps at least one valid slot (the
+    kernels' precondition)."""
+    launch, plain, cls, t = PACKED_KERNELS[kernel]
+    b, h = 5, 3
+    cache, g = _cache(2, b, h, t, d, device, seed=d, cls=cls)
+    q = torch.randn((b, h, 1, d), generator=g, device=device).to(q_dtype)
+    rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
+    masks = [(None, None)]
+    if kernel != "q8":
+        start = torch.randint(0, 300, (b,), generator=g, device=device, dtype=torch.int32)
+        key_mask = torch.rand((b, t), generator=g, device=device) < 0.7
+        masks += [(start, None), (None, key_mask), (start, key_mask)]
+    for layer in (0, 1):
+        for n in ((1, 17, 39, 40) if t < 1024 else (1, 128, 129, 600, t)):
+            for start, key_mask in masks:
+                if start is not None:
+                    start = torch.clamp(start, max=n - 1)
+                if key_mask is not None:
+                    key_mask = key_mask.clone()
+                    key_mask[torch.arange(b, device=device), start if start is not None else 0] = True
+                before = launch.launches
+                got = launch(q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device),
+                             start=start, key_mask=key_mask)
+                torch.cuda.synchronize()
+                assert launch.launches == before + 1
+                want = plain(q.float(), cache.kv, cache.scale, layer, n, start, key_mask)
+                assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
+                err = (got.float() - want).abs().max().item()
+                assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, start is None, key_mask is None, err)
+
+
+def test_packed_wrappers_route_by_length(device):
+    """The public wrappers take the chunked kernels from 1024 slots on and
+    refuse start/key_mask below that, as the JAX wrappers do."""
+    for public, chunked, cls in ((fd.packed4_decode_attention, fd.packed4_decode_attention_chunked,
+                                  Packed4QuantKVCache),
+                                 (fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_chunked,
+                                  PackedQuantKVCache)):
+        long, _ = _cache(1, 2, 2, 1024, 16, device, cls=cls)
+        q = torch.randn((2, 2, 1, 16), device=device)
+        before = (public.launches, chunked.launches)
+        public(q, long.kv, long.scale, 0, 5, start=torch.zeros(2, dtype=torch.int32, device=device))
+        assert (public.launches, chunked.launches) == (before[0], before[1] + 1)
+        short, _ = _cache(1, 2, 2, 16, 16, device, cls=cls)
+        with pytest.raises(ValueError, match="chunked"):
+            public(q, short.kv, short.scale, 0, 5, key_mask=torch.ones((2, 16), dtype=torch.bool, device=device))
 
 
 def test_kernel_rejects_bad_inputs(device):

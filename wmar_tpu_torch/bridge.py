@@ -6,9 +6,13 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
 * RAR dict trees map 1:1: the port's modules store ``w [n_in, n_out]`` as
   the tree does, so a leaf's path joined by dots is its ``state_dict`` key.
   Quantized linears (``w_q``, ``w_scale``, ``b``) switch the module to int8.
-* MaskGit Flax trees: conv ``kernel`` goes from HWIO to OIHW as
-  ``weight``; GroupNorm ``scale``/``bias`` become ``weight``/``bias``.
-* A JAX ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
+* Llama trees (the Chameleon backbone) stay dict trees: every leaf,
+  ``{"q", "s"}`` int8 matrices included, becomes a tensor in place.
+* MaskGit and Taming-VQGAN Flax trees: conv ``kernel`` goes from HWIO to
+  OIHW as ``weight``; GroupNorm ``scale``/``bias`` become
+  ``weight``/``bias``.
+* A JAX ``PackedQuantKVCache`` or ``Packed4QuantKVCache`` (``kv``,
+  ``scale``) becomes the port's.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache
+from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
 from wmar_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
 from wmar_tpu_torch.models.rar import RAR
+from wmar_tpu_torch.models.vqgan import TamingVQGAN
 
 
 def to_tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -67,9 +72,30 @@ def load_rar(model: RAR, params: Dict) -> RAR:
     return model
 
 
+def load_llama(params: Any, dtype=None, device=None) -> Any:
+    """A JAX llama tree (numpy leaves) as the same tree of tensors. ``dtype``
+    casts the floating leaves; int8 payloads keep their type."""
+    if isinstance(params, dict):
+        return {k: load_llama(v, dtype, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [load_llama(v, dtype, device) for v in params]
+    t = to_tensor(params, device=device)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
 @torch.no_grad()
 def load_maskgit(model: MaskGitVQGAN, variables: Dict) -> MaskGitVQGAN:
     """Load Flax MaskGit variables (``{"params": ...}`` or the inner dict)."""
+    return _load_flax(model, variables)
+
+
+@torch.no_grad()
+def load_taming_vqgan(model: TamingVQGAN, variables: Dict) -> TamingVQGAN:
+    """Load Flax Taming-VQGAN variables (``{"params": ...}`` or the inner dict)."""
+    return _load_flax(model, variables)
+
+
+def _load_flax(model, variables: Dict):
     params = variables.get("params", variables)
     own = dict(model.named_parameters())
     seen = set()
@@ -92,6 +118,11 @@ def load_maskgit(model: MaskGitVQGAN, variables: Dict) -> MaskGitVQGAN:
     if seen != set(own):
         raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - seen)[:5]}")
     return model
+
+
+def packed_cache(kv, scale, head_dim: int, device=None) -> PackedQuantKVCache:
+    """A JAX ``PackedQuantKVCache``'s ``kv`` and ``scale`` as the port's cache."""
+    return PackedQuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim)
 
 
 def packed4_cache(kv, scale, head_dim: int, device=None) -> Packed4QuantKVCache:

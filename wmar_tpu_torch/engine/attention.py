@@ -2,9 +2,12 @@
 
 Port of ``wmar_tpu.engine.attention``. Decode attends the new query tokens
 against the padded cache with a length mask (masked slots get -1e30, as in
-the JAX package). Single-token steps on a ``Packed4QuantKVCache`` go to the
-hand-written CUDA kernel (:mod:`wmar_tpu_torch.ops.flash_decode`); every
-other case runs the plain torch path on the dequantized ``cache.layer()``.
+the JAX package). Single-token steps on the packed caches
+(``PackedQuantKVCache``, ``Packed4QuantKVCache``) go to the hand-written
+CUDA kernels (:mod:`wmar_tpu_torch.ops.flash_decode`); calls with ``start``
+or ``key_mask`` only where the cache has 1024 slots or more, as in JAX.
+Every other case runs the plain torch path on the dequantized
+``cache.layer()``.
 """
 
 from __future__ import annotations
@@ -26,13 +29,16 @@ def _promoted(*xs: torch.Tensor):
 
 def cached_decode_attention(q, cache, layer: int, valid_len, start=None, key_mask=None):
     """Decode attention against ``cache``, dispatching on the cache type."""
-    from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache
+    from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
 
-    if isinstance(cache, Packed4QuantKVCache) and q.shape[2] == 1 and q.shape[1] == cache.n_heads:
-        from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention
+    packed = isinstance(cache, (PackedQuantKVCache, Packed4QuantKVCache))
+    # start/key_mask are taken only by the chunked kernels (T >= 1024)
+    masks_ok = (start is None and key_mask is None) or (packed and cache.max_len >= 1024)
+    if packed and q.shape[2] == 1 and q.shape[1] == cache.n_heads and masks_ok:
+        from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed_decode_attention_q8
 
-        return packed4_decode_attention(q, cache.kv, cache.scale, layer, valid_len,
-                                        start=start, key_mask=key_mask)
+        kernel = packed4_decode_attention if isinstance(cache, Packed4QuantKVCache) else packed_decode_attention_q8
+        return kernel(q, cache.kv, cache.scale, layer, valid_len, start=start, key_mask=key_mask)
     k_all, v_all = cache.layer(layer)
     return decode_attention(q, k_all, v_all, valid_len, start=start, key_mask=key_mask)
 

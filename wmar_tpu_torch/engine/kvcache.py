@@ -7,8 +7,8 @@ memory a decode loop would otherwise copy per step) and returns ``self``.
 ``pos`` may be a Python int or a device tensor, so a decode loop never has
 to read the position back to the host.
 
-Not ported yet: ``PackedQuantKVCache`` (int8 packed, waits with its decode
-kernel, ROADMAP queue 2) and ``CacheSpec`` (multi-GPU sharding).
+Not ported yet: ``CacheSpec`` and the packed caches' ``tp_groups`` lane
+order (multi-GPU sharding, ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -42,8 +42,7 @@ class KVCache:
         if dtype == "packed4":
             return Packed4QuantKVCache.zeros(n_layers, batch, n_heads, max_len, head_dim, device=device)
         if dtype == "packed":
-            raise NotImplementedError(
-                "the int8 packed cache waits with its decode kernel (ROADMAP queue 2, kernel 2)")
+            return PackedQuantKVCache.zeros(n_layers, batch, n_heads, max_len, head_dim, device=device)
         shape = (n_layers, batch, n_heads, max_len, head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
@@ -112,6 +111,64 @@ class QuantKVCache:
         k = self.k[layer].to(torch.bfloat16) * self.k_scale[layer][..., None]
         v = self.v[layer].to(torch.bfloat16) * self.v_scale[layer][..., None]
         return k, v
+
+
+class PackedQuantKVCache:
+    """int8 cache in the packed-heads layout.
+
+    kv: int8 ``[L, B, T, 2*H*D]``, lanes ``[:H*D]`` the K payload and
+    ``[H*D:]`` the V payload of one token (head-major); scale: bf16 ``[L, B,
+    2*H, T]``, rows ``[:H]`` K scales and ``[H:]`` V. The quantization is
+    :meth:`QuantKVCache._quantize`, so dequantized values equal that cache's.
+    Single-token decode reads it through
+    :func:`wmar_tpu_torch.ops.flash_decode.packed_decode_attention_q8`.
+    """
+
+    def __init__(self, kv: torch.Tensor, scale: torch.Tensor, head_dim: int):
+        self.kv = kv
+        self.scale = scale
+        self.head_dim = head_dim
+
+    @classmethod
+    def zeros(cls, n_layers: int, batch: int, n_heads: int, max_len: int, head_dim: int,
+              device: Device = "cpu"):
+        return cls(
+            torch.zeros((n_layers, batch, max_len, 2 * n_heads * head_dim), dtype=torch.int8, device=device),
+            torch.zeros((n_layers, batch, 2 * n_heads, max_len), dtype=torch.bfloat16, device=device),
+            head_dim,
+        )
+
+    @property
+    def max_len(self) -> int:
+        return self.kv.shape[2]
+
+    @property
+    def n_heads(self) -> int:
+        return self.scale.shape[2] // 2
+
+    def write(self, layer: int, pos, k_new: torch.Tensor, v_new: torch.Tensor) -> "PackedQuantKVCache":
+        kq, ks = QuantKVCache._quantize(k_new)  # [B, H, t, D], [B, H, t]
+        vq, vs = QuantKVCache._quantize(v_new)
+        b, h, t, d = kq.shape
+        payload = torch.cat([kq.transpose(1, 2).reshape(b, t, h * d),
+                             vq.transpose(1, 2).reshape(b, t, h * d)], dim=-1)
+        scales = torch.cat([ks, vs], dim=1)  # [B, 2H, t]
+        idx = _slots(pos, t, self.kv.device)
+        self.kv[layer].index_copy_(1, idx, payload)
+        self.scale[layer].index_copy_(2, idx, scales)
+        return self
+
+    def layer(self, layer: int):
+        """Dequantized ``[B, H, T, D]`` bf16 K/V, equal to :class:`QuantKVCache`'s."""
+        b, t, _ = self.kv.shape[1:]
+        h, d = self.n_heads, self.head_dim
+        pay = self.kv[layer].reshape(b, t, 2, h, d)
+        sc = self.scale[layer]
+
+        def unpack(x, scale):  # x [B, T, H, D] int8, scale [B, H, T]
+            return x.to(torch.bfloat16).transpose(1, 2) * scale[..., None]
+
+        return unpack(pay[:, :, 0], sc[:, :h]), unpack(pay[:, :, 1], sc[:, h:])
 
 
 class Packed4QuantKVCache:

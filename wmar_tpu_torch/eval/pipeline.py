@@ -5,8 +5,9 @@ Port of ``wmar_tpu.eval.pipeline`` without the attack grid and sync
 decode to images, round-trip them through the tokenizer, re-tokenize, and
 compute p-value / L0 token mismatch / PSNR per (transform, param, sample).
 
-Results go to the same on-disk tree as the JAX package's, so
-``wmar_tpu/eval/analyzer.py`` reads them as they are:
+Conditionings are class ids (RAR) or prompt strings (Chameleon); either
+names its result directory. Results go to the same on-disk tree as the JAX
+package's, so ``wmar_tpu/eval/analyzer.py`` reads them as they are:
 
     outdir/c={cond},idx={k}/{k:04}_{method}_{transform}_{param}.{png,npy,json}
 """

@@ -1,21 +1,31 @@
 """Watermarked generation + evaluation on a CUDA card (PyTorch port of
-``generate.py`` for ``--model rar``).
+``generate.py`` for ``--model rar`` and ``--model chameleon7b``).
 
     python -m wmar_tpu_torch.generate --model rar --tiny --no_augs \\
         --conditioning 0,1 --num_samples_per_conditioning 2 --batch_size 4 \\
         --cache_dtype packed4 --outdir out/
+    python -m wmar_tpu_torch.generate --model chameleon7b --no_augs \\
+        --weight_dtype int8 --cache_dtype packed4 --conditioning prompts.txt \\
+        --batch_size 8 --outdir out/
+
+``--conditioning`` is a comma-separated list of class ids, or the path of a
+file with one prompt per line (Chameleon).
 
 The flags keep ``generate.py``'s names. ``--device`` (default ``cuda``)
 names the device outright: without a CUDA card the default fails rather
 than moving to the CPU, and the tests pass ``--device cpu``. Flags whose
 paths are not ported yet exit with the ROADMAP item that ports them.
 Without ``--tiny`` the model runs at its published widths with random
-weights drawn from ``--seed``: loading checkpoints is not ported yet.
+weights drawn from ``--seed``: loading checkpoints is not ported yet. For
+Chameleon that means CHAMELEON_7B with the synthetic full-size vocabulary
+(8192 image codes in a 65536-entry table) and a synthetic tokenizer, as the
+JAX bench runs it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -28,7 +38,7 @@ _NOT_PORTED = {
     "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
     "include_diffpure": "the neural attacks (ROADMAP queue 1, item 12)",
     "wm_torch_compat": "torch-compat greenlist tables (ROADMAP queue 1, item 1)",
-    "interleaved": "Chameleon (ROADMAP queue 1, item 9)",
+    "interleaved": "the interleaved Chameleon frontend (ROADMAP queue 1, item 9)",
 }
 
 
@@ -49,11 +59,12 @@ def get_parser():
     p.add_argument("--decoder_ft_ckpt", type=str, default=None)
     p.add_argument("--tiny", action="store_true", help="random tiny model (smoke test)")
     p.add_argument("--cache_dtype", type=str, default=None, choices=["bf16", "f32", "int8", "packed", "packed4"],
-                   help="KV cache; packed4 is read by the hand-written CUDA decode-attention kernel")
+                   help="KV cache; packed and packed4 are read by the hand-written CUDA decode-attention kernels")
     p.add_argument("--weight_dtype", type=str, default=None, choices=["int8", "int4"],
                    help="weight-only int8 for the generator's linears")
     p.add_argument("--num_samples_per_conditioning", type=int, default=1)
-    p.add_argument("--conditioning", type=str, default="0", help="comma-separated class ids")
+    p.add_argument("--conditioning", type=str, default="0",
+                   help="comma-separated class ids, or a file of prompts, one per line")
     p.add_argument("--batch_size", type=int, default=10)
     p.add_argument("--top_k", type=int, default=600)
     p.add_argument("--temperature", type=float, default=1.0)
@@ -83,8 +94,8 @@ def get_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.model != "rar":
-        raise SystemExit(f"--model {args.model} is not ported yet (ROADMAP queue 1, items 7 and 9)")
+    if args.model == "taming":
+        raise SystemExit("--model taming is not ported yet (ROADMAP queue 1, item 7)")
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False, "none"):
             raise SystemExit(f"--{name}: {what} is not ported yet")
@@ -96,11 +107,47 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--wm_split_strategy clustering is not ported yet (ROADMAP queue 1, item 1)")
     if args.weight_dtype == "int4":
         raise SystemExit("--weight_dtype int4 is not ported yet (ROADMAP queue 2, kernel 8)")
-    if args.cache_dtype == "packed":
-        raise SystemExit("--cache_dtype packed is not ported yet (ROADMAP queue 2, kernel 2)")
+
+
+def synthetic_tokenizer(n_chars: int):
+    """The synthetic tokenizer of the JAX CLI and bench: one text id per
+    character of the first ``n_chars``."""
+    return lambda text: [6 + (ord(c) % 20) for c in text[:n_chars]]
+
+
+def load_chameleon(args, device: torch.device):
+    from wmar_tpu_torch.models import (
+        CHAMELEON_7B,
+        CHAMELEON_F16,
+        ChameleonARMM,
+        ChameleonVocab,
+        LlamaConfig,
+        VQGANConfig,
+        init_llama_params,
+        init_taming_vqgan,
+    )
+
+    if args.tiny:
+        vocab = ChameleonVocab.synthetic(n_codes=16, n_text=20)
+        lcfg = LlamaConfig(dim=32, n_layers=2, n_heads=4, vocab_size=vocab.vocab_size, multiple_of=16,
+                           qk_normalization=True)
+        vq_cfg = VQGANConfig(resolution=8, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
+                             z_channels=32, n_embed=16, embed_dim=8)
+        dtype, image_seq_len, tok, cache_dtype = torch.float32, 16, synthetic_tokenizer(5), torch.float32
+    else:
+        lcfg, vq_cfg = CHAMELEON_7B, CHAMELEON_F16
+        vocab = ChameleonVocab.synthetic(n_codes=8192, n_text=lcfg.vocab_size - 8192 - 6)
+        dtype, image_seq_len, tok, cache_dtype = torch.bfloat16, 1024, synthetic_tokenizer(16), torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_llama_params(lcfg, gen, dtype=dtype, device=device)
+    vq = init_taming_vqgan(vq_cfg, gen, dtype=dtype, device=device)
+    return ChameleonARMM(params, lcfg, vocab, vq, tokenizer=tok, image_seq_len=image_seq_len,
+                         cache_dtype=cache_dtype, device=device)
 
 
 def load_wrapper(args, device: torch.device):
+    if args.model == "chameleon7b":
+        return load_chameleon(args, device)
     from wmar_tpu_torch.models import (
         MASKGIT_IMAGENET_F16,
         MaskGitVQConfig,
@@ -138,14 +185,17 @@ def main(argv=None):
 
     from wmar_tpu_torch.core import WatermarkSpec
     from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
-    from wmar_tpu_torch.models import GenParams, quantize_rar_params_int8
+    from wmar_tpu_torch.models import GenParams, quantize_llama_params_int8, quantize_rar_params_int8
 
     wrapper = load_wrapper(args, device)
     if args.cache_dtype:
         wrapper.cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
-                               "packed4": "packed4"}[args.cache_dtype]
+                               "packed": "packed", "packed4": "packed4"}[args.cache_dtype]
     if args.weight_dtype == "int8":
-        quantize_rar_params_int8(wrapper.rar, compute_dtype=torch.bfloat16)
+        if args.model == "chameleon7b":
+            wrapper.llama_params = quantize_llama_params_int8(wrapper.llama_params, compute_dtype=torch.bfloat16)
+        else:
+            quantize_rar_params_int8(wrapper.rar, compute_dtype=torch.bfloat16)
 
     apply_wm = args.wm_method == "gentime"
     if apply_wm:
@@ -155,7 +205,11 @@ def main(argv=None):
                                          spatial_dim=wrapper.codes_size)
         wrapper.set_watermarker(spec)
 
-    conds = [int(c) for c in args.conditioning.split(",")]
+    if os.path.exists(args.conditioning):
+        with open(args.conditioning) as f:
+            conds = [line.strip() for line in f if line.strip()]
+    else:
+        conds = [int(c) for c in args.conditioning.split(",")]
     all_inputs = [c for c in conds for _ in range(args.num_samples_per_conditioning)]
     gen = GenParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
                     guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)

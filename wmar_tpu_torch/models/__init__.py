@@ -1,6 +1,15 @@
-"""Model families: RAR with the MaskGit-VQGAN tokenizer, behind the ARMM API."""
+"""Model families behind the ARMM API: RAR with the MaskGit-VQGAN tokenizer,
+and Chameleon/Anole-7B (Llama) with the Taming VQGAN tokenizer."""
 
 from wmar_tpu_torch.models.armm import ARMMWrapper, GenParams, RarARMM
+from wmar_tpu_torch.models.chameleon import ChameleonARMM, ChameleonVocab, ImageCFGOptions, build_cfg_prompts
+from wmar_tpu_torch.models.llama import (
+    CHAMELEON_7B,
+    LlamaConfig,
+    init_llama_params,
+    llama_forward,
+    quantize_llama_params_int8,
+)
 from wmar_tpu_torch.models.maskgit_vqgan import (
     MASKGIT_IMAGENET_F16,
     MaskGitVQConfig,
@@ -8,10 +17,23 @@ from wmar_tpu_torch.models.maskgit_vqgan import (
     init_maskgit,
 )
 from wmar_tpu_torch.models.rar import RAR, RARConfig, RARSampler, init_rar, quantize_rar_params_int8, rar_config
+from wmar_tpu_torch.models.vqgan import (
+    CHAMELEON_F16,
+    TAMING_IMAGENET_F16,
+    TamingVQGAN,
+    VQGANConfig,
+    init_taming_vqgan,
+)
 
 __all__ = [
     "ARMMWrapper",
+    "CHAMELEON_7B",
+    "CHAMELEON_F16",
+    "ChameleonARMM",
+    "ChameleonVocab",
     "GenParams",
+    "ImageCFGOptions",
+    "LlamaConfig",
     "MASKGIT_IMAGENET_F16",
     "MaskGitVQConfig",
     "MaskGitVQGAN",
@@ -19,8 +41,16 @@ __all__ = [
     "RARConfig",
     "RARSampler",
     "RarARMM",
+    "TAMING_IMAGENET_F16",
+    "TamingVQGAN",
+    "VQGANConfig",
+    "build_cfg_prompts",
+    "init_llama_params",
     "init_maskgit",
     "init_rar",
+    "init_taming_vqgan",
+    "llama_forward",
+    "quantize_llama_params_int8",
     "quantize_rar_params_int8",
     "rar_config",
 ]

@@ -9,8 +9,9 @@ Port of ``wmar_tpu.models.armm``:
 
 The watermark is fused into the sampler. Randomness comes from an explicit
 ``torch.Generator`` (or, in tests, from fed Gumbel noise); every method
-runs under ``torch.inference_mode`` on the wrapper's device. ``TamingARMM``
-is not ported yet (ROADMAP queue 1, item 7).
+runs under ``torch.inference_mode`` on the wrapper's device.
+``ChameleonARMM`` lives in :mod:`wmar_tpu_torch.models.chameleon`;
+``TamingARMM`` is not ported yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -72,6 +73,12 @@ class ARMMWrapper:
 
     def get_total_vocab_size(self) -> int:
         raise NotImplementedError
+
+    def is_codes_shaped(self, codes) -> bool:
+        return codes.ndim == 2 and codes.shape[1] == self.codes_size**2
+
+    def is_images_shaped(self, images) -> bool:
+        return images.ndim == 4 and tuple(images.shape[1:]) == (self.image_size, self.image_size, 3)
 
 
 class RarARMM(ARMMWrapper):

@@ -1,0 +1,250 @@
+"""Llama-style transformer, the Chameleon/Anole-7B backbone (PyTorch).
+
+Port of ``wmar_tpu.models.llama``: RMSNorm pre-norm blocks, rotary
+embeddings on adjacent pairs, SwiGLU FFN, optional per-head qk-LayerNorm
+(the Chameleon setting), GQA-capable, with a preallocated KV cache and
+per-row start offsets for right-aligned ragged prompts.
+
+Parameters stay the JAX package's tree: a dict ``{"tok_embeddings",
+"blocks": [...], "norm", "output"}`` of tensors with matrices ``[n_in,
+n_out]``, where a weight-only-int8 matrix is a ``{"q", "s"}`` dict
+(:func:`quantize_llama_params_int8`). :func:`wmar_tpu_torch.bridge.load_llama`
+turns a JAX tree into one.
+
+Single-token decode on the packed caches goes to the hand-written CUDA
+kernels through :func:`wmar_tpu_torch.engine.attention.cached_decode_attention`
+(the chunked ones at Chameleon's ~1043 slots, with the per-row ``start``).
+Not ported yet: the flash-decode kernels #5/#6 that JAX takes for a float
+or int8 cache of 2048 slots or more (here that case raises), the
+sequence-parallel prefill and the tensor-parallel specs (ROADMAP queue 1,
+item 14).
+
+Chameleon-7B config: dim 4096, 32 layers/heads, ffn 11008, qk_normalization,
+vocab 65536.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from wmar_tpu_torch.engine.attention import cached_decode_attention, decode_attention
+from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
+from wmar_tpu_torch.ops import wquant
+
+FLASH_DECODE_MIN_CACHE = 2048
+_FLASH = ("single-token decode over a float or int8 cache of {} slots (>= 2048) takes the flash-decode "
+          "kernels #5/#6 (flash_decode_attention, flash_decode_attention_q8), which are not ported yet "
+          "(ROADMAP queue 2); use --cache_dtype packed or packed4")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: Optional[int] = None
+    vocab_size: int = 65536
+    multiple_of: int = 256
+    ffn_dim_multiplier: Optional[float] = None
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    qk_normalization: bool = True
+    layer_scale: bool = False
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def ffn_hidden(self) -> int:
+        hidden = int(2 * (4 * self.dim) / 3)
+        if self.ffn_dim_multiplier is not None:
+            hidden = int(self.ffn_dim_multiplier * hidden)
+        return self.multiple_of * ((hidden + self.multiple_of - 1) // self.multiple_of)
+
+
+CHAMELEON_7B = LlamaConfig()
+
+
+@torch.no_grad()
+def init_llama_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32, device=None) -> dict:
+    """Random weights from ``generator`` by the JAX init's rules: matrices
+    ``N(0, 1/n_in)``, embeddings ``N(0, 0.02^2)``, unit norms, qk-norm
+    scales 1 and biases 0, LayerScale 1e-4."""
+
+    def mat(n_in, n_out, std=None):
+        w = torch.randn((n_in, n_out), generator=generator, device=device, dtype=torch.float32)
+        return (w * (std if std is not None else n_in**-0.5)).to(dtype)
+
+    def full(n, value):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    d, hd = cfg.dim, cfg.head_dim
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blk = {
+            "attention_norm": full(d, 1.0),
+            "ffn_norm": full(d, 1.0),
+            "wq": mat(d, cfg.n_heads * hd),
+            "wk": mat(d, cfg.kv_heads * hd),
+            "wv": mat(d, cfg.kv_heads * hd),
+            "wo": mat(cfg.n_heads * hd, d),
+            "w1": mat(d, cfg.ffn_hidden),
+            "w3": mat(d, cfg.ffn_hidden),
+            "w2": mat(cfg.ffn_hidden, d),
+        }
+        if cfg.qk_normalization:
+            blk["q_norm"] = {"scale": full(hd, 1.0), "bias": full(hd, 0.0)}
+            blk["k_norm"] = {"scale": full(hd, 1.0), "bias": full(hd, 0.0)}
+        if cfg.layer_scale:
+            blk["ls1"] = full(d, 1e-4)
+            blk["ls2"] = full(d, 1e-4)
+        blocks.append(blk)
+    return {
+        "tok_embeddings": mat(cfg.vocab_size, d, std=0.02),
+        "blocks": blocks,
+        "norm": full(d, 1.0),
+        "output": mat(d, cfg.vocab_size),
+    }
+
+
+def _rms(x, scale, eps):
+    var = (x.to(torch.float32) ** 2).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _ln(x, p, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def rope_angles(positions: torch.Tensor, d: int, theta: float):
+    """``(cos, sin)`` of shape ``[B, t, 1, d/2]`` for ``positions [B, t]``."""
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=positions.device) / d))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    b, t, h, d = x.shape
+    xr = x.reshape(b, t, h, d // 2, 2)
+    x0, x1 = xr[..., 0], xr[..., 1]
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    return out.reshape(b, t, h, d).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Llama rotary embedding on adjacent pairs ``(x[2i], x[2i+1])``.
+    ``x [B, t, H, D]``, ``positions [B, t]`` (per row, so left padding
+    shifts correctly)."""
+    return _rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def block_attn_inputs(blk, cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor, rope=None):
+    """Pre-attention half of one block: norms, qkv projections, rope, GQA
+    head repeat. ``x [B, t, dim]`` -> ``q, k, v [B, H, t, D]``. ``rope``:
+    the ``(cos, sin)`` of :func:`rope_angles`, shared by a forward's layers."""
+    b, t = x.shape[:2]
+    n_rep = cfg.n_heads // cfg.kv_heads
+    h = _rms(x, blk["attention_norm"], cfg.norm_eps)
+    q = wquant.matmul(h, blk["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = wquant.matmul(h, blk["wk"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = wquant.matmul(h, blk["wv"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    if cfg.qk_normalization:
+        q = _ln(q, blk["q_norm"], cfg.norm_eps)
+        k = _ln(k, blk["k_norm"], cfg.norm_eps)
+    cos, sin = rope if rope is not None else rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = _rotate(q, cos, sin)
+    k = _rotate(k, cos, sin)
+    if n_rep > 1:
+        k = torch.repeat_interleave(k, n_rep, dim=2)
+        v = torch.repeat_interleave(v, n_rep, dim=2)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def block_finish(blk, cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """Post-attention half of one block: output projection, residuals,
+    SwiGLU FFN, optional LayerScale. ``attn [B, H, t, D]`` -> new ``x``."""
+    b, t = x.shape[:2]
+    attn = attn.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    attn_out = wquant.matmul(attn, blk["wo"])
+    x = x + (blk["ls1"] * attn_out if cfg.layer_scale else attn_out)
+    h2 = _rms(x, blk["ffn_norm"], cfg.norm_eps)
+    ffn_out = wquant.matmul(F.silu(wquant.matmul(h2, blk["w1"])) * wquant.matmul(h2, blk["w3"]), blk["w2"])
+    return x + (blk["ls2"] * ffn_out if cfg.layer_scale else ffn_out)
+
+
+def _cache_attention(q, cache, li, valid_len, start, key_mask):
+    if isinstance(cache, (PackedQuantKVCache, Packed4QuantKVCache)):
+        return cached_decode_attention(q, cache, li, valid_len, start=start, key_mask=key_mask)
+    if q.shape[2] == 1 and cache.max_len >= FLASH_DECODE_MIN_CACHE:
+        raise NotImplementedError(_FLASH.format(cache.max_len))
+    k_all, v_all = cache.layer(li)
+    return decode_attention(q, k_all, v_all, valid_len, start=start, key_mask=key_mask)
+
+
+def llama_forward(
+    params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,
+    cache,
+    write_pos,
+    positions: torch.Tensor,
+    start: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, object]:
+    """Forward ``tokens [B, t]`` written into the cache at ``write_pos`` (an
+    int or a 0-d device tensor).
+
+    ``positions [B, t]``: rope positions (prompt-relative, pads excluded).
+    ``start [B]``: first valid cache index per row (left-pad masking).
+    ``key_mask [B, T_max]``: optional per-slot validity. The cache is
+    updated in place. Returns ``(logits [B, t, vocab] float32, cache)``.
+    """
+    t = tokens.shape[1]
+    x = params["tok_embeddings"][tokens]
+    valid_len = write_pos + t
+    if isinstance(valid_len, torch.Tensor):
+        valid_len = valid_len.to(torch.int32)  # one cast per forward, read by every layer's kernel
+    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    for li, blk in enumerate(params["blocks"]):
+        q, k, v = block_attn_inputs(blk, cfg, x, positions, rope)
+        cache = cache.write(li, write_pos, k, v)
+        attn = _cache_attention(q.contiguous(), cache, li, valid_len, start, key_mask)
+        x = block_finish(blk, cfg, x, attn)
+    x = _rms(x, params["norm"], cfg.norm_eps)
+    return wquant.matmul(x, params["output"]).to(torch.float32), cache
+
+
+WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+
+
+@torch.no_grad()
+def quantize_llama_params_int8(params, compute_dtype=None, bits: int = 8) -> dict:
+    """Weight-only int8 for every block linear and the vocab head: each
+    matrix becomes ``{"q": int8, "s": bf16 [n_out]}``, bit-identical to the
+    JAX function's. ``tok_embeddings`` stays float (a gather, not a
+    matmul). With ``compute_dtype`` the float leaves are cast to it.
+    ``bits=4`` (grouped int4, kernel #8) is not ported yet and raises."""
+    if bits != 8:
+        wquant.quantize_linear({}, bits=bits)  # raises for the unported int4
+    out = dict(params)
+    out["blocks"] = [
+        {k: (wquant.quantize_matrix_int8(v) if k in WEIGHT_KEYS else v) for k, v in blk.items()}
+        for blk in params["blocks"]
+    ]
+    out["output"] = wquant.quantize_matrix_int8(params["output"])
+    if compute_dtype is not None:
+        out["tok_embeddings"] = params["tok_embeddings"].to(compute_dtype)
+        out["norm"] = params["norm"].to(compute_dtype)
+        out["blocks"] = wquant.cast_float_leaves(out["blocks"], compute_dtype)
+    return out

@@ -1,8 +1,8 @@
 """Builds the hand-written CUDA kernels at first use and loads them.
 
-Every ``*.cu`` file under ``wmar_tpu_torch/csrc/`` is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded
-with ``ctypes``. The library goes to ``build/wmar_tpu_torch/<hash>/`` at
+Every ``*.cu`` file under ``wmar_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` for ``sm_90a`` (all started together), and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``. The library goes to ``build/wmar_tpu_torch/<hash>/`` at
 the repository root, keyed by a hash of the sources and flags, so a fresh
 checkout builds everything on its first call and an edited source never
 loads a stale library.
@@ -58,13 +58,34 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, log.read_text() if log.exists() else ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in _sources():
+        obj = lib.with_name(f".{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    output = ""
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        output += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        output += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout + proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     log.write_text(output)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib, seconds, output
@@ -78,5 +99,8 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.wmar_packed4_decode_attention
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
+    fn = lib.wmar_packed_decode_attention
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     return lib

@@ -48,6 +48,16 @@ def quantize_linear(p: dict, bits: int = 8, compute_dtype=None) -> dict:
     return quantize_linear_int8(p, compute_dtype=compute_dtype)
 
 
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a bare matrix or an int8 ``{"q","s"}`` dict, as llama
+    calls it; a grouped-int4 ``{"q4","s4"}`` dict raises."""
+    if isinstance(w, dict):
+        if "q4" in w:
+            raise NotImplementedError(_INT4)
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return _matmul(x, w)
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Linear layer on ``{"w","b"}`` or int8 ``{"w_q","w_scale","b"}``."""
     if "w_q4" in p:
