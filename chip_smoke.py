@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths once at full width and checks them, in
+Drives the port's three main paths once at full width and checks them, in
 phases:
 
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
@@ -17,8 +17,12 @@ phases:
    ``packed4_decode_attention_chunked``) at the Chameleon-7B shape (24 rows,
    32 heads of 128, 1043 slots, 32 layers) with a ragged ``start`` that
    blanks the first chunk of the CFG rows and once a random ``key_mask``;
-   each against its plain float32 version, and each timed beside it at
-   full fill;
+   kernels #1 and #2 again at the Taming-1.4B decode shape (32 rows, 257
+   slots, 16 heads of 104, 48 layers); kernel #8 (``matmul_w4``, the w4a16
+   matmul) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24 rows)
+   and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64 and
+   32; each against its plain float32 version, and timed beside it (#1-#4
+   at full fill, #8 at the Taming shapes and the Chameleon FFN shape);
 3. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
    watermark through the port's ``generate_and_evaluate`` on 64 classes,
    a warm-up batch on the int8 packed cache (kernel #2) and a timed one on
@@ -33,7 +37,16 @@ phases:
    ``generate_and_evaluate``: a warm-up batch on the packed cache (kernel
    #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
    layers each; checks image tokens, 512 px images in [-1, 1], p-values,
-   the green fraction and the launch counts, and prints peak memory.
+   the green fraction and the launch counts, and prints peak memory;
+5. Taming path: the 1.4B cin_transformer at full width and depth with
+   grouped-int4 weights (every linear and the head on kernel #8), random
+   positional embeddings, the f16 ImageNet VQGAN at 256 px, the same
+   watermark, 32 classes, temperature 1.0, top-k 250, top-p 0.92 and one
+   round trip, through ``generate_and_evaluate``: a warm-up batch on the
+   packed cache (kernel #2), a timed one on the packed4 cache (kernel #1);
+   checks codes, images, p-values, the green fraction and the exact launch
+   counts of every batch (256 forwards x 289 products for #8, 256 x 48
+   attention calls), and prints imgs/s and peak memory.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -70,9 +83,18 @@ PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in sno
            "a tall ship", "an old bridge at night"]
 
 
+TAMING_CLASSES = 32
+TAMING_GEN = dict(temperature=1.0, top_k=250, top_p=0.92)  # configs/taming_generate.json
+# (K, N) of every weight matrix on each model's path
+TAMING_MATMULS = ((1664, 1664), (1664, 6656), (6656, 1664), (1664, 16384))
+CHAMELEON_MATMULS = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 65536))
+RAR_XL_MATMULS = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 7680), (1280, 2560), (1280, 1024))
+
+
 def _kernels():
     """(name, launching wrapper, source, TPU kernel it replaces) of every kernel."""
     from wmar_tpu_torch.ops import flash_decode as fd
+    from wmar_tpu_torch.ops.w4_matmul import matmul_w4
 
     return [
         ("packed4_decode_attention", fd.packed4_decode_attention,
@@ -83,6 +105,7 @@ def _kernels():
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
         ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:353"),
+        ("matmul_w4", matmul_w4, "wmar_tpu_torch/csrc/w4_matmul.cu", "wmar_tpu/ops/w4_matmul.py:40"),
     ]
 
 
@@ -282,6 +305,98 @@ def _time_pair(kernel_fn, plain_fn, n_layers: int, reps: int) -> list:
             _median_ms(kernel_fn, n_layers, reps), _median_ms(plain_fn, n_layers, reps)]
 
 
+def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129, 257)) -> dict:
+    """Kernels #1 and #2 at the Taming-1.4B decode shape ``(L, B, T, H, D)``
+    against their plain versions; returns each one's worst bf16 error."""
+    from wmar_tpu_torch.ops import flash_decode as fd
+
+    n_layers, b, t, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    out = {}
+    for name, launch, plain, kind in (
+            ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, "packed4"),
+            ("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
+             "packed")):
+        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+        worst = 0.0
+        for q_dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
+            for layer in (0, n_layers - 1):
+                for n in lens:
+                    got = launch(q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device))
+                    if got.is_cuda:
+                        torch.cuda.synchronize()  # a fault in the kernel shows here
+                    want = plain(q.float(), cache.kv, cache.scale, layer, n)
+                    err = _check_close(f"{name} taming {q_dtype} layer={layer} valid_len={n}", got, want, q_dtype)
+                    worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
+        out[name] = worst
+        print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}, Taming-1.4B): ok, valid_len "
+              f"{list(lens)}, layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
+        del cache
+    return out
+
+
+def _w4_weights(k, n, group, gen, device, copies=1):
+    """``copies`` int4-quantized random ``[k, n]`` matrices, as
+    ``wquant.quantize_matrix_int4`` makes them."""
+    from wmar_tpu_torch.ops.wquant import quantize_matrix_int4
+
+    return [quantize_matrix_int4(torch.randn((k, n), generator=gen, device=device) * 0.02, group=group)
+            for _ in range(copies)]
+
+
+def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_bytes=120e6) -> dict:
+    """Kernel #8 (``matmul_w4``) against its plain float32 version with bf16
+    x, at every ``(label, M, K, N)`` case and group size (and with f32 x at
+    the first case), then timed beside it at the ``timed`` cases, walking
+    enough weight copies to exceed the L2 cache, as a decode step does.
+    Returns ``{"max_abs_err", "ms", "plain_ms"}`` of the first timed case."""
+    from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
+
+    if cases is None:
+        cases = ([("taming", 32, k, n) for k, n in TAMING_MATMULS]
+                 + [("chameleon", 24, k, n) for k, n in CHAMELEON_MATMULS]
+                 + [("rar_xl", 128, k, n) for k, n in RAR_XL_MATMULS]
+                 + [("ragged", m, 4096, 4096) for m in (1, 7, 456)])
+    if timed is None:
+        timed = [("taming", 32, k, n) for k, n in TAMING_MATMULS] + [("chameleon ffn", 24, 4096, 11008)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    worst = 0.0
+    for ci, (label, m, k, n) in enumerate(cases):
+        for group in groups:
+            (w,) = _w4_weights(k, n, group, gen, device)
+            for x_dtype in (torch.bfloat16, torch.float32) if ci == 0 else (torch.bfloat16,):
+                x = torch.randn((m, k), generator=gen, device=device).to(x_dtype)
+                got = matmul_w4(x, w["q4"], w["s4"])
+                if got.is_cuda:
+                    torch.cuda.synchronize()  # a fault in the kernel shows here
+                want = matmul_w4_plain(x.float(), w["q4"], w["s4"])
+                err = _check_close(f"matmul_w4 {label} M={m} K={k} N={n} G={group} {x_dtype}", got, want, x_dtype)
+                worst = max(worst, err) if x_dtype == torch.bfloat16 else worst
+        print(f"kernel vs plain matmul_w4 {label} M={m} K={k} N={n}: ok, groups {list(groups)}"
+              f"{', bf16 and f32 x' if ci == 0 else ', bf16 x'}")
+    print(f"kernel vs plain matmul_w4: worst bf16 max abs err {worst:.3e}")
+    out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan")}
+    if torch.device(device).type != "cuda":  # times only on the card
+        return out
+    for ti, (label, m, k, n) in enumerate(timed):
+        wbytes = k * n // 2 + 2 * (k // 128) * n  # nibbles + bf16 scales, group 128
+        copies = max(1, int(-(-l2_bytes // wbytes)))
+        ws = _w4_weights(k, n, 128, gen, device, copies)
+        x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
+        times = _time_pair(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]),
+                           lambda i: matmul_w4_plain(x, ws[i]["q4"], ws[i]["s4"]), copies, reps)
+        ms, plain_ms = min(times[1], times[2]), min(times[0], times[3])
+        if ti == 0:
+            out.update(ms=ms, plain_ms=plain_ms)
+        print(f"time matmul_w4 {label} M={m} K={k} N={n} G=128, {copies} weight copies walked (plain, kernel, "
+              f"kernel, plain): {' '.join(f'{t:.4f}' for t in times)} ms; kernel {wbytes / (ms * 1e-3) / 1e9:.0f} "
+              f"GB/s of weight bytes, {2 * m * k * n / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain "
+              f"{2 * m * k * n / (plain_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        del ws
+    return out
+
+
 class _Recording:
     """Wraps an ARMM wrapper and keeps what the pipeline sampled and decoded."""
 
@@ -289,6 +404,7 @@ class _Recording:
         self.inner = inner
         self.sampled = []
         self.decoded = []
+        self.launches_after = []  # the launch counts after each batch
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
@@ -350,6 +466,7 @@ def _drive(device, wrapper, conds, gen_params, caches, batch_size) -> tuple:
             if is_cuda:
                 torch.cuda.synchronize(device)
             seconds.append(time.perf_counter() - t0)
+            rec.launches_after.append(launches())
     return records, seconds, launches(), rec
 
 
@@ -467,6 +584,74 @@ def phase_chameleon(device, wrapper, prompts=PROMPTS) -> dict:
     return out
 
 
+def build_taming(device, gpt_cfg=None, vq_cfg=None):
+    """The Taming-1.4B cin_transformer and the f16 ImageNet VQGAN unless
+    other configs are given, with random weights from ``SEED``: grouped-int4
+    linears and head, bf16 the rest, and ``pos_emb`` given std-0.02 values
+    (the faithful zero init would let a wrong position index pass)."""
+    from wmar_tpu_torch.core import WatermarkSpec
+    from wmar_tpu_torch.models import (
+        TAMING_GPT_1_4B, TAMING_IMAGENET_F16, TamingARMM, init_gpt, init_taming_vqgan, quantize_gpt_params_int8)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    gpt = init_gpt(gpt_cfg or TAMING_GPT_1_4B, gen, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        gpt.pos_emb.normal_(0.0, 0.02, generator=gen)
+    quantize_gpt_params_int8(gpt, compute_dtype=torch.bfloat16, bits=4)
+    vq = init_taming_vqgan(vq_cfg or TAMING_IMAGENET_F16, gen, dtype=torch.bfloat16, device=device)
+    wrapper = TamingARMM(gpt, vq, cache_dtype="packed4", device=device)
+    wrapper.set_watermarker(WatermarkSpec.from_string(WATERMARK, vocab_size=wrapper.get_total_vocab_size(),
+                                                      spatial_dim=wrapper.codes_size))
+    return wrapper
+
+
+def _w4_products_per_forward(gpt) -> int:
+    """How many of a forward's products take kernel #8: the int4 linears of
+    every block and an int4 head."""
+    n = sum("w_q4" in lin.params() for blk in gpt.blocks
+            for lin in (blk.attn.q, blk.attn.k, blk.attn.v, blk.attn.proj, blk.mlp.fc, blk.mlp.proj))
+    return n + int("q4" in gpt.head_weight())
+
+
+def phase_taming(device, wrapper, classes: int = TAMING_CLASSES) -> dict:
+    """The Taming path: a warm-up batch on the int8 packed cache (kernel
+    #2), then a timed one on the packed4 cache (kernel #1), every linear and
+    the head on kernel #8. Each batch runs ``codes_size**2`` forwards (the
+    1-token prefill of the class id, then one per decode step but the
+    last), so its launch counts are exact."""
+    from wmar_tpu_torch.models import GenParams
+
+    cfg = wrapper.gpt_cfg
+    steps = wrapper.codes_size**2
+    per_batch = {"attention": steps * cfg.n_layer, "matmul_w4": steps * _w4_products_per_forward(wrapper.gpt)}
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    n_cls = min(1000, cfg.vocab_size)
+    conds = [[(bi * classes + i) % n_cls for i in range(classes)] for bi in range(2)]
+    records, seconds, counts, rec = _drive(device, wrapper, conds, GenParams(**TAMING_GEN), ("packed", "packed4"),
+                                           classes)
+    first, both = rec.launches_after
+    second = {k: both[k] - first[k] for k in both}
+    _check_launches(device, first, {"packed_decode_attention_q8": per_batch["attention"],
+                                    "matmul_w4": per_batch["matmul_w4"]}, "Taming path, packed batch")
+    _check_launches(device, second, {"packed4_decode_attention": per_batch["attention"],
+                                     "matmul_w4": per_batch["matmul_w4"]}, "Taming path, packed4 batch")
+    v = wrapper.vq_cfg.n_embed
+    gates = _check_outputs("Taming path", rec.sampled[-1], rec.decoded[-2], records, classes, steps,
+                           wrapper.image_size, lambda c: (c >= 0) & (c < v), wrapper.watermark_spec,
+                           wrapper.greenlist, 0.15)
+    peak = _peak_gib(device)
+    out = {"launches": counts, "seconds": seconds, "imgs_per_s": classes / seconds[1], "peak_gib": peak, **gates}
+    print(f"Taming path: GPT {cfg.n_embd} wide x {cfg.n_layer} layers, {cfg.n_head} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, grouped-int4 weights, {WATERMARK}, {classes} classes, {steps} tokens, "
+          f"{wrapper.image_size} px, {TAMING_GEN}, 1 round trip: warm-up (packed cache) {seconds[0]:.2f} s, timed "
+          f"(packed4 cache) {seconds[1]:.2f} s = {out['imgs_per_s']:.2f} imgs/s (generate_and_evaluate end to end, "
+          f"files included); kernel launches {counts}, per batch {per_batch}; green fraction "
+          f"{gates['green_fraction']:.3f} (gamma {wrapper.watermark_spec.gamma}); median raw p-value "
+          f"{gates['median_raw_pvalue']:.3e}; peak memory {peak:.2f} GiB")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -486,10 +671,16 @@ def main() -> int:
     timed("build", phase_build)
     numbers = {"packed4_decode_attention": timed("kernel #1", phase_kernels, device)}
     numbers.update(timed("kernels #2-#4", phase_packed_kernels, device))
-    rar = timed("RAR path", lambda: phase_main_path(device, build_rar(device)))
+    for name, err in timed("kernels #1, #2 at Taming", phase_taming_attention, device).items():
+        numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], err)
+    numbers["matmul_w4"] = timed("kernel #8", phase_w4, device)
     torch.cuda.empty_cache()
-    cham = timed("Chameleon path", lambda: phase_chameleon(device, build_chameleon(device)))
-    counts = {**rar["launches"], **{k: v for k, v in cham["launches"].items() if v}}
+    paths = [timed("RAR path", lambda: phase_main_path(device, build_rar(device)))]
+    torch.cuda.empty_cache()
+    paths.append(timed("Chameleon path", lambda: phase_chameleon(device, build_chameleon(device))))
+    torch.cuda.empty_cache()
+    paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
+    counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     print(f"card: {card_line()}; phases {json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
           f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

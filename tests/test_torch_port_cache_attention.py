@@ -197,8 +197,12 @@ def test_int8_weights_identical():
     lin.w, lin.b = torch.as_tensor(w), torch.as_tensor(b)
     lin.quantize_int8()
     assert set(lin.params()) == {"w_q", "w_scale", "b"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twq.quantize_linear({"w": torch.as_tensor(w), "b": torch.as_tensor(b)}, bits=4)
+    # bits=4 at n_in 48: no int4 group divides it, so both packages give int8
+    j4 = jwq.quantize_linear({"w": jnp.asarray(w), "b": jnp.asarray(b)}, bits=4, compute_dtype=jnp.bfloat16)
+    t4 = twq.quantize_linear({"w": torch.as_tensor(w), "b": torch.as_tensor(b)}, bits=4, compute_dtype=torch.bfloat16)
+    assert set(t4) == set(j4) == {"w_q", "w_scale", "b"}
+    for key in t4:
+        np.testing.assert_array_equal(_t(t4[key]), _np(j4[key]))
 
 
 def test_cast_float_leaves():

@@ -162,8 +162,8 @@ def test_generate_refuses_what_is_not_ported(tmp_path):
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--model", "taming"],
-                  ["--weight_dtype", "int4"], ["--interleaved", "spec.json"]):
+    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--wm_split_strategy", "clustering"],
+                  ["--include_diffpure", "true"], ["--interleaved", "spec.json"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
     with pytest.raises(SystemExit, match="ROADMAP"):

@@ -10,7 +10,9 @@ import torch
 
 from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
 from wmar_tpu_torch.ops import flash_decode as fd
+from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
+from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +190,85 @@ def test_decode_loop_never_syncs(device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert tokens.shape == (4, 16) and int(tokens.max()) < 64
+
+
+# (M, K, N) of kernel #8 on the main paths: Taming-1.4B (32 rows), Chameleon-7B
+# (24 rows, the vocab head cut to 4160 columns), RAR-XL (128 rows) and ragged
+# row counts (Chameleon's prefill of 24 rows x 19 tokens is 456)
+W4_SHAPES = [(32, 1664, 1664), (32, 1664, 6656), (32, 6656, 1664), (32, 1664, 16384),
+             (24, 4096, 4096), (24, 4096, 11008), (24, 11008, 4096), (24, 4096, 4160),
+             (128, 1280, 3840), (128, 5120, 1280), (128, 1280, 1024),
+             (1, 4096, 4096), (7, 4096, 4096), (456, 4096, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", W4_SHAPES)
+@pytest.mark.parametrize("group", [128, 64, 32])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_matches_plain(device, m, k, n, group, x_dtype):
+    """Kernel #8 against its plain float32 version: max abs error within
+    2^-8 + 1e-5 of max|y| for bf16 x (bf16's rounding of the output plus
+    float32 summation order), 1e-5 for f32 x. Leading dimensions are
+    flattened and restored; one launch per call."""
+    g = torch.Generator(device=device).manual_seed(m * 7 + k + n + group)
+    w = wquant.quantize_matrix_int4(torch.randn((k, n), generator=g, device=device) * 0.02, group=group)
+    x = torch.randn((1, m, k), generator=g, device=device).to(x_dtype)
+    before = matmul_w4.launches
+    got = matmul_w4(x, w["q4"], w["s4"])
+    torch.cuda.synchronize()
+    assert matmul_w4.launches == before + 1
+    want = matmul_w4_plain(x.float(), w["q4"], w["s4"])
+    assert got.dtype == x_dtype and got.shape == (1, m, n)
+    rel = 2.0**-8 + 1e-5 if x_dtype == torch.bfloat16 else 1e-5
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item() + 1e-6, err
+
+
+def test_w4_matmul_rejects_bad_inputs(device):
+    """A wrong dtype, a mismatched K, a non-contiguous x, an unsupported group
+    or operands on two devices raise, and nothing is launched."""
+    w = wquant.quantize_matrix_int4(torch.randn((256, 64), device=device), group=128)
+    q4, s4 = w["q4"], w["s4"]
+    x = torch.randn((4, 256), device=device, dtype=torch.bfloat16)
+    before = matmul_w4.launches
+    with pytest.raises(TypeError):
+        matmul_w4(x.half(), q4, s4)
+    with pytest.raises(TypeError):
+        matmul_w4(x, q4.to(torch.int8), s4)
+    with pytest.raises(TypeError):
+        matmul_w4(x, q4, s4.float())
+    with pytest.raises(ValueError, match="K"):
+        matmul_w4(x[:, :128].contiguous(), q4, s4)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_w4(torch.randn((256, 4), device=device, dtype=torch.bfloat16).t(), q4, s4)
+    with pytest.raises(ValueError, match="group"):  # groups of 16
+        matmul_w4(x, q4.reshape(16, 8, 64), torch.ones((16, 64), dtype=torch.bfloat16, device=device))
+    with pytest.raises(ValueError, match="device"):
+        matmul_w4(x, q4.cpu(), s4)
+    assert matmul_w4.launches == before
+
+
+def test_tiny_taming_int4_runs_through_the_kernels(device):
+    """A tiny TamingARMM with int4 weights and a packed4 cache on the card:
+    every product of every forward launches kernel #8 and every attention
+    call kernel #1; greedy tokens agree with the CPU run of the plain
+    versions on >= 95% of the positions."""
+    from wmar_tpu_torch.models import GenParams, GPTConfig, TamingARMM, VQGANConfig, init_gpt, init_taming_vqgan
+    from wmar_tpu_torch.models.taming_gpt import quantize_gpt_params_int8
+
+    cfg = GPTConfig(vocab_size=64, block_size=300, n_layer=2, n_head=2, n_embd=64)
+    vq_cfg = VQGANConfig(resolution=16, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(), z_channels=32,
+                         n_embed=64, embed_dim=16)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        g = torch.Generator().manual_seed(0)
+        gpt = init_gpt(cfg, g)
+        with torch.no_grad():
+            gpt.pos_emb.normal_(0.0, 0.02, generator=g)
+        quantize_gpt_params_int8(gpt, bits=4)
+        wrapper = TamingARMM(gpt, init_taming_vqgan(vq_cfg, g), cache_dtype="packed4", device=dev)
+        packed4_decode_attention.launches = matmul_w4.launches = 0
+        codes = wrapper.sample([0, 5, 9], GenParams(greedy=True))
+        out[dev.type] = (codes.cpu(), packed4_decode_attention.launches, matmul_w4.launches)
+    steps = vq_cfg.codes_per_side**2
+    assert out["cuda"][1:] == (steps * cfg.n_layer, steps * (6 * cfg.n_layer + 1)) and out["cpu"][1:] == (0, 0)
+    assert (out["cuda"][0] == out["cpu"][0]).float().mean() >= 0.95

@@ -132,8 +132,12 @@ def test_int8_quantization_bit_identical():
             np.testing.assert_array_equal(t.view(torch.int16).numpy(), j.view(np.int16), err_msg=key)
         else:
             np.testing.assert_array_equal(t.numpy(), j, err_msg=key)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.quantize_llama_params_int8(tparams, bits=4)
+    # bits=4: grouped-int4 leaves, bit-identical too
+    jq4 = dict(bridge.flatten(jax.tree.map(np.asarray, jl.quantize_llama_params_int8(params, bits=4))))
+    tq4 = dict(bridge.flatten(tl.quantize_llama_params_int8(tparams, bits=4)))
+    assert jq4.keys() == tq4.keys() and "blocks.0.w2.q4" in tq4 and "output.s4" in tq4
+    for key, j in jq4.items():
+        np.testing.assert_array_equal(_bits(tq4[key]), _bits(j), err_msg=key)
     # the int8 tree at f32 compute: the port and JAX forward agree
     jq32 = jl.quantize_llama_params_int8(params)
     tq32 = tl.quantize_llama_params_int8(tparams)
@@ -142,6 +146,29 @@ def test_int8_quantization_bit_identical():
                                jnp.arange(3)[None])
     got, _ = tl.llama_forward(tq32, tcfg, torch.as_tensor(tokens, dtype=torch.int64), tkv.KVCache.zeros(2, 1, 4, 8, 8),
                               0, torch.arange(3)[None])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+def _bits(x):
+    """Raw bytes of a tensor or numpy array (bf16 seen as int16)."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+
+def test_int4_forward_logits():
+    """int4 weights (group 32: every matrix's input, 32 or the FFN's 96, is
+    a multiple of 32 only), f32 compute: prefill logits of the port and JAX
+    within 1e-4."""
+    jcfg, params, tcfg, tparams = _pair(seed=6)
+    jq, tq = jl.quantize_llama_params_int8(params, bits=4), tl.quantize_llama_params_int8(tparams, bits=4)
+    assert tq["blocks"][0]["wq"]["q4"].shape[1] == 16 and tq["blocks"][0]["w2"]["q4"].shape == (3, 16, 32)
+    tokens = np.array([[0, 7, 8, 2], [3, 9, 1, 5]], np.int32)
+    want, _ = jl.llama_forward(jq, jcfg, jnp.asarray(tokens), jkv.KVCache.zeros(2, 2, 4, 8, 8), 0,
+                               jnp.tile(jnp.arange(4)[None], (2, 1)))
+    got, _ = tl.llama_forward(tq, tcfg, torch.as_tensor(tokens, dtype=torch.int64), tkv.KVCache.zeros(2, 2, 4, 8, 8),
+                              0, torch.arange(4)[None].expand(2, 4))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 

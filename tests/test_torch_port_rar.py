@@ -43,15 +43,19 @@ def port_rar(cfg, params):
     return bridge.load_rar(trar.RAR(trar.RARConfig(**vars(cfg))), to_numpy(params))
 
 
-@pytest.mark.parametrize("weights", ["f32", "int8"])
+@pytest.mark.parametrize("weights", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("num_heads", [4, 2], ids=["D16", "D32"])
 def test_rar_teacher_forced_logits(weights, num_heads):
     """Prefill and 15 teacher-forced steps with CFG at f32 (f32 cache):
-    logits agree to atol 1e-4 (float32 summation order only)."""
+    logits agree to atol 1e-4 (float32 summation order only). int4 weights
+    quantize the width-64 linears with group 64 and the MLP's second one
+    (input 128) with group 128."""
     cfg, params = jax_rar_params(num_heads=num_heads)
-    if weights == "int8":
-        params = jrar.quantize_rar_params_int8(params)
+    if weights != "f32":
+        params = jrar.quantize_rar_params_int8(params, bits={"int8": 8, "int4": 4}[weights])
     model = port_rar(cfg, params)
+    if weights == "int4":
+        assert model.blocks[0].adaln.w_q4.shape[1] == 32 and model.blocks[0].mlp.fc2.w_q4.shape[1] == 64
     classes = np.array([0, 3, 1])
     js = jrar.RARSampler(params, cfg, jnp.asarray(classes), guidance_scale=4.0, cache_dtype=jnp.float32)
     ts = trar.RARSampler(model, torch.as_tensor(classes), guidance_scale=4.0, cache_dtype=torch.float32)
@@ -76,6 +80,19 @@ def test_rar_int8_quantization_matches_bridged_jax_quantization():
     bridged = port_rar(cfg, jrar.quantize_rar_params_int8(params, compute_dtype=jnp.bfloat16))
     a, b = ported.state_dict(), bridged.state_dict()
     assert a.keys() == b.keys() and any(k.endswith("w_q") for k in a)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
+
+
+def test_rar_int4_quantization_matches_bridged_jax_quantization():
+    """``bits=4``: quantizing in the port gives the buffers of the bridged
+    JAX-quantized tree (``w_q4``, ``w_s4``), byte for byte."""
+    cfg, params = jax_rar_params(seed=3)
+    ported = trar.quantize_rar_params_int8(port_rar(cfg, params), compute_dtype=torch.bfloat16, bits=4)
+    bridged = port_rar(cfg, jrar.quantize_rar_params_int8(params, compute_dtype=jnp.bfloat16, bits=4))
+    a, b = ported.state_dict(), bridged.state_dict()
+    assert a.keys() == b.keys() and "lm_head.w_q4" in a and not any(k.endswith("w_q") for k in a)
     for k in a:
         assert a[k].dtype == b[k].dtype, k
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)

@@ -3,9 +3,12 @@
 Takes JAX parameter trees whose leaves are numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so it imports no JAX:
 
-* RAR dict trees map 1:1: the port's modules store ``w [n_in, n_out]`` as
-  the tree does, so a leaf's path joined by dots is its ``state_dict`` key.
-  Quantized linears (``w_q``, ``w_scale``, ``b``) switch the module to int8.
+* RAR and Taming-GPT dict trees map 1:1: the port's modules store ``w
+  [n_in, n_out]`` as the tree does, so a leaf's path joined by dots is its
+  ``state_dict`` key. Quantized linears switch the module to int8 (``w_q``,
+  ``w_scale``, ``b``) or grouped int4 (``w_q4``, ``w_s4``, ``b``), and a
+  quantized Taming head (``q``/``s`` or ``q4``/``s4``) becomes a
+  quantized matrix; payloads keep their bytes.
 * Llama trees (the Chameleon backbone) stay dict trees: every leaf,
   ``{"q", "s"}`` int8 matrices included, becomes a tensor in place.
 * MaskGit and Taming-VQGAN Flax trees: conv ``kernel`` goes from HWIO to
@@ -25,6 +28,7 @@ import torch
 from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
 from wmar_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
 from wmar_tpu_torch.models.rar import RAR
+from wmar_tpu_torch.models.taming_gpt import GPT
 from wmar_tpu_torch.models.vqgan import TamingVQGAN
 
 
@@ -50,19 +54,20 @@ def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
-@torch.no_grad()
-def load_rar(model: RAR, params: Dict) -> RAR:
-    """Load a JAX RAR tree (float or int8-quantized) into ``model`` in place."""
-    leaves = dict(flatten(params))
-    dev = model.embeddings.device
-    for base in [p[: -len(".w_q")] for p in leaves if p.endswith(".w_q")]:
-        model.get_submodule(base).set_int8(
-            *(to_tensor(leaves[f"{base}.{n}"], device=dev) for n in ("w_q", "w_scale", "b")))
+def _load_module(model, leaves: Dict[str, Any], what: str):
+    """Switch ``model``'s linears to the tree's quantized forms, then copy
+    every leaf into the buffer of the same dotted name."""
+    dev = next(model.buffers()).device
+    for suffix, names, setter in ((".w_q", ("w_q", "w_scale", "b"), "set_int8"),
+                                  (".w_q4", ("w_q4", "w_s4", "b"), "set_int4")):
+        for base in [p[: -len(suffix)] for p in leaves if p.endswith(suffix)]:
+            getattr(model.get_submodule(base), setter)(
+                *(to_tensor(leaves[f"{base}.{n}"], device=dev) for n in names))
     own = dict(model.named_buffers())
     missing = sorted(set(own) - set(leaves))
     unexpected = sorted(set(leaves) - set(own))
     if missing or unexpected:
-        raise KeyError(f"RAR tree mismatch: missing {missing[:5]}, unexpected {unexpected[:5]}")
+        raise KeyError(f"{what} tree mismatch: missing {missing[:5]}, unexpected {unexpected[:5]}")
     for path, leaf in leaves.items():
         t = to_tensor(leaf)
         if own[path].shape != t.shape:
@@ -70,6 +75,25 @@ def load_rar(model: RAR, params: Dict) -> RAR:
         mod_name, name = path.rsplit(".", 1) if "." in path else ("", path)
         setattr(model.get_submodule(mod_name), name, t.to(own[path].device))
     return model
+
+
+@torch.no_grad()
+def load_rar(model: RAR, params: Dict) -> RAR:
+    """Load a JAX RAR tree (float, int8 or int4) into ``model`` in place."""
+    return _load_module(model, dict(flatten(params)), "RAR")
+
+
+@torch.no_grad()
+def load_gpt(model: GPT, params: Dict) -> GPT:
+    """Load a JAX Taming-GPT tree (float, int8 or int4) into ``model`` in
+    place; a quantized head (``{"q","s"}`` or ``{"q4","s4"}``) replaces the
+    float one."""
+    leaves = dict(flatten(params))
+    head = {n: to_tensor(leaves[f"head.{n}"], device=model.tok_emb.device)
+            for n in ("q", "s", "q4", "s4") if f"head.{n}" in leaves}
+    if head:
+        model.set_head(head)
+    return _load_module(model, leaves, "Taming GPT")
 
 
 def load_llama(params: Any, dtype=None, device=None) -> Any:

@@ -1,6 +1,10 @@
 """Watermarked generation + evaluation on a CUDA card (PyTorch port of
-``generate.py`` for ``--model rar`` and ``--model chameleon7b``).
+``generate.py`` for ``--model taming``, ``--model rar`` and ``--model
+chameleon7b``).
 
+    python -m wmar_tpu_torch.generate --model taming --no_augs \\
+        --weight_dtype int4 --cache_dtype packed4 --conditioning 0,1,2 \\
+        --top_k 250 --top_p 0.92 --batch_size 3 --outdir out/
     python -m wmar_tpu_torch.generate --model rar --tiny --no_augs \\
         --conditioning 0,1 --num_samples_per_conditioning 2 --batch_size 4 \\
         --cache_dtype packed4 --outdir out/
@@ -17,9 +21,11 @@ than moving to the CPU, and the tests pass ``--device cpu``. Flags whose
 paths are not ported yet exit with the ROADMAP item that ports them.
 Without ``--tiny`` the model runs at its published widths with random
 weights drawn from ``--seed``: loading checkpoints is not ported yet. For
-Chameleon that means CHAMELEON_7B with the synthetic full-size vocabulary
-(8192 image codes in a 65536-entry table) and a synthetic tokenizer, as the
-JAX bench runs it.
+Taming that means the 1.4B cin_transformer (48 layers, width 1664) and the
+f16 ImageNet VQGAN; for Chameleon CHAMELEON_7B with the synthetic full-size
+vocabulary (8192 image codes in a 65536-entry table) and a synthetic
+tokenizer, as the JAX bench runs it. ``--weight_dtype int8|int4`` quantizes
+the generator's linears for every model; int4 linears run the w4a16 kernel.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ def str2bool(v):
 def get_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--outdir", type=str, required=True)
-    p.add_argument("--model", type=str, choices=["taming", "rar", "chameleon7b"], default="rar")
+    p.add_argument("--model", type=str, choices=["taming", "rar", "chameleon7b"], default="taming")
     p.add_argument("--device", type=str, default="cuda", help="torch device; never falls back to the CPU")
     p.add_argument("--modelpath", type=str, default=None)
     p.add_argument("--rar_size", type=str, default="rar_xl", choices=["rar_b", "rar_l", "rar_xl", "rar_xxl"])
@@ -61,7 +67,7 @@ def get_parser():
     p.add_argument("--cache_dtype", type=str, default=None, choices=["bf16", "f32", "int8", "packed", "packed4"],
                    help="KV cache; packed and packed4 are read by the hand-written CUDA decode-attention kernels")
     p.add_argument("--weight_dtype", type=str, default=None, choices=["int8", "int4"],
-                   help="weight-only int8 for the generator's linears")
+                   help="weight-only int8, or grouped int4 (the w4a16 kernel), for the generator's linears")
     p.add_argument("--num_samples_per_conditioning", type=int, default=1)
     p.add_argument("--conditioning", type=str, default="0",
                    help="comma-separated class ids, or a file of prompts, one per line")
@@ -94,8 +100,6 @@ def get_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.model == "taming":
-        raise SystemExit("--model taming is not ported yet (ROADMAP queue 1, item 7)")
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False, "none"):
             raise SystemExit(f"--{name}: {what} is not ported yet")
@@ -105,8 +109,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("the attack grid is not ported yet (ROADMAP queue 1, items 8 and 12): pass --no_augs")
     if args.wm_split_strategy == "clustering":
         raise SystemExit("--wm_split_strategy clustering is not ported yet (ROADMAP queue 1, item 1)")
-    if args.weight_dtype == "int4":
-        raise SystemExit("--weight_dtype int4 is not ported yet (ROADMAP queue 2, kernel 8)")
 
 
 def synthetic_tokenizer(n_chars: int):
@@ -145,9 +147,36 @@ def load_chameleon(args, device: torch.device):
                          cache_dtype=cache_dtype, device=device)
 
 
+def load_taming(args, device: torch.device):
+    from wmar_tpu_torch.models import (
+        TAMING_GPT_1_4B,
+        TAMING_IMAGENET_F16,
+        GPTConfig,
+        TamingARMM,
+        VQGANConfig,
+        init_gpt,
+        init_taming_vqgan,
+    )
+
+    if args.tiny:
+        gpt_cfg = GPTConfig(vocab_size=64, block_size=300, n_layer=2, n_head=2, n_embd=32)
+        vq_cfg = VQGANConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
+                             z_channels=32, n_embed=64, embed_dim=16)
+        dtype, cache_dtype = torch.float32, torch.float32
+    else:
+        gpt_cfg, vq_cfg = TAMING_GPT_1_4B, TAMING_IMAGENET_F16
+        dtype, cache_dtype = torch.bfloat16, torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gpt = init_gpt(gpt_cfg, gen, dtype=dtype, device=device)
+    vq = init_taming_vqgan(vq_cfg, gen, dtype=dtype, device=device)
+    return TamingARMM(gpt, vq, cache_dtype=cache_dtype, device=device)
+
+
 def load_wrapper(args, device: torch.device):
     if args.model == "chameleon7b":
         return load_chameleon(args, device)
+    if args.model == "taming":
+        return load_taming(args, device)
     from wmar_tpu_torch.models import (
         MASKGIT_IMAGENET_F16,
         MaskGitVQConfig,
@@ -185,17 +214,26 @@ def main(argv=None):
 
     from wmar_tpu_torch.core import WatermarkSpec
     from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
-    from wmar_tpu_torch.models import GenParams, quantize_llama_params_int8, quantize_rar_params_int8
+    from wmar_tpu_torch.models import (
+        GenParams,
+        quantize_gpt_params_int8,
+        quantize_llama_params_int8,
+        quantize_rar_params_int8,
+    )
 
     wrapper = load_wrapper(args, device)
     if args.cache_dtype:
         wrapper.cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
                                "packed": "packed", "packed4": "packed4"}[args.cache_dtype]
-    if args.weight_dtype == "int8":
+    if args.weight_dtype:
+        bits = {"int8": 8, "int4": 4}[args.weight_dtype]
         if args.model == "chameleon7b":
-            wrapper.llama_params = quantize_llama_params_int8(wrapper.llama_params, compute_dtype=torch.bfloat16)
+            wrapper.llama_params = quantize_llama_params_int8(wrapper.llama_params, compute_dtype=torch.bfloat16,
+                                                              bits=bits)
+        elif args.model == "taming":
+            quantize_gpt_params_int8(wrapper.gpt, compute_dtype=torch.bfloat16, bits=bits)
         else:
-            quantize_rar_params_int8(wrapper.rar, compute_dtype=torch.bfloat16)
+            quantize_rar_params_int8(wrapper.rar, compute_dtype=torch.bfloat16, bits=bits)
 
     apply_wm = args.wm_method == "gentime"
     if apply_wm:

@@ -232,17 +232,15 @@ WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 def quantize_llama_params_int8(params, compute_dtype=None, bits: int = 8) -> dict:
     """Weight-only int8 for every block linear and the vocab head: each
     matrix becomes ``{"q": int8, "s": bf16 [n_out]}``, bit-identical to the
-    JAX function's. ``tok_embeddings`` stays float (a gather, not a
-    matmul). With ``compute_dtype`` the float leaves are cast to it.
-    ``bits=4`` (grouped int4, kernel #8) is not ported yet and raises."""
-    if bits != 8:
-        wquant.quantize_linear({}, bits=bits)  # raises for the unported int4
+    JAX function's; ``bits=4`` makes grouped-int4 ``{"q4", "s4"}`` matrices
+    (kernel #8) instead. ``tok_embeddings`` stays float (a gather, not a
+    matmul). With ``compute_dtype`` the float leaves are cast to it."""
     out = dict(params)
     out["blocks"] = [
-        {k: (wquant.quantize_matrix_int8(v) if k in WEIGHT_KEYS else v) for k, v in blk.items()}
+        {k: (wquant.quantize_matrix(v, bits=bits) if k in WEIGHT_KEYS else v) for k, v in blk.items()}
         for blk in params["blocks"]
     ]
-    out["output"] = wquant.quantize_matrix_int8(params["output"])
+    out["output"] = wquant.quantize_matrix(params["output"], bits=bits)
     if compute_dtype is not None:
         out["tok_embeddings"] = params["tok_embeddings"].to(compute_dtype)
         out["norm"] = params["norm"].to(compute_dtype)

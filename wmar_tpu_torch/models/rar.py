@@ -23,7 +23,6 @@ from torch import nn
 from wmar_tpu_torch.core.sampling import cfg_combine, rar_cfg_scale
 from wmar_tpu_torch.engine.attention import cached_decode_attention
 from wmar_tpu_torch.engine.kvcache import KVCache
-from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.wquant import Linear
 
 
@@ -215,18 +214,18 @@ def init_rar(cfg: RARConfig, generator: torch.Generator, dtype=torch.float32, de
 
 @torch.no_grad()
 def quantize_rar_params_int8(model: RAR, compute_dtype=None, bits: int = 8) -> RAR:
-    """Weight-only int8 for every decode-path linear, in place.
+    """Weight-only int8 for every decode-path linear, in place; ``bits=4``
+    switches to grouped int4 (int8 for a linear whose input dim no group
+    divides).
 
     Embeddings and norms stay floating point; with ``compute_dtype`` they,
     the biases and the blocks' other float buffers are cast to it, as in the
     JAX function of the same name."""
-    if bits != 8:
-        wquant.quantize_linear({}, bits=bits)  # raises for the unported int4
     for blk in model.blocks:
         for lin in (blk.adaln, blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
-            lin.quantize_int8(compute_dtype)
-    model.final_adaln.quantize_int8(compute_dtype)
-    model.lm_head.quantize_int8(compute_dtype)
+            lin.quantize(bits, compute_dtype)
+    model.final_adaln.quantize(bits, compute_dtype)
+    model.lm_head.quantize(bits, compute_dtype)
     if compute_dtype is not None:
         for key in ("cls_token", "embeddings", "pos_embed", "target_aware_pos_embed", "timesteps_embeddings"):
             setattr(model, key, getattr(model, key).to(compute_dtype))
