@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths once at full width and checks them, in
+Drives the port's main paths once at full width and checks them, in
 phases:
 
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
@@ -21,16 +21,30 @@ phases:
    slots, 16 heads of 104, 48 layers); kernel #8 (``matmul_w4``, the w4a16
    matmul) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24 rows)
    and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64 and
-   32; each against its plain float32 version, and timed beside it (#1-#4
-   at full fill, #8 at the Taming shapes and the Chameleon FFN shape);
-3. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
+   32; kernels #5 and #6 (``flash_decode_attention`` over a bf16 or f32
+   cache, ``flash_decode_attention_q8`` over an int8 one) at the
+   interleaved Chameleon shape (3 rows, 32 heads of 128, 4096 slots) and at
+   a RAR-like shape (16 rows, 16 heads of 80), ``valid_len`` 1, 2, 1043,
+   2049 and 4096, with and without ``start``, a random ``key_mask`` and the
+   three interleaved masks; kernel #7 (``_packed_dma_probe``) exactly and
+   kernel #9 (``row_mean_probe``) within bf16 rounding; each against its
+   plain float32 version, and timed beside it (#1-#4 at full fill, #8 at
+   the Taming shapes and the Chameleon FFN shape);
+3. microbench: ``wmar_tpu_torch.tools.bench_attention`` at the RAR-XL and
+   the Chameleon-4k shapes: #5 and #6 beside their plain versions, the
+   packed kernels over the same K/V, one ``scaled_dot_product_attention``
+   call (a yardstick, used nowhere in the port), the DMA probe #7, and the
+   per-call floor #9 at 1 to 16,384 rows; every kernel's bound (bytes over
+   3.35 TB/s or operations over the peak rate) is computed from the
+   run's own inputs;
+4. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
    watermark through the port's ``generate_and_evaluate`` on 64 classes,
    a warm-up batch on the int8 packed cache (kernel #2) and a timed one on
    the packed4 cache (kernel #1), with random weights from a seed; checks
    codes, images, p-values, the green fraction, and that every
    decode-attention call went through its kernel (255 steps x 32 layers
    per batch);
-4. Chameleon path: CHAMELEON_7B at full width and depth with int8 weights,
+5. Chameleon path: CHAMELEON_7B at full width and depth with int8 weights,
    the CHAMELEON_F16 tokenizer, the synthetic 65,536-entry vocabulary and
    tokenizer, 8 prompts of distinct lengths (24 CFG rows), temperature 0.9,
    top-p 0.9, the same watermark and one round trip, through
@@ -38,7 +52,25 @@ phases:
    #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
    layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
-5. Taming path: the 1.4B cin_transformer at full width and depth with
+6. interleaved path: the same Chameleon wrapper through the entry point
+   ``generate --interleaved <prompts file> --max_images 2``
+   (``run_interleaved``): one prompt, two images, three text segments of up
+   to 64 tokens, 2244 tokens over one cache shared by the three CFG rows
+   behind the live ``key_mask``; with two images that cache passes 2048
+   slots, so every forward after the prefill takes the flash-decode
+   kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
+   (kernel #6), exactly 2243 forwards x 32 layers = 71,776 launches each and
+   none of any other attention kernel; checks the tree the run wrote
+   (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
+   ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
+   image segment 1024 image tokens, a 512 px PNG, both p-values in [0, 1]
+   and the green fraction;
+7. interleaved sampler at the reference's 4096-slot cache, which no flag of
+   the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
+   one prompt, one image, on the bf16, the int8 and the packed4 cache
+   (kernel #4's ``key_mask`` route): exactly 1153 forwards x 32 layers =
+   36,896 launches each, one image segment of 1024 image tokens;
+8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
    positional embeddings, the f16 ImageNet VQGAN at 256 px, the same
    watermark, 32 classes, temperature 1.0, top-k 250, top-p 0.92 and one
@@ -57,7 +89,6 @@ a CUDA card it fails at once.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -105,7 +136,14 @@ def _kernels():
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
         ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:353"),
+        ("flash_decode_attention", fd.flash_decode_attention,
+         "wmar_tpu_torch/csrc/flash_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:66"),
+        ("flash_decode_attention_q8", fd.flash_decode_attention_q8,
+         "wmar_tpu_torch/csrc/flash_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:492"),
+        ("_packed_dma_probe", fd._packed_dma_probe, "wmar_tpu_torch/csrc/probes.cu",
+         "wmar_tpu/ops/flash_decode.py:560"),
         ("matmul_w4", matmul_w4, "wmar_tpu_torch/csrc/w4_matmul.cu", "wmar_tpu/ops/w4_matmul.py:40"),
+        ("row_mean_probe", fd.row_mean_probe, "wmar_tpu_torch/csrc/probes.cu", "tools/bench_call_floor.py:15"),
     ]
 
 
@@ -118,16 +156,9 @@ def launches() -> dict:
     return {name: fn.launches for name, fn, _, _ in _kernels()}
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase_build() -> float:
     from wmar_tpu_torch.ops import build
+    from wmar_tpu_torch.tools.bench_attention import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -153,27 +184,11 @@ def _filled_cache(n_layers, b, h, t, d, gen, device, kind="packed4"):
     return cache
 
 
-def _median_ms(fn, n_layers: int, reps: int) -> float:
-    """Median of per-call CUDA-event times; calls walk the layers, so each
-    reads a layer that the previous calls have pushed out of L2, as in a
-    decode step."""
-    for li in range(n_layers):  # warm-up
-        fn(li)
-    times = []
-    for i in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(i % n_layers)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_xl", 32, 80), ("rar_xxl", 40, 88)),
                   valid_lens=(1, 2, 129, 258), reps=100) -> dict:
     """Kernel vs plain on the card; returns the RAR-XL numbers."""
     from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, time_turns
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = 0.0
@@ -202,14 +217,13 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
         if name == "rar_xl":
             q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
             lens = torch.full((1,), t, dtype=torch.int32, device=device)
-            plain_ms = _median_ms(lambda li: packed4_decode_attention_plain(q, cache.kv, cache.scale, li, lens),
-                                  n_layers, reps)
-            ms = _median_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens), n_layers, reps)
-            ms2 = _median_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens), n_layers, reps)
-            plain_ms2 = _median_ms(lambda li: packed4_decode_attention_plain(q, cache.kv, cache.scale, li, lens),
-                                   n_layers, reps)
+            plain_ms, ms, ms2, plain_ms2 = time_turns(
+                lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
+                lambda li: packed4_decode_attention_plain(q, cache.kv, cache.scale, li, lens), n_layers, reps)
             nbytes = b * t * h * d + 4 * b * h * t
-            result = {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2)}
+            bound_ms, bound_by = attention_bound(b, h, t, d, t, 0.5, True, q.dtype, torch.uint8)
+            result = {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}
             print(f"time rar_xl decode attention, full cache (plain, kernel, kernel, plain): "
                   f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
                   f"= {nbytes / (result['ms'] * 1e-3) / 1e9:.0f} GB/s")
@@ -247,6 +261,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     """Kernels #2-#4 against their plain versions, and timed beside them at
     full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``."""
     from wmar_tpu_torch.ops import flash_decode as fd
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, time_turns
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     out = {}
@@ -286,23 +301,20 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
         q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
         lens = torch.full((1,), t, dtype=torch.int32, device=device)
         st = start0 if masked else None
-        times = _time_pair(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st),
+        times = time_turns(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st),
                            lambda li: plain(q, cache.kv, cache.scale, li, lens, st), n_layers, reps)
         nbytes = b * t * h * d * (2 if kind == "packed" else 1) + 4 * b * h * t
         if masked:  # slots before start are not read
             nbytes = int(nbytes * (1 - float(st.float().mean()) / t))
-        out[name] = {"max_abs_err": worst, "ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3])}
+        bound_ms, bound_by = attention_bound(b, h, t, d, t, 1 if kind == "packed" else 0.5, True, q.dtype,
+                                             torch.int8 if kind == "packed" else torch.uint8, start=st)
+        out[name] = {"max_abs_err": worst, "ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         print(f"time {name}, full cache{' with the ragged start' if masked else ''} (plain, kernel, kernel, "
               f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; kernel reads {nbytes / 1e6:.1f} MB "
               f"= {nbytes / (out[name]['ms'] * 1e-3) / 1e9:.0f} GB/s")
         del cache
     return out
-
-
-def _time_pair(kernel_fn, plain_fn, n_layers: int, reps: int) -> list:
-    """Median ms of (plain, kernel, kernel, plain), in turns on one card."""
-    return [_median_ms(plain_fn, n_layers, reps), _median_ms(kernel_fn, n_layers, reps),
-            _median_ms(kernel_fn, n_layers, reps), _median_ms(plain_fn, n_layers, reps)]
 
 
 def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129, 257)) -> dict:
@@ -352,6 +364,7 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
     enough weight copies to exceed the L2 cache, as a decode step does.
     Returns ``{"max_abs_err", "ms", "plain_ms"}`` of the first timed case."""
     from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
+    from wmar_tpu_torch.tools.bench_attention import bound, time_turns
 
     if cases is None:
         cases = ([("taming", 32, k, n) for k, n in TAMING_MATMULS]
@@ -384,16 +397,141 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
         copies = max(1, int(-(-l2_bytes // wbytes)))
         ws = _w4_weights(k, n, 128, gen, device, copies)
         x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
-        times = _time_pair(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]),
+        times = time_turns(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]),
                            lambda i: matmul_w4_plain(x, ws[i]["q4"], ws[i]["s4"]), copies, reps)
         ms, plain_ms = min(times[1], times[2]), min(times[0], times[3])
         if ti == 0:
-            out.update(ms=ms, plain_ms=plain_ms)
+            # weights and scales, x and the output once each; 2 flops per weight and row at the bf16 rate
+            bound_ms, bound_by = bound(wbytes + 2 * m * (k + n), 2.0 * m * k * n, torch.bfloat16)
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         print(f"time matmul_w4 {label} M={m} K={k} N={n} G=128, {copies} weight copies walked (plain, kernel, "
               f"kernel, plain): {' '.join(f'{t:.4f}' for t in times)} ms; kernel {wbytes / (ms * 1e-3) / 1e9:.0f} "
               f"GB/s of weight bytes, {2 * m * k * n / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain "
               f"{2 * m * k * n / (plain_ms * 1e-3) / 1e12:.2f} TFLOP/s")
         del ws
+    return out
+
+
+def phase_flash_kernels(device, shapes=(("chameleon_4k", 3, 32, 4096, 128), ("rar_like", 16, 16, 4096, 80)),
+                        lens=(1, 2, 1043, 2049, 4096), interleaved=(7, 64, 1024)) -> dict:
+    """Kernels #5 and #6 against their plain versions: bf16, f32 and int8
+    caches, bf16 and f32 q, every ``valid_len`` of ``lens``, with no mask,
+    a ragged ``start``, a random ``key_mask``, both, and (3-row shapes) the
+    three masks of an interleaved run (everything | image tokens only |
+    <s> and the current image). Returns each one's worst bf16 error."""
+    from wmar_tpu_torch.engine.kvcache import KVCache
+    from wmar_tpu_torch.ops import flash_decode as fd
+    from wmar_tpu_torch.tools.bench_attention import interleaved_masks
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    worst = {"flash_decode_attention": 0.0, "flash_decode_attention_q8": 0.0}
+    for tag, b, h, t, d in shapes:
+        k = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
+        v = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
+        start0 = torch.randint(0, 300, (b,), generator=gen, device=device, dtype=torch.int32)
+        key_mask0 = torch.rand((b, t), generator=gen, device=device) < 0.7
+        for cache_dtype in (torch.bfloat16, torch.float32, torch.int8):
+            cache = KVCache.zeros(2, b, h, t, d, cache_dtype, device=device).write(1, 0, k, v)
+            if cache_dtype == torch.int8:
+                name = "flash_decode_attention_q8"
+                layer = (cache.k[1], cache.v[1], cache.k_scale[1], cache.v_scale[1])
+                launch, plain = fd.flash_decode_attention_q8, fd.flash_decode_attention_q8_plain
+            else:
+                name = "flash_decode_attention"
+                layer = (cache.k[1], cache.v[1])
+                launch, plain = fd.flash_decode_attention, fd.flash_decode_attention_plain
+            for q_dtype in (torch.bfloat16, torch.float32):
+                q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
+                for n in lens:
+                    n_lens = torch.full((1,), n, dtype=torch.int32, device=device)
+                    start = torch.clamp(start0, max=n - 1)  # every row keeps a valid slot
+                    key_mask = key_mask0.clone()
+                    key_mask[torch.arange(b, device=device), start.long()] = True
+                    masks = [(None, None), (start, None), (None, key_mask | (torch.arange(t, device=device) == 0)),
+                             (start, key_mask)]
+                    if b == 3:
+                        masks.append((None, interleaved_masks(t, n, *interleaved, device)))
+                    for st, km in masks:
+                        got = launch(q, *layer, n_lens, start=st, key_mask=km)
+                        if got.is_cuda:
+                            torch.cuda.synchronize()  # a fault in the kernel shows here
+                        want = plain(q.float(), *layer, n, st, km)
+                        err = _check_close(f"{name} {tag} cache {cache_dtype} q {q_dtype} valid_len={n} "
+                                           f"start={st is not None} key_mask={km is not None}", got, want, q_dtype)
+                        if q_dtype == torch.bfloat16:
+                            worst[name] = max(worst[name], err)
+            del cache
+        print(f"kernel vs plain flash_decode_attention{{,_q8}} {tag} (B={b} H={h} T={t} D={d}): ok, bf16, f32 and "
+              f"int8 caches, bf16 and f32 q, valid_len {list(lens)}, masks none, start, key_mask, both"
+              f"{', interleaved' if b == 3 else ''}; worst bf16 max abs err {worst}")
+    return worst
+
+
+def phase_probes(device, shapes=(("rar_xl", 128, 258, 16, 80), ("chameleon", 24, 1043, 32, 128)),
+                 rows_list=(1, 64, 1024, 4096, 16384)) -> dict:
+    """Kernel #7 against its plain version (equal bit for bit: one float32
+    add, one rounding) at the packed-cache shapes ``(tag, B, T, H, D)`` of
+    kernels #2 and #3, and kernel #9 against its plain version within
+    bf16's rounding of the mean (2^-8 + 1e-5 of the largest mean: the two
+    sum in different orders). Returns each one's worst error."""
+    from wmar_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    worst = {"_packed_dma_probe": 0.0, "row_mean_probe": 0.0}
+    for tag, b, t, h, d in shapes:
+        cache = _filled_cache(2, b, h, t, d, gen, device, "packed")
+        for q_dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros((b, h, 1, d), dtype=q_dtype, device=device)
+            for layer in (0, 1):
+                got = fd._packed_dma_probe(q, cache.kv, cache.scale, layer)
+                if got.is_cuda:
+                    torch.cuda.synchronize()
+                want = fd._packed_dma_probe_plain(q, cache.kv, cache.scale, layer)
+                if got.shape != want.shape or got.dtype != q_dtype or not torch.equal(got, want):
+                    raise AssertionError(f"_packed_dma_probe {tag} {q_dtype} layer={layer}: differs from its plain version")
+                if not got.abs().max() > 1:
+                    raise AssertionError(f"_packed_dma_probe {tag}: output {got.abs().max()} is not the payload's")
+        print(f"kernel vs plain _packed_dma_probe {tag} (B={b} T={t} H={h} D={d}): equal, bf16 and f32 q, 2 layers")
+        del cache
+    for rows in rows_list:
+        x = (torch.randn((rows, 1024), generator=gen, device=device) + 0.5).to(torch.bfloat16)
+        got = fd.row_mean_probe(x)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        want = fd.row_mean_probe_plain(x)
+        err = _check_close(f"row_mean_probe rows={rows}", got, want.float(), torch.bfloat16)
+        worst["row_mean_probe"] = max(worst["row_mean_probe"], err)
+    print(f"kernel vs plain row_mean_probe rows {list(rows_list)} x 1024: ok, worst max abs err "
+          f"{worst['row_mean_probe']:.3e}")
+    return worst
+
+
+def phase_microbench(device, **kwargs) -> dict:
+    """The kernel microbench (``wmar_tpu_torch.tools.bench_attention``), the
+    path that runs the two probes: counts set to 0 before, read after.
+    Returns ``{"launches", kernel name: numbers}`` for kernels #5, #6 (at
+    the end of an interleaved run), #7 (at the RAR-XL shape of kernel #2)
+    and #9 (16,384 rows)."""
+    from wmar_tpu_torch.tools import bench_attention
+
+    reset_launches()
+    res = bench_attention.run(device, **kwargs)
+    counts = launches()
+    if not (counts["_packed_dma_probe"] > 0 and counts["row_mean_probe"] > 0):
+        raise AssertionError(f"microbench: a probe was never launched: {counts}")
+    end = res["chameleon_4k_interleaved"]
+    # of this phase's launches only the probes' count as a path's: the others were made to time kernels
+    path_counts = {k: (n if k in ("_packed_dma_probe", "row_mean_probe") else 0) for k, n in counts.items()}
+    out = {"launches": path_counts, "flash_decode_attention": end["flash_decode_attention"],
+           "flash_decode_attention_q8": end["flash_decode_attention_q8"],
+           "_packed_dma_probe": res["rar_xl"]["_packed_dma_probe"], "row_mean_probe": res["call_floor"]}
+    full = res["chameleon_4k_full"]
+    print(f"microbench: at the full 4k cache flash_decode_attention {full['flash_decode_attention']['ms']:.4f} ms vs "
+          f"SDPA {full['flash_decode_attention']['library_ms']:.4f} ms; per-launch floor at "
+          f"{min(res['call_floor']['floor_us'])} row (row_mean_probe) "
+          f"{res['call_floor']['floor_us'][min(res['call_floor']['floor_us'])]['us']:.2f} us enqueued by the host, "
+          f"{res['call_floor']['floor_us'][min(res['call_floor']['floor_us'])]['graph_us']:.2f} us replayed from a "
+          f"CUDA graph; launches {counts}")
     return out
 
 
@@ -584,6 +722,151 @@ def phase_chameleon(device, wrapper, prompts=PROMPTS) -> dict:
     return out
 
 
+def phase_interleaved(device, wrapper, prompt: str = "a cat", max_images: int = 2, text_gen_len: int = 64,
+                      caches=(("bf16", torch.bfloat16, "flash_decode_attention"),
+                              ("int8", torch.int8, "flash_decode_attention_q8"))) -> dict:
+    """The interleaved path through its entry point, on the wrapper of the
+    Chameleon phase: ``generate --interleaved <prompts file> --max_images 2``
+    (``run_interleaved``) for one prompt, once per cache type. Two images and
+    three text segments make a budget of 2244 tokens, so the cache the three
+    CFG rows share passes 2048 slots by itself and every forward after the
+    prefill is one launch per layer of that cache's kernel, whatever is
+    drawn. Checked from what the run wrote: the ``p=0,idx=0/`` tree, each
+    whole image segment's codes, PNG and p-values, and the green fraction."""
+    import os
+
+    from PIL import Image
+
+    from wmar_tpu_torch.core import green_fraction
+    from wmar_tpu_torch.generate import get_parser, run_interleaved
+
+    cfg, vocab, n_img, side = wrapper.llama_cfg, wrapper.vocab, wrapper.image_seq_len, wrapper.image_size
+    budget = max_images * (n_img + 2) + (max_images + 1) * text_gen_len
+    per_run = (budget - 1) * cfg.n_layers
+    is_cuda = torch.device(device).type == "cuda"
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    image_ok = vocab.image_token_mask.numpy()
+    text_ok = np.zeros_like(image_ok)
+    text_ok[list(vocab.text_tokens) + [vocab.eos_id]] = True
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "seconds": [], "runs": {}}
+    for tag, cache_dtype, kernel in caches:
+        wrapper.cache_dtype = cache_dtype
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "prompts.txt"), "w") as f:
+                f.write(prompt + "\n")
+            args = get_parser().parse_args(
+                ["--model", "chameleon7b", "--interleaved", os.path.join(tmp, "prompts.txt"), "--max_images",
+                 str(max_images), "--text_gen_len", str(text_gen_len), "--seed", str(SEED), "--outdir",
+                 os.path.join(tmp, "out")])
+            reset_launches()
+            if is_cuda:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            records = run_interleaved(args, wrapper, True)
+            if is_cuda:
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            counts = launches()
+            _check_launches(device, counts, {kernel: per_run}, f"interleaved path, {tag} cache")
+            d = os.path.join(tmp, "out", "p=0,idx=0")
+            names = sorted(os.listdir(d))
+            if "prompt.txt" not in names or open(os.path.join(d, "prompt.txt")).read() != prompt + "\n":
+                raise AssertionError(f"interleaved path, {tag}: no prompt.txt in {names}")
+            for name in names:
+                if name.endswith("_text.npy") and not text_ok[np.load(os.path.join(d, name))].all():
+                    raise AssertionError(f"interleaved path, {tag}: {name} holds tokens that are no text")
+            if not records or len(records) != sum(n.endswith("_img.json") for n in names):
+                raise AssertionError(f"interleaved path, {tag}: {len(records)} image records, files {names}")
+            fracs = []
+            for rec in records:
+                stem = os.path.join(d, f"seg{rec['segment']}_img")
+                with open(stem + ".json") as f:
+                    if json.load(f) != rec:
+                        raise AssertionError(f"interleaved path, {tag}: {stem}.json differs from the returned record")
+                codes = np.load(stem + ".npy")
+                if codes.shape != (1, n_img) or not image_ok[codes].all():
+                    raise AssertionError(f"interleaved path, {tag}: image codes {codes.shape} or no image tokens")
+                with Image.open(stem + ".png") as img:
+                    extrema = img.convert("L").getextrema()
+                    if img.size != (side, side) or extrema[0] == extrema[1]:
+                        raise AssertionError(f"interleaved path, {tag}: PNG {img.size}, grey range {extrema}")
+                pvals = [rec["pvalue_raw"], rec["pvalue_roundtrip"]]
+                if not all(np.isfinite(p) and 0 <= p <= 1 for p in pvals):
+                    raise AssertionError(f"interleaved path, {tag}: p-values {pvals}")
+                frac = green_fraction(wrapper.watermark_spec, wrapper.greenlist,
+                                      torch.as_tensor(codes, device=device)).float().mean().item()
+                if not frac > wrapper.watermark_spec.gamma + 0.10:
+                    raise AssertionError(f"interleaved path, {tag}: green fraction {frac} not above gamma + 0.10")
+                fracs.append(frac)
+        for name, n in counts.items():
+            out["launches"][name] += n
+        out["seconds"].append(seconds)
+        out["runs"][tag] = {"seconds": seconds, "ms_per_token": seconds / budget * 1e3, "files": names,
+                            "green_fractions": fracs, "records": records}
+        print(f"interleaved path [{tag} cache], generate --interleaved --max_images {max_images}: {budget} tokens "
+              f"({budget - 1} forwards of 3 rows after the prefill) in {seconds:.2f} s = {seconds / budget * 1e3:.2f} "
+              f"ms per token, files included; wrote {names}; launches "
+              f"{dict((k, v) for k, v in counts.items() if v)}, {per_run} expected; green fractions "
+              f"{[round(x, 3) for x in fracs]}; p-values raw {[r['pvalue_raw'] for r in records]}, round trip "
+              f"{[r['pvalue_roundtrip'] for r in records]}")
+    out["peak_gib"] = _peak_gib(device)
+    print(f"interleaved path: Llama {cfg.dim} wide x {cfg.n_layers} layers, int8 weights, {WATERMARK}, prompt "
+          f"{prompt!r}, peak memory {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def phase_interleaved_4k(device, wrapper, prompt: str = "a cat", cache_budget: int = 4096,
+                         caches=(("bf16", torch.bfloat16, "flash_decode_attention"),
+                                 ("int8", torch.int8, "flash_decode_attention_q8"),
+                                 ("packed4", "packed4", "packed4_decode_attention_chunked")), text_opts=None) -> dict:
+    """The fused sampler at the reference's cache geometry, which no flag of
+    the entry point sets: one prompt, one image, ``TextGenOptions()``
+    defaults and a ``cache_budget``-slot cache, once per cache type (the
+    packed4 one takes kernel #4's ``key_mask`` route). Checks the exact
+    launch count (``budget - 1`` forwards) and the segments' structure."""
+    from wmar_tpu_torch.models import GenParams
+    from wmar_tpu_torch.models.chameleon_interleaved import TextGenOptions, sample_interleaved_fused
+
+    text_opts = text_opts or TextGenOptions()
+    cfg, vocab, n_img = wrapper.llama_cfg, wrapper.vocab, wrapper.image_seq_len
+    budget = (n_img + 2) + 2 * text_opts.max_gen_len
+    per_run = (budget - 1) * cfg.n_layers
+    is_cuda = torch.device(device).type == "cuda"
+    text_ok = set(vocab.text_tokens) | {vocab.eos_id}
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "seconds": [], "runs": {}}
+    for ci, (tag, cache_dtype, kernel) in enumerate(caches):
+        wrapper.cache_dtype = cache_dtype
+        reset_launches()
+        if is_cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        segs = sample_interleaved_fused(wrapper, prompt, GenParams(temperature=0.9, top_k=None, top_p=0.9),
+                                        text_opts=text_opts, max_images=1, apply_watermark=True,
+                                        generator=torch.Generator(device=device).manual_seed(SEED + ci),
+                                        cache_budget=cache_budget)
+        if is_cuda:
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        _check_launches(device, counts, {kernel: per_run}, f"interleaved sampler, {tag} cache")
+        images = [toks for kind, toks in segs if kind == "image_seg"]
+        if len(images) != 1 or images[0].shape != (1, n_img) or not vocab.image_token_mask.numpy()[images[0]].all():
+            raise AssertionError(f"interleaved sampler, {tag}: segments {[(k, t.shape) for k, t in segs]}")
+        if not all(int(t) in text_ok for kind, toks in segs if kind == "text_seg" for t in toks[0]):
+            raise AssertionError(f"interleaved sampler, {tag}: a text segment holds tokens that are no text")
+        for name, n in counts.items():
+            out["launches"][name] += n
+        out["seconds"].append(seconds)
+        out["runs"][tag] = {"seconds": seconds, "ms_per_token": seconds / budget * 1e3,
+                            "segments": [kind for kind, _ in segs]}
+        print(f"interleaved sampler [{tag} cache, {cache_budget} slots]: {budget} tokens ({budget - 1} forwards of 3 "
+              f"rows after the prefill) in {seconds:.2f} s = {seconds / budget * 1e3:.2f} ms per token; segments "
+              f"{[(k, t.shape[1]) for k, t in segs]}; launches {dict((k, v) for k, v in counts.items() if v)}, "
+              f"{per_run} expected")
+    return out
+
+
 def build_taming(device, gpt_cfg=None, vq_cfg=None):
     """The Taming-1.4B cin_transformer and the f16 ImageNet VQGAN unless
     other configs are given, with random weights from ``SEED``: grouped-int4
@@ -656,6 +939,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    from wmar_tpu_torch.tools import bench_attention
+
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
@@ -674,14 +959,27 @@ def main() -> int:
     for name, err in timed("kernels #1, #2 at Taming", phase_taming_attention, device).items():
         numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], err)
     numbers["matmul_w4"] = timed("kernel #8", phase_w4, device)
+    errs = timed("kernels #5, #6", phase_flash_kernels, device)
+    errs.update(timed("kernels #7, #9", phase_probes, device))
     torch.cuda.empty_cache()
-    paths = [timed("RAR path", lambda: phase_main_path(device, build_rar(device)))]
+    micro = timed("microbench", phase_microbench, device)
+    for name, err in errs.items():
+        numbers[name] = {**micro[name], "max_abs_err": err}
     torch.cuda.empty_cache()
-    paths.append(timed("Chameleon path", lambda: phase_chameleon(device, build_chameleon(device))))
+    paths = [{"launches": micro["launches"]}, timed("RAR path", lambda: phase_main_path(device, build_rar(device)))]
+    torch.cuda.empty_cache()
+    chameleon = build_chameleon(device)
+    paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
+    paths.append(timed("interleaved path", phase_interleaved, device, chameleon))
+    paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, chameleon))
+    del chameleon
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
-    print(f"card: {card_line()}; phases {json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
+    never = [name for name, n in counts.items() if n == 0]
+    if never:
+        raise AssertionError(f"kernels never launched on a main path: {never}")
+    print(f"card: {bench_attention.card_line()}; phases {json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
           f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -692,6 +990,9 @@ def main() -> int:
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"],
         "plain_ms": numbers[name]["plain_ms"],
+        "bound_ms": numbers[name]["bound_ms"],
+        "bound_by": numbers[name]["bound_by"],
+        "library_ms": numbers[name]["library_ms"],
     } for name, _, source, replaces in _kernels()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

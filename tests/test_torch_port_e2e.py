@@ -163,9 +163,11 @@ def test_generate_refuses_what_is_not_ported(tmp_path):
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
     for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--wm_split_strategy", "clustering"],
-                  ["--include_diffpure", "true"], ["--interleaved", "spec.json"]):
+                  ["--include_diffpure", "true"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
+    with pytest.raises(SystemExit, match="chameleon7b"):  # ported, but a Chameleon path, as in generate.py
+        tgen.main(base + ["--device", "cpu", "--interleaved", "prompts.txt"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         tgen.main(["--model", "rar", "--tiny", "--outdir", str(tmp_path), "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -8,7 +8,7 @@ imports no JAX, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
+from wmar_tpu_torch.engine.kvcache import KVCache, Packed4QuantKVCache, PackedQuantKVCache
 from wmar_tpu_torch.ops import flash_decode as fd
 from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
@@ -272,3 +272,207 @@ def test_tiny_taming_int4_runs_through_the_kernels(device):
     steps = vq_cfg.codes_per_side**2
     assert out["cuda"][1:] == (steps * cfg.n_layer, steps * (6 * cfg.n_layer + 1)) and out["cpu"][1:] == (0, 0)
     assert (out["cuda"][0] == out["cpu"][0]).float().mean() >= 0.95
+
+
+def _flash_layer(cache_dtype, b, h, t, d, device, seed):
+    """One filled layer of a bf16, f32 or int8 cache, as (wrapper, plain
+    version, the layer's tensors)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    k, v = (torch.randn((b, h, t, d), generator=g, device=device) for _ in range(2))
+    cache = KVCache.zeros(2, b, h, t, d, cache_dtype, device=device).write(1, 0, k, v)
+    if cache_dtype == torch.int8:
+        return (fd.flash_decode_attention_q8, fd.flash_decode_attention_q8_plain,
+                (cache.k[1], cache.v[1], cache.k_scale[1], cache.v_scale[1]), g)
+    return fd.flash_decode_attention, fd.flash_decode_attention_plain, (cache.k[1], cache.v[1]), g
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32, torch.int8], ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("d", [8, 16, 20, 80, 104, 128])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_match_plain(device, cache_dtype, d, q_dtype):
+    """Kernels #5 and #6 against their plain float32 versions at short and
+    long caches, with and without a ragged ``start`` and a random
+    ``key_mask`` (bool and uint8), at the tolerances of kernel #1. Every row
+    keeps at least one slot that takes part. One launch per call."""
+    b, h = 5, 3
+    rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
+    for t, lens in ((40, (1, 17, 39, 40)), (2100, (1, 33, 600, 2049, 2100))):
+        launch, plain, layer, g = _flash_layer(cache_dtype, b, h, t, d, device, seed=d + t)
+        q = torch.randn((b, h, 1, d), generator=g, device=device).to(q_dtype)
+        start0 = torch.randint(0, 30, (b,), generator=g, device=device, dtype=torch.int32)
+        key_mask0 = torch.rand((b, t), generator=g, device=device) < 0.6
+        for n in lens:
+            start = torch.clamp(start0, max=n - 1)
+            km = key_mask0.clone()
+            km[torch.arange(b, device=device), start.long()] = True
+            km0 = key_mask0.clone()
+            km0[:, 0] = True
+            for st, mask in ((None, None), (start, None), (None, km0), (start, km), (start, km.to(torch.uint8))):
+                before = launch.launches
+                got = launch(q, *layer, torch.full((1,), n, dtype=torch.int32, device=device), start=st, key_mask=mask)
+                torch.cuda.synchronize()
+                assert launch.launches == before + 1
+                want = plain(q.float(), *layer, n, st, mask)
+                assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
+                err = (got.float() - want).abs().max().item()
+                assert err <= rel * want.abs().max().item() + 1e-6, (t, n, st is None, mask is None, err)
+
+
+def test_flash_kernels_skip_masked_slots_and_take_int_valid_len(device):
+    """A masked slot's payload is never used (NaNs planted there do not reach
+    the output), a Python-int ``valid_len`` works, and a row with no slot
+    that takes part gets zeros."""
+    b, h, t, d = 3, 2, 64, 16
+    launch, plain, (k, v), g = _flash_layer(torch.float32, b, h, t, d, device, seed=1)
+    q = torch.randn((b, h, 1, d), generator=g, device=device)
+    km = torch.rand((b, t), generator=g, device=device) < 0.5
+    km[:, 3] = True
+    k, v = k.clone(), v.clone()
+    want = plain(q, k, v, 50, None, km)
+    k[~km[:, None, :].expand(b, h, t)] = float("nan")
+    v[~km[:, None, :].expand(b, h, t)] = float("nan")
+    got = launch(q, k, v, 50, key_mask=km)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    km[1] = False
+    got = launch(q, k, v, 50, key_mask=km)
+    assert bool((got[1] == 0).all()) and torch.isfinite(got).all()
+
+
+def test_flash_kernels_reject_bad_inputs(device):
+    """Wrong dtypes, shapes, devices, a head dim that is no multiple of 4 and
+    non-contiguous views raise, and nothing is launched."""
+    b, h, t, d = 2, 2, 8, 16
+    _, _, (k, v), _ = _flash_layer(torch.float32, b, h, t, d, device, seed=2)
+    _, _, (k8, v8, ks, vs), _ = _flash_layer(torch.int8, b, h, t, d, device, seed=2)
+    q = torch.zeros((b, h, 1, d), device=device)
+    before = (fd.flash_decode_attention.launches, fd.flash_decode_attention_q8.launches)
+    with pytest.raises(TypeError):
+        fd.flash_decode_attention(q.half(), k, v, 4)
+    with pytest.raises(TypeError):
+        fd.flash_decode_attention(q, k8, v8, 4)
+    with pytest.raises(TypeError):
+        fd.flash_decode_attention_q8(q, k, v, ks, vs, 4)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(q, k.cpu(), v, 4)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(torch.zeros((b, h, 2, d), device=device), k, v, 4)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(q, k, v[:, :, :4], 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fd.flash_decode_attention(q[..., :6].contiguous(), k[..., :6].contiguous(), v[..., :6].contiguous(), 4)
+    with pytest.raises(ValueError, match="multiple of 4"):  # head dims above 128 are not taken
+        fd.flash_decode_attention(*(torch.zeros((b, h, n, 132), device=device) for n in (1, t, t)), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 4)
+    with pytest.raises(ValueError, match="k_scale"):
+        fd.flash_decode_attention_q8(q, k8, v8, ks.float(), vs, 4)
+    with pytest.raises(ValueError, match="key_mask"):
+        fd.flash_decode_attention(q, k, v, 4, key_mask=torch.ones((b, t + 1), dtype=torch.bool, device=device))
+    with pytest.raises(ValueError, match="start"):
+        fd.flash_decode_attention(q, k, v, 4, start=torch.zeros(b + 1, dtype=torch.int32, device=device))
+    assert before == (fd.flash_decode_attention.launches, fd.flash_decode_attention_q8.launches)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(5, 40, 3, 20), (128, 258, 16, 80), (3, 1100, 4, 128), (2, 33, 2, 256)])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_dma_probe_matches_plain(device, b, t, h, d, q_dtype):
+    """Kernel #7 gives its plain version's output bit for bit (one float32
+    add, one rounding), for both layers of a stacked cache; one launch per
+    call."""
+    cache, _ = _cache(2, b, h, t, d, device, seed=t, cls=PackedQuantKVCache)
+    q = torch.zeros((b, h, 1, d), dtype=q_dtype, device=device)
+    for layer in (0, 1):
+        before = fd._packed_dma_probe.launches
+        got = fd._packed_dma_probe(q, cache.kv, cache.scale, layer)
+        torch.cuda.synchronize()
+        assert fd._packed_dma_probe.launches == before + 1
+        want = fd._packed_dma_probe_plain(q, cache.kv, cache.scale, layer)
+        assert got.dtype == q_dtype and torch.equal(got, want) and got.abs().max() > 1
+    with pytest.raises(TypeError):
+        fd._packed_dma_probe(q, cache.kv.view(torch.uint8), cache.scale, 0)
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1024), (3, 8), (64, 1024), (1000, 136), (16384, 1024)])
+def test_row_mean_probe_matches_plain(device, rows, cols):
+    """Kernel #9 against its plain version within bf16's rounding of the mean
+    (2^-8 + 1e-5 of the largest mean: the sums run in different orders);
+    one launch per call; bad inputs raise."""
+    g = torch.Generator(device=device).manual_seed(rows)
+    x = (torch.randn((rows, cols), generator=g, device=device) + 0.5).to(torch.bfloat16)
+    before = fd.row_mean_probe.launches
+    got = fd.row_mean_probe(x)
+    torch.cuda.synchronize()
+    assert fd.row_mean_probe.launches == before + 1
+    want = fd.row_mean_probe_plain(x)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, 128)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (2.0**-8 + 1e-5) * want.float().abs().max().item() + 1e-6
+    with pytest.raises(ValueError):
+        fd.row_mean_probe(x.float())
+    with pytest.raises(ValueError):
+        fd.row_mean_probe(torch.zeros((2, 12), dtype=torch.bfloat16, device=device))
+    assert fd.row_mean_probe.launches == before + 1
+
+
+def test_tiny_interleaved_runs_through_the_flash_kernels(device):
+    """A tiny Chameleon through ``sample_interleaved_fused`` with a 2048-slot
+    cache on the card: every forward after the prefill launches kernel #5
+    (f32 cache) or #6 (int8 cache) once per layer and no other attention
+    kernel, with no host sync inside the loop's steps; greedy tokens on the
+    f32 cache equal the CPU run of the plain version on >= 90% of the
+    positions."""
+    from wmar_tpu_torch.models import ChameleonARMM, ChameleonVocab, GenParams, LlamaConfig, VQGANConfig, \
+        init_llama_params, init_taming_vqgan
+    from wmar_tpu_torch.models import chameleon_interleaved as il
+    from wmar_tpu_torch.models.chameleon_interleaved import TextGenOptions, sample_interleaved_fused
+
+    vocab = ChameleonVocab.synthetic(n_codes=16, n_text=20)
+    cfg = LlamaConfig(dim=64, n_layers=2, n_heads=4, vocab_size=vocab.vocab_size, multiple_of=16)
+    vq_cfg = VQGANConfig(resolution=8, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(), z_channels=32,
+                         n_embed=16, embed_dim=8)
+    opts = TextGenOptions(max_gen_len=3, greedy=True)
+    budget = 18 + 2 * 3
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        g = torch.Generator().manual_seed(1)  # a seed whose greedy run opens an image
+        params = init_llama_params(cfg, g)
+        vq = init_taming_vqgan(vq_cfg, g)
+        params = {k: ([{n: (w.to(dev) if torch.is_tensor(w) else {m: x.to(dev) for m, x in w.items()})
+                        for n, w in blk.items()} for blk in v] if k == "blocks" else v.to(dev))
+                  for k, v in params.items()}
+        wrapper = ChameleonARMM(params, cfg, vocab, vq, tokenizer=lambda s: [6 + (ord(c) % 20) for c in s[:4]],
+                                image_seq_len=16, cache_dtype=torch.float32, device=dev)
+        for cache_dtype in (torch.float32, torch.int8):
+            wrapper.cache_dtype = cache_dtype
+            for fn in (fd.flash_decode_attention, fd.flash_decode_attention_q8, fd.packed4_decode_attention_chunked,
+                       fd.packed_decode_attention_q8_chunked):
+                fn.launches = 0
+            calls, real = [0], il.llama_forward
+
+            def forward(*args, **kwargs):
+                # from the first decode step to the last forward, any host sync raises
+                calls[0] += 1
+                if dev.type == "cuda" and calls[0] in (2, budget):
+                    torch.cuda.set_sync_debug_mode("error" if calls[0] == 2 else "default")
+                return real(*args, **kwargs)
+
+            il.llama_forward = forward
+            try:
+                segs = sample_interleaved_fused(wrapper, "ab", GenParams(greedy=True), text_opts=opts, max_images=1,
+                                                cache_budget=2048)
+            finally:
+                il.llama_forward = real
+                torch.cuda.set_sync_debug_mode("default")
+            assert calls[0] == budget
+            out[(dev.type, cache_dtype)] = ([int(t) for _, toks in segs for t in toks[0]],
+                                            fd.flash_decode_attention.launches, fd.flash_decode_attention_q8.launches,
+                                            fd.packed4_decode_attention_chunked.launches
+                                            + fd.packed_decode_attention_q8_chunked.launches)
+    per_run = (budget - 1) * cfg.n_layers
+    assert out[("cuda", torch.float32)][1:] == (per_run, 0, 0) and out[("cuda", torch.int8)][1:] == (0, per_run, 0)
+    assert out[("cpu", torch.float32)][1:] == (0, 0, 0)
+    a, b_ = out[("cuda", torch.float32)][0], out[("cpu", torch.float32)][0]
+    n = min(len(a), len(b_))
+    assert n >= 20 and sum(x == y for x, y in zip(a[:n], b_[:n])) >= 0.9 * n

@@ -14,8 +14,9 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
 * MaskGit and Taming-VQGAN Flax trees: conv ``kernel`` goes from HWIO to
   OIHW as ``weight``; GroupNorm ``scale``/``bias`` become
   ``weight``/``bias``.
-* A JAX ``PackedQuantKVCache`` or ``Packed4QuantKVCache`` (``kv``,
-  ``scale``) becomes the port's.
+* A JAX ``KVCache`` (``k``, ``v``), ``QuantKVCache`` (``k``, ``v``,
+  ``k_scale``, ``v_scale``), ``PackedQuantKVCache`` or
+  ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
+from wmar_tpu_torch.engine.kvcache import KVCache, Packed4QuantKVCache, PackedQuantKVCache, QuantKVCache
 from wmar_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
 from wmar_tpu_torch.models.rar import RAR
 from wmar_tpu_torch.models.taming_gpt import GPT
@@ -142,6 +143,16 @@ def _load_flax(model, variables: Dict):
     if seen != set(own):
         raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - seen)[:5]}")
     return model
+
+
+def kv_cache(k, v, device=None) -> KVCache:
+    """A JAX ``KVCache``'s ``k`` and ``v`` (f32 or bf16) as the port's cache."""
+    return KVCache(to_tensor(k, device=device), to_tensor(v, device=device))
+
+
+def quant_cache(k, v, k_scale, v_scale, device=None) -> QuantKVCache:
+    """A JAX ``QuantKVCache``'s payloads and scales as the port's cache."""
+    return QuantKVCache(*(to_tensor(x, device=device) for x in (k, v, k_scale, v_scale)))
 
 
 def packed_cache(kv, scale, head_dim: int, device=None) -> PackedQuantKVCache:

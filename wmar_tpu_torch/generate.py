@@ -12,8 +12,18 @@ chameleon7b``).
         --weight_dtype int8 --cache_dtype packed4 --conditioning prompts.txt \\
         --batch_size 8 --outdir out/
 
+    python -m wmar_tpu_torch.generate --model chameleon7b --no_augs \\
+        --weight_dtype int8 --interleaved assets/interleaved_prompts.txt \\
+        --outdir out/
+
 ``--conditioning`` is a comma-separated list of class ids, or the path of a
-file with one prompt per line (Chameleon).
+file with one prompt per line (Chameleon). ``--interleaved <prompts file>``
+(Chameleon) writes interleaved text and image output per prompt instead:
+one decode loop over one KV cache shared by the three CFG rows. The cache
+holds the prompt and the generation budget, so from ``--max_images 2`` on
+(2244 tokens at full size) it has 2048 slots or more and a bf16 or int8
+cache is read by the flash-decode kernels; with one image (about 1,160
+slots) the plain attention runs.
 
 The flags keep ``generate.py``'s names. ``--device`` (default ``cuda``)
 names the device outright: without a CUDA card the default fails rather
@@ -44,7 +54,6 @@ _NOT_PORTED = {
     "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
     "include_diffpure": "the neural attacks (ROADMAP queue 1, item 12)",
     "wm_torch_compat": "torch-compat greenlist tables (ROADMAP queue 1, item 1)",
-    "interleaved": "the interleaved Chameleon frontend (ROADMAP queue 1, item 9)",
 }
 
 
@@ -95,8 +104,72 @@ def get_parser():
     p.add_argument("--sync", type=str2bool, default=False)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_augs", action="store_true")
-    p.add_argument("--interleaved", type=str, default=None)
+    p.add_argument("--interleaved", type=str, default=None,
+                   help="prompts file (e.g. assets/interleaved_prompts.txt): interleaved text and image "
+                        "output per prompt instead of text-to-image (chameleon7b only)")
+    p.add_argument("--max_images", type=int, default=1, help="max image segments per interleaved generation")
+    p.add_argument("--text_gen_len", type=int, default=64, help="max tokens per interleaved text segment")
     return p
+
+
+def run_interleaved(args, wrapper, apply_wm: bool):
+    """Interleaved text and image generation over a prompts file, through
+    the fused one-loop sampler. Per prompt, writes ``p=<idx>,idx=<s>/``:
+    ``prompt.txt``, ``seg<k>_text.{txt,npy}`` for text segments and
+    ``seg<k>_img.{png,npy,json}`` for image segments; the json carries the
+    watermark p-values of the raw generated codes and of the re-tokenized
+    (decode -> encode round trip) codes."""
+    import json
+
+    import numpy as np
+
+    from wmar_tpu_torch.core.detect import detect
+    from wmar_tpu_torch.eval.pipeline import to_pillow
+    from wmar_tpu_torch.models import GenParams
+    from wmar_tpu_torch.models.chameleon_interleaved import TextGenOptions, sample_interleaved_fused
+
+    if not hasattr(wrapper, "llama_params"):
+        raise SystemExit("--interleaved is the chameleon7b path")
+    with open(args.interleaved) as f:
+        prompts = [ln.strip() for ln in f if ln.strip()]
+    prompts = prompts[args.chunk_id::args.num_chunks]
+    text_opts = TextGenOptions(max_gen_len=args.text_gen_len, temp=args.temperature, top_p=args.top_p)
+    gen = GenParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                    guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)
+    records = []
+    for pi, prompt in enumerate(prompts):
+        for si in range(args.num_samples_per_conditioning):
+            generator = torch.Generator(device=wrapper.device).manual_seed(args.seed * 1000003 + pi * 131071 + si)
+            segs = sample_interleaved_fused(wrapper, prompt, gen, text_opts=text_opts, max_images=args.max_images,
+                                            apply_watermark=apply_wm, generator=generator)
+            d = os.path.join(args.outdir, f"p={pi},idx={si}")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "prompt.txt"), "w") as f:
+                f.write(prompt + "\n")
+            for k, (kind, toks) in enumerate(segs):
+                if kind == "text_seg":
+                    np.save(os.path.join(d, f"seg{k}_text.npy"), toks)
+                    with open(os.path.join(d, f"seg{k}_text.txt"), "w") as f:
+                        f.write(" ".join(str(t) for t in toks[0]) + "\n")
+                    continue
+                if toks.shape[1] != wrapper.image_seq_len:
+                    # the generation budget ran out inside the image: not decodable
+                    print(f"skipping truncated image segment {k} ({toks.shape[1]}/{wrapper.image_seq_len} tokens)")
+                    continue
+                codes = torch.as_tensor(toks, device=wrapper.device)
+                imgs = wrapper.codes_to_images(codes)
+                to_pillow(imgs[0].float().cpu().numpy()).save(os.path.join(d, f"seg{k}_img.png"))
+                np.save(os.path.join(d, f"seg{k}_img.npy"), toks)
+                rec = {"prompt": prompt, "segment": k}
+                if apply_wm:
+                    recodes = wrapper.images_to_codes(imgs).reshape(codes.shape[0], -1)
+                    rec["pvalue_raw"] = float(detect(wrapper.watermark_spec, wrapper.greenlist, codes)[0])
+                    rec["pvalue_roundtrip"] = float(detect(wrapper.watermark_spec, wrapper.greenlist, recodes)[0])
+                with open(os.path.join(d, f"seg{k}_img.json"), "w") as f:
+                    json.dump(rec, f, indent=1)
+                records.append(rec)
+    print(f"wrote {len(records)} interleaved image segments to {args.outdir}")
+    return records
 
 
 def _refuse_unported(args) -> None:
@@ -105,7 +178,7 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"--{name}: {what} is not ported yet")
     if any(getattr(args, f) != 1 for f in ("dp", "tp", "sp", "pp")):
         raise SystemExit("--dp/--tp/--sp/--pp: multi-GPU runs are not ported yet (ROADMAP queue 1, item 14)")
-    if not (args.no_augs or args.orig_only):
+    if not (args.no_augs or args.orig_only or args.interleaved):
         raise SystemExit("the attack grid is not ported yet (ROADMAP queue 1, items 8 and 12): pass --no_augs")
     if args.wm_split_strategy == "clustering":
         raise SystemExit("--wm_split_strategy clustering is not ported yet (ROADMAP queue 1, item 1)")
@@ -242,6 +315,9 @@ def main(argv=None):
         spec = WatermarkSpec.from_string(method, vocab_size=wrapper.get_total_vocab_size(),
                                          spatial_dim=wrapper.codes_size)
         wrapper.set_watermarker(spec)
+
+    if args.interleaved:
+        return run_interleaved(args, wrapper, apply_wm)
 
     if os.path.exists(args.conditioning):
         with open(args.conditioning) as f:

@@ -18,9 +18,10 @@ Vocab translation: image BPE tokens are named ``IMGIMG<digits as A..J>Z``;
 as in the reference; translation to VQGAN codebook ids happens inside
 ``codes_to_images``/``images_to_codes``.
 
-Not ported yet: sequence- and pipeline-parallel prefill and tensor
-parallelism (ROADMAP queue 1, item 14) and the interleaved text-and-image
-frontend (item 9).
+The interleaved text-and-image frontend is
+:mod:`wmar_tpu_torch.models.chameleon_interleaved`. Not ported yet:
+sequence- and pipeline-parallel prefill and tensor parallelism (ROADMAP
+queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -244,7 +245,14 @@ class ChameleonARMM(ARMMWrapper):
         """Codes ``[B, image_seq_len]`` (BPE ids) for the prompts in
         ``conditioning``. ``noise [image_seq_len, B, k]`` feeds the draws'
         Gumbel noise; otherwise it comes from ``generator``."""
-        prompts, start, _ = build_cfg_prompts(self.vocab, self.tokenize_prompts(conditioning))
+        return self.sample_from_ids(self.tokenize_prompts(conditioning), gen_params, apply_watermark, generator, noise)
+
+    @torch.inference_mode()
+    def sample_from_ids(self, prompt_ids: List[List[int]], gen_params: GenParams, apply_watermark: bool = False,
+                        generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
+        """:meth:`sample` for prompts given as BPE id lists (for example an
+        interleaved history that ends with <boi>)."""
+        prompts, start, _ = build_cfg_prompts(self.vocab, prompt_ids)
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         start = torch.as_tensor(start, dtype=torch.int32, device=self.device)
         sampler = ChameleonT2ISampler(self.llama_params, self.llama_cfg, self._image_mask, prompts, start,

@@ -13,11 +13,13 @@ turns a JAX tree into one.
 
 Single-token decode on the packed caches goes to the hand-written CUDA
 kernels through :func:`wmar_tpu_torch.engine.attention.cached_decode_attention`
-(the chunked ones at Chameleon's ~1043 slots, with the per-row ``start``).
-Not ported yet: the flash-decode kernels #5/#6 that JAX takes for a float
-or int8 cache of 2048 slots or more (here that case raises), the
-sequence-parallel prefill and the tensor-parallel specs (ROADMAP queue 1,
-item 14).
+(the chunked ones at Chameleon's ~1043 slots, with the per-row ``start``);
+on a float or int8 cache of 2048 slots or more it goes to the flash-decode
+kernels (:func:`wmar_tpu_torch.ops.flash_decode.flash_decode_attention` and
+``..._q8``), as in JAX: that is the interleaved path, whose three CFG rows
+share one long cache behind a per-row ``key_mask``. ``USE_FLASH_DECODE``
+forces that route on or off. Not ported yet: the sequence-parallel prefill
+and the tensor-parallel specs (ROADMAP queue 1, item 14).
 
 Chameleon-7B config: dim 4096, 32 layers/heads, ffn 11008, qk_normalization,
 vocab 65536.
@@ -32,13 +34,22 @@ import torch
 import torch.nn.functional as F
 
 from wmar_tpu_torch.engine.attention import cached_decode_attention, decode_attention
-from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache
+from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache, QuantKVCache
 from wmar_tpu_torch.ops import wquant
+from wmar_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_attention_q8
 
+# The flash-decode kernels for single-token steps over a float or int8
+# cache. None = auto: the kernels when the cache has >= 2048 slots, the
+# plain attention below; True / False force (tests and bench tooling set
+# the module flag directly).
+USE_FLASH_DECODE = None
 FLASH_DECODE_MIN_CACHE = 2048
-_FLASH = ("single-token decode over a float or int8 cache of {} slots (>= 2048) takes the flash-decode "
-          "kernels #5/#6 (flash_decode_attention, flash_decode_attention_q8), which are not ported yet "
-          "(ROADMAP queue 2); use --cache_dtype packed or packed4")
+
+
+def _flash_enabled(cache_len: int) -> bool:
+    if USE_FLASH_DECODE is not None:
+        return USE_FLASH_DECODE
+    return cache_len >= FLASH_DECODE_MIN_CACHE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +197,11 @@ def block_finish(blk, cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor) -> 
 def _cache_attention(q, cache, li, valid_len, start, key_mask):
     if isinstance(cache, (PackedQuantKVCache, Packed4QuantKVCache)):
         return cached_decode_attention(q, cache, li, valid_len, start=start, key_mask=key_mask)
-    if q.shape[2] == 1 and cache.max_len >= FLASH_DECODE_MIN_CACHE:
-        raise NotImplementedError(_FLASH.format(cache.max_len))
+    if q.shape[2] == 1 and _flash_enabled(cache.max_len):
+        if isinstance(cache, QuantKVCache):
+            return flash_decode_attention_q8(q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li],
+                                             valid_len, start=start, key_mask=key_mask)
+        return flash_decode_attention(q, cache.k[li], cache.v[li], valid_len, start=start, key_mask=key_mask)
     k_all, v_all = cache.layer(li)
     return decode_attention(q, k_all, v_all, valid_len, start=start, key_mask=key_mask)
 

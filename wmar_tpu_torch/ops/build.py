@@ -106,4 +106,13 @@ def load() -> ctypes.CDLL:
     fn = lib.wmar_w4_matmul
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.wmar_flash_decode_attention
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
+    fn = lib.wmar_dma_probe
+    fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.wmar_row_mean_probe
+    fn.argtypes = [p, p, i, i, i, p]
+    fn.restype = i
     return lib

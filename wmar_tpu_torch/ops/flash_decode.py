@@ -1,7 +1,8 @@
-"""Decode attention over the packed KV caches (PyTorch + CUDA).
+"""Decode attention over the KV caches, and two measuring kernels (PyTorch + CUDA).
 
-Four TPU kernels of ``wmar_tpu/ops/flash_decode.py`` have hand-written
-sm_90a counterparts here, reached through the JAX package's two wrappers:
+Every TPU kernel of ``wmar_tpu/ops/flash_decode.py`` (and the per-call
+probe of ``tools/bench_call_floor.py``) has a hand-written sm_90a
+counterpart here, reached through the JAX package's wrappers:
 
 * :func:`packed4_decode_attention` (the int4 ``Packed4QuantKVCache``):
   below 1024 slots ``_packed4_attn_kernel`` (kernel #1,
@@ -12,24 +13,34 @@ sm_90a counterparts here, reached through the JAX package's two wrappers:
   below 1024 slots ``_packed_attn_kernel_q8`` (#2); from 1024 slots on the
   chunked ``_packed_attn_kernel_q8_chunked{,_km}`` (#3), here
   :func:`packed_decode_attention_q8_chunked`.
+* :func:`flash_decode_attention` (a bf16 or f32 ``KVCache`` layer,
+  ``_decode_attn_kernel{,_km}``, #5) and :func:`flash_decode_attention_q8`
+  (a ``QuantKVCache`` layer, ``_decode_attn_kernel_q8{,_km}``, #6): one
+  payload-templated kernel, ``csrc/flash_decode_attention.cu``, with
+  ``start`` and ``key_mask`` at any cache length.
+* :func:`_packed_dma_probe` (``_dma_probe_kernel``, #7) and
+  :func:`row_mean_probe` (the per-call floor probe, #9),
+  ``csrc/probes.cu``: what the int8 decode kernel's loads alone cost, and
+  what one small launch costs.
 
 Kernels #2-#4 are one payload-templated CUDA kernel
 (``csrc/packed_decode_attention.cu``) that streams a row's slots
-``[start_b, valid_len)`` with an online softmax and skips masked slots.
-The routing keeps JAX's rule: ``start``/``key_mask`` are taken only by the
-chunked path (``T >= 1024``); at shorter ``T`` the wrappers raise
-``ValueError`` as JAX's do.
+``[start_b, valid_len)`` with an online softmax and skips masked slots;
+#5/#6 take the same design over the unpacked layouts. The packed routing
+keeps JAX's rule: ``start``/``key_mask`` are taken only by the chunked path
+(``T >= 1024``); at shorter ``T`` the packed wrappers raise ``ValueError``
+as JAX's do.
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
-tensor it runs the plain torch version of the same math in float32
-(:func:`packed4_decode_attention_plain`,
-:func:`packed_decode_attention_q8_plain`). Nothing falls back from one to
-the other. Each kernel's wrapper counts its launches in ``.launches``.
+tensor it runs the plain torch version of the same math in float32 (the
+``*_plain`` functions). Nothing falls back from one to the other. Each
+kernel's wrapper counts its launches in ``.launches``.
 
-The kernels are bound by the bytes they read: the payload of the slots
-that take part plus 4 bytes of scales per (slot, head), about 43 MB per
-layer at RAR-XL (int4, 128 rows) and 105 MB at Chameleon-7B (int4, 24
-rows, a full cache of 1043 slots).
+The attention kernels are bound by the bytes they read: the payload of the
+slots that take part plus the scales, about 43 MB per layer at RAR-XL
+(int4, 128 rows), 105 MB at Chameleon-7B text-to-image (int4, 24 rows, a
+full cache of 1043 slots) and 53 MB at the end of an interleaved run (bf16,
+3 rows over one history of ~1160 slots).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import torch
 
 _MAX_D = 256
+_FLASH_MAX_D = 128  # kernels #5 and #6: one warp reads a slot in one load
 _SMEM_BYTES = 48 * 1024  # kernel #1: scores [T] + q [D] + 4 partials, as float32, without opt-in
 _CHUNK_MIN_T = 1024  # JAX's shape-aware default: the chunked kernels from 1024 slots on
 _MASKS_NEED_CHUNKED = (
@@ -130,6 +142,26 @@ def _device_lens(valid_len, device) -> torch.Tensor:
     return torch.full((1,), int(valid_len), dtype=torch.int32, device=device)
 
 
+def _device_masks(q, t: int, start, key_mask):
+    """``start`` as int32 ``[B]`` and ``key_mask`` as bytes ``[B, T]`` on q's
+    device (bool is viewed, never copied); returns the tensors, which the
+    caller keeps alive over the launch, and their pointers (None if absent)."""
+    b = q.shape[0]
+    start_ptr = mask_ptr = None
+    if start is not None:
+        if not isinstance(start, torch.Tensor) or start.device != q.device or start.shape != (b,):
+            raise ValueError(f"start must be a [{b}] tensor on q's device")
+        start = start.to(torch.int32).contiguous()
+        start_ptr = start.data_ptr()
+    if key_mask is not None:
+        if not isinstance(key_mask, torch.Tensor) or key_mask.device != q.device or key_mask.shape != (b, t):
+            raise ValueError(f"key_mask must be a [{b}, {t}] tensor on q's device")
+        key_mask = (key_mask.view(torch.uint8) if key_mask.dtype == torch.bool
+                    else key_mask.to(torch.uint8)).contiguous()
+        mask_ptr = key_mask.data_ptr()
+    return start, key_mask, start_ptr, mask_ptr
+
+
 def _chunked_route(kv_all, start, key_mask) -> bool:
     """JAX's rule: the chunked kernel from 1024 slots on; masks only there."""
     chunked = kv_all.shape[2] >= _CHUNK_MIN_T
@@ -149,18 +181,7 @@ def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask,
     if kv_layer.data_ptr() % 4:
         raise ValueError("the cache payload must be 4-byte aligned")
     lens = _device_lens(valid_len, q.device)
-    start_ptr = mask_ptr = None
-    if start is not None:
-        if not isinstance(start, torch.Tensor) or start.device != q.device or start.shape != (b,):
-            raise ValueError(f"start must be a [{b}] tensor on q's device")
-        start = start.to(torch.int32).contiguous()
-        start_ptr = start.data_ptr()
-    if key_mask is not None:
-        if not isinstance(key_mask, torch.Tensor) or key_mask.device != q.device or key_mask.shape != (b, t):
-            raise ValueError(f"key_mask must be a [{b}, {t}] tensor on q's device")
-        key_mask = (key_mask.view(torch.uint8) if key_mask.dtype == torch.bool
-                    else key_mask.to(torch.uint8)).contiguous()
-        mask_ptr = key_mask.data_ptr()
+    start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
     from wmar_tpu_torch.ops import build
 
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
@@ -262,3 +283,183 @@ packed4_decode_attention.launches = 0
 packed4_decode_attention_chunked.launches = 0
 packed_decode_attention_q8.launches = 0
 packed_decode_attention_q8_chunked.launches = 0
+
+
+def _flash_check(q, k, v, kv_dtypes):
+    """Device, type, shape and contiguity checks of kernels #5 and #6."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or f32, got {q.dtype}")
+    if k.dtype not in kv_dtypes or v.dtype != k.dtype:
+        raise TypeError(f"k and v must both be one of {kv_dtypes}, got {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-d")
+    b, h, tq, d = q.shape
+    t = k.shape[2]
+    if tq != 1:
+        raise ValueError(f"single-token decode only, got {tq} query tokens")
+    if k.shape != (b, h, t, d) or v.shape != k.shape:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not 0 < d <= _FLASH_MAX_D or d % 4:
+        raise ValueError(f"head dim {d} must be a multiple of 4 in (0, {_FLASH_MAX_D}] (32 lanes load 4 values each)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    quad = 4 * k.element_size()
+    if k.data_ptr() % quad or v.data_ptr() % quad:
+        raise ValueError(f"k and v must be {quad}-byte aligned")
+
+
+_KV_TYPE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+def _launch_flash(q, k, v, k_scale, v_scale, valid_len, start, key_mask) -> torch.Tensor:
+    """Launch ``csrc/flash_decode_attention.cu`` (kernels #5 and #6)."""
+    b, h, _, d = q.shape
+    t = k.shape[2]
+    lens = _device_lens(valid_len, q.device)
+    start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
+    from wmar_tpu_torch.ops import build
+
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    rc = build.load().wmar_flash_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(), None if v_scale is None else v_scale.data_ptr(),
+        lens.data_ptr(), start_ptr, mask_ptr, out.data_ptr(), b, h, t, d, _KV_TYPE[k.dtype],
+        int(q.dtype == torch.bfloat16), d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash decode attention kernel failed to launch: cudaError {rc}")
+    return out
+
+
+def flash_decode_attention_plain(q, k_cache, v_cache, valid_len, start=None, key_mask=None) -> torch.Tensor:
+    """Plain torch version of kernel #5, computed in float32: ``q [B, H, 1,
+    D]`` against ``k_cache, v_cache [B, H, T, D]``; slots ``start[b] <= t <
+    valid_len`` whose ``key_mask [B, T]`` is set take part. Returns ``[B, H,
+    1, D]`` in q's dtype."""
+    ones = torch.ones((), dtype=torch.float32, device=q.device)
+    return _attention_plain(q, k_cache.to(torch.float32), v_cache.to(torch.float32), ones, ones, valid_len, start,
+                            key_mask)
+
+
+def flash_decode_attention_q8_plain(q, k_int8, v_int8, k_scale, v_scale, valid_len, start=None,
+                                    key_mask=None) -> torch.Tensor:
+    """Plain torch version of kernel #6, computed in float32: int8 payloads
+    ``[B, H, T, D]`` with ``k_scale, v_scale [B, H, T]``; the score takes
+    ``k_scale`` and the probability ``v_scale``, as the kernel does."""
+    return _attention_plain(q, k_int8.to(torch.float32), v_int8.to(torch.float32), k_scale.to(torch.float32),
+                            v_scale.to(torch.float32), valid_len, start, key_mask)
+
+
+def flash_decode_attention(q, k_cache, v_cache, valid_len, start=None, key_mask=None) -> torch.Tensor:
+    """Kernel #5: fused decode attention of ``q [B, H, 1, D]`` (bf16 or f32)
+    over one ``KVCache`` layer ``k_cache, v_cache [B, H, T, D]`` (bf16 or
+    f32, read in place), at any ``T``.
+
+    ``valid_len``: count of valid slots, best a device int32 tensor of one
+    element; ``start [B]``: first valid slot per row; ``key_mask [B, T]``
+    (bool or uint8): per-row per-slot validity, read on the device. Every
+    row must keep one slot that takes part (a row with none gets zeros).
+    Returns ``[B, H, 1, D]`` in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return flash_decode_attention_plain(q, k_cache, v_cache, valid_len, start, key_mask)
+    _flash_check(q, k_cache, v_cache, (torch.bfloat16, torch.float32))
+    out = _launch_flash(q, k_cache, v_cache, None, None, valid_len, start, key_mask)
+    flash_decode_attention.launches += 1
+    return out
+
+
+def flash_decode_attention_q8(q, k_int8, v_int8, k_scale, v_scale, valid_len, start=None,
+                              key_mask=None) -> torch.Tensor:
+    """Kernel #6: as :func:`flash_decode_attention` over one ``QuantKVCache``
+    layer: ``k_int8, v_int8`` int8 ``[B, H, T, D]``, ``k_scale, v_scale``
+    bf16 ``[B, H, T]``, dequantized inside the kernel."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_q8_plain(q, k_int8, v_int8, k_scale, v_scale, valid_len, start, key_mask)
+    _flash_check(q, k_int8, v_int8, (torch.int8,))
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.device != q.device or sc.dtype != torch.bfloat16 or sc.shape != k_int8.shape[:3] \
+                or not sc.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 {tuple(k_int8.shape[:3])} tensor on q's device")
+    out = _launch_flash(q, k_int8, v_int8, k_scale, v_scale, valid_len, start, key_mask)
+    flash_decode_attention_q8.launches += 1
+    return out
+
+
+def _packed_dma_probe_plain(q, kv_all, scale_all, layer: int) -> torch.Tensor:
+    """Plain torch version of kernel #7's output: ``kv[b, 0, :H*D] +
+    scale[b, 0, 0]`` as ``[B, H, 1, D]`` in q's dtype."""
+    b, h, _, d = q.shape
+    row = kv_all[layer][:, 0, : h * d].to(torch.float32) + scale_all[layer][:, 0, 0].to(torch.float32)[:, None]
+    return row.to(q.dtype).reshape(b, h, 1, d)
+
+
+def _packed_dma_probe(q, kv_all, scale_all, layer: int) -> torch.Tensor:
+    """Kernel #7: the bandwidth probe of the int8 packed decode kernels.
+
+    Same grid, block and loads as kernel #2 over all ``T`` slots of
+    ``kv_all int8 [L, B, T, 2*H*D]`` and ``scale_all bf16 [L, B, 2H, T]``,
+    with no attention math; only ``q``'s shape and dtype are used. Its time
+    is what those loads alone cost. Returns ``kv[b, 0, :H*D] + scale[b, 0,
+    0]`` as ``[B, H, 1, D]``.
+    """
+    layer = int(layer)
+    if q.device.type == "cpu":
+        return _packed_dma_probe_plain(q, kv_all, scale_all, layer)
+    _check(q, kv_all, scale_all, layer, torch.int8, 2)
+    b, h, _, d = q.shape
+    if d % 4:
+        raise ValueError(f"head dim {d} must be a multiple of 4 (the kernel reads 32-bit words)")
+    kv_layer, scale_layer = kv_all[layer], scale_all[layer]
+    if kv_layer.data_ptr() % 4:
+        raise ValueError("the cache payload must be 4-byte aligned")
+    from wmar_tpu_torch.ops import build
+
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    rc = build.load().wmar_dma_probe(kv_layer.data_ptr(), scale_layer.data_ptr(), out.data_ptr(), b, h,
+                                     kv_all.shape[2], d, int(q.dtype == torch.bfloat16),
+                                     torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dma probe kernel failed to launch: cudaError {rc}")
+    _packed_dma_probe.launches += 1
+    return out
+
+
+ROW_MEAN_OUT_COLS = 128
+
+
+def row_mean_probe_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of kernel #9: float32 row means of ``x [rows,
+    cols]``, rounded to bf16, in all 128 columns of ``[rows, 128]``."""
+    mean = x.to(torch.float32).mean(dim=1, keepdim=True).to(torch.bfloat16)
+    return mean.expand(x.shape[0], ROW_MEAN_OUT_COLS).contiguous()
+
+
+def row_mean_probe(x: torch.Tensor) -> torch.Tensor:
+    """Kernel #9: the per-call floor probe. ``x bf16 [rows, cols]`` (``cols``
+    a multiple of 8) -> ``bf16 [rows, 128]`` holding each row's float32
+    mean. At one row its time is the cost of a launch."""
+    if x.device.type == "cpu":
+        return row_mean_probe_plain(x)
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-d bf16 tensor, got {x.dtype} {tuple(x.shape)}")
+    rows, cols = x.shape
+    if rows == 0 or cols == 0 or cols % 8 or x.data_ptr() % 16:
+        raise ValueError(f"x needs rows > 0, cols a positive multiple of 8 and 16-byte alignment, got {tuple(x.shape)}")
+    from wmar_tpu_torch.ops import build
+
+    out = torch.empty((rows, ROW_MEAN_OUT_COLS), dtype=torch.bfloat16, device=x.device)
+    rc = build.load().wmar_row_mean_probe(x.data_ptr(), out.data_ptr(), rows, cols, ROW_MEAN_OUT_COLS,
+                                          torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"row mean probe kernel failed to launch: cudaError {rc}")
+    row_mean_probe.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0
+flash_decode_attention_q8.launches = 0
+_packed_dma_probe.launches = 0
+row_mean_probe.launches = 0

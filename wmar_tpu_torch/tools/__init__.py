@@ -1,0 +1,1 @@
+"""Measuring tools of the port (run on the card)."""
