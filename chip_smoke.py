@@ -26,7 +26,10 @@ phases:
    interleaved Chameleon shape (3 rows, 32 heads of 128, 4096 slots) and at
    a RAR-like shape (16 rows, 16 heads of 80), ``valid_len`` 1, 2, 1043,
    2049 and 4096, with and without ``start``, a random ``key_mask`` and the
-   three interleaved masks; kernel #7 (``_packed_dma_probe``) exactly and
+   three interleaved masks, each case with the planner's split count and
+   with 1, 2, 3 and 8 blocks per (row, head) forced, twice (equal bits),
+   and one launch replayed from a CUDA graph after ``valid_len`` and
+   ``key_mask`` changed in place; kernel #7 (``_packed_dma_probe``) exactly and
    kernel #9 (``row_mean_probe``) within bf16 rounding; each against its
    plain float32 version, and timed beside it (#1-#4 at full fill, #8 at
    the Taming shapes and the Chameleon FFN shape);
@@ -34,9 +37,10 @@ phases:
    the Chameleon-4k shapes: #5 and #6 beside their plain versions, the
    packed kernels over the same K/V, one ``scaled_dot_product_attention``
    call (a yardstick, used nowhere in the port), the DMA probe #7, and the
-   per-call floor #9 at 1 to 16,384 rows; every kernel's bound (bytes over
-   3.35 TB/s or operations over the peak rate) is computed from the
-   run's own inputs;
+   per-call floor #9 at 1 to 16,384 rows; each by CUDA events around the
+   call (``ms``) and replayed from a CUDA graph (``graph_ms``: no host gap);
+   every kernel's bound (bytes over 3.35 TB/s or operations over the peak
+   rate) is computed from the run's own inputs;
 4. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
    watermark through the port's ``generate_and_evaluate`` on 64 classes,
    a warm-up batch on the int8 packed cache (kernel #2) and a timed one on
@@ -188,7 +192,7 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
                   valid_lens=(1, 2, 129, 258), reps=100) -> dict:
     """Kernel vs plain on the card; returns the RAR-XL numbers."""
     from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
-    from wmar_tpu_torch.tools.bench_attention import attention_bound, time_turns
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = 0.0
@@ -223,10 +227,13 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
             nbytes = b * t * h * d + 4 * b * h * t
             bound_ms, bound_by = attention_bound(b, h, t, d, t, 0.5, True, q.dtype, torch.uint8)
             result = {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": None}
+                      "bound_by": bound_by, "library_ms": None,
+                      "graph_ms": graph_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
+                                           n_layers)}
             print(f"time rar_xl decode attention, full cache (plain, kernel, kernel, plain): "
-                  f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
-                  f"= {nbytes / (result['ms'] * 1e-3) / 1e9:.0f} GB/s")
+                  f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; replayed from a CUDA graph "
+                  f"{result['graph_ms']:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
+                  f"= {nbytes / (result['graph_ms'] * 1e-3) / 1e9:.0f} GB/s")
         del cache
     result["max_abs_err"] = worst
     print(f"kernel vs plain: worst bf16 max abs err {worst:.3e}")
@@ -261,7 +268,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     """Kernels #2-#4 against their plain versions, and timed beside them at
     full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``."""
     from wmar_tpu_torch.ops import flash_decode as fd
-    from wmar_tpu_torch.tools.bench_attention import attention_bound, time_turns
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     out = {}
@@ -295,7 +302,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
         variants = "none, start, start + key_mask" if masked else "none"
         print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}): ok, valid_len {list(lens_list)}, "
               f"masks {variants}, layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
-        out[name] = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan")}
+        out[name] = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None}
         if torch.device(device).type != "cuda":  # times only on the card
             continue
         q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
@@ -309,10 +316,12 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
         bound_ms, bound_by = attention_bound(b, h, t, d, t, 1 if kind == "packed" else 0.5, True, q.dtype,
                                              torch.int8 if kind == "packed" else torch.uint8, start=st)
         out[name] = {"max_abs_err": worst, "ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "graph_ms": graph_ms(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st), n_layers)}
         print(f"time {name}, full cache{' with the ragged start' if masked else ''} (plain, kernel, kernel, "
-              f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; kernel reads {nbytes / 1e6:.1f} MB "
-              f"= {nbytes / (out[name]['ms'] * 1e-3) / 1e9:.0f} GB/s")
+              f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph "
+              f"{out[name]['graph_ms']:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
+              f"= {nbytes / (out[name]['graph_ms'] * 1e-3) / 1e9:.0f} GB/s")
         del cache
     return out
 
@@ -364,7 +373,7 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
     enough weight copies to exceed the L2 cache, as a decode step does.
     Returns ``{"max_abs_err", "ms", "plain_ms"}`` of the first timed case."""
     from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
-    from wmar_tpu_torch.tools.bench_attention import bound, time_turns
+    from wmar_tpu_torch.tools.bench_attention import bound, graph_ms, time_turns
 
     if cases is None:
         cases = ([("taming", 32, k, n) for k, n in TAMING_MATMULS]
@@ -389,7 +398,7 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
         print(f"kernel vs plain matmul_w4 {label} M={m} K={k} N={n}: ok, groups {list(groups)}"
               f"{', bf16 and f32 x' if ci == 0 else ', bf16 x'}")
     print(f"kernel vs plain matmul_w4: worst bf16 max abs err {worst:.3e}")
-    out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan")}
+    out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None}
     if torch.device(device).type != "cuda":  # times only on the card
         return out
     for ti, (label, m, k, n) in enumerate(timed):
@@ -403,33 +412,67 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
         if ti == 0:
             # weights and scales, x and the output once each; 2 flops per weight and row at the bf16 rate
             bound_ms, bound_by = bound(wbytes + 2 * m * (k + n), 2.0 * m * k * n, torch.bfloat16)
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       graph_ms=graph_ms(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]), copies))
         print(f"time matmul_w4 {label} M={m} K={k} N={n} G=128, {copies} weight copies walked (plain, kernel, "
-              f"kernel, plain): {' '.join(f'{t:.4f}' for t in times)} ms; kernel {wbytes / (ms * 1e-3) / 1e9:.0f} "
-              f"GB/s of weight bytes, {2 * m * k * n / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain "
+              f"kernel, plain): {' '.join(f'{t:.4f}' for t in times)} ms"
+              f"{'; replayed from a CUDA graph %.4f ms' % out['graph_ms'] if ti == 0 else ''}; kernel "
+              f"{wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weight bytes, {2 * m * k * n / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain "
               f"{2 * m * k * n / (plain_ms * 1e-3) / 1e12:.2f} TFLOP/s")
         del ws
     return out
 
 
+def _graph_replay_check(name, launch, layer, q, t, gen, device) -> None:
+    """One launch captured in a CUDA graph, replayed after ``valid_len`` and
+    ``key_mask`` were changed in place, must give the bits of a fresh call:
+    the split count comes from the shapes alone and everything else is read
+    on the device."""
+    b = q.shape[0]
+    lens = torch.full((1,), 700, dtype=torch.int32, device=device)
+    key_mask = torch.rand((b, t), generator=gen, device=device) < 0.5
+    key_mask[:, 0] = True
+    later = torch.rand((b, t), generator=gen, device=device) < 0.8
+    later[:, 0] = True
+    launch(q, *layer, lens, key_mask=key_mask)  # the wrapper's scratch is allocated outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, *layer, lens, key_mask=key_mask)
+    for n, mask in ((700, key_mask.clone()), (1, key_mask.clone()), (3000, later), (t, later)):
+        lens.fill_(n)
+        key_mask.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, launch(q, *layer, lens, key_mask=key_mask)):
+            raise AssertionError(f"{name}: a replayed launch differs from a fresh call at valid_len {n}")
+
+
 def phase_flash_kernels(device, shapes=(("chameleon_4k", 3, 32, 4096, 128), ("rar_like", 16, 16, 4096, 80)),
-                        lens=(1, 2, 1043, 2049, 4096), interleaved=(7, 64, 1024)) -> dict:
+                        lens=(1, 2, 1043, 2049, 4096), interleaved=(7, 64, 1024), forced=(1, 2, 3, 8)) -> dict:
     """Kernels #5 and #6 against their plain versions: bf16, f32 and int8
-    caches, bf16 and f32 q, every ``valid_len`` of ``lens``, with no mask,
-    a ragged ``start``, a random ``key_mask``, both, and (3-row shapes) the
-    three masks of an interleaved run (everything | image tokens only |
-    <s> and the current image). Returns each one's worst bf16 error."""
+    caches, bf16 and f32 q, every ``valid_len`` of ``lens`` (1 and 2: fewer
+    slots than splits), with no mask, a ragged ``start``, a random
+    ``key_mask``, both, and (3-row shapes) the three masks of an interleaved
+    run (everything | image tokens only | <s> and the current image). Each
+    case goes through the wrapper (the planner's split count) and through
+    the private launcher with every split count of ``forced``, twice, and the
+    two outputs must be equal bit for bit. Then a launch captured in a CUDA
+    graph is replayed after the masks changed (card only). Returns each
+    one's worst bf16 error."""
     from wmar_tpu_torch.engine.kvcache import KVCache
     from wmar_tpu_torch.ops import flash_decode as fd
     from wmar_tpu_torch.tools.bench_attention import interleaved_masks
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    is_cuda = torch.device(device).type == "cuda"
     worst = {"flash_decode_attention": 0.0, "flash_decode_attention_q8": 0.0}
     for tag, b, h, t, d in shapes:
         k = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
         v = torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
         start0 = torch.randint(0, 300, (b,), generator=gen, device=device, dtype=torch.int32)
         key_mask0 = torch.rand((b, t), generator=gen, device=device) < 0.7
+        planned = fd.flash_decode_splits(b, h, t, fd._sm_count(torch.device(device).index or 0)) if is_cuda else 1
         for cache_dtype in (torch.bfloat16, torch.float32, torch.int8):
             cache = KVCache.zeros(2, b, h, t, d, cache_dtype, device=device).write(1, 0, k, v)
             if cache_dtype == torch.int8:
@@ -440,6 +483,7 @@ def phase_flash_kernels(device, shapes=(("chameleon_4k", 3, 32, 4096, 128), ("ra
                 name = "flash_decode_attention"
                 layer = (cache.k[1], cache.v[1])
                 launch, plain = fd.flash_decode_attention, fd.flash_decode_attention_plain
+            scales = layer[2:] or (None, None)
             for q_dtype in (torch.bfloat16, torch.float32):
                 q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
                 for n in lens:
@@ -452,18 +496,31 @@ def phase_flash_kernels(device, shapes=(("chameleon_4k", 3, 32, 4096, 128), ("ra
                     if b == 3:
                         masks.append((None, interleaved_masks(t, n, *interleaved, device)))
                     for st, km in masks:
+                        label = (f"{name} {tag} cache {cache_dtype} q {q_dtype} valid_len={n} "
+                                 f"start={st is not None} key_mask={km is not None}")
                         got = launch(q, *layer, n_lens, start=st, key_mask=km)
                         if got.is_cuda:
                             torch.cuda.synchronize()  # a fault in the kernel shows here
                         want = plain(q.float(), *layer, n, st, km)
-                        err = _check_close(f"{name} {tag} cache {cache_dtype} q {q_dtype} valid_len={n} "
-                                           f"start={st is not None} key_mask={km is not None}", got, want, q_dtype)
+                        err = _check_close(label, got, want, q_dtype)
                         if q_dtype == torch.bfloat16:
                             worst[name] = max(worst[name], err)
+                        for splits in (sorted({*forced, planned}) if is_cuda else ()):  # the CPU has no kernel to split
+                            one = fd._launch_flash(q, layer[0], layer[1], *scales, n_lens, st, km, splits=splits)
+                            two = fd._launch_flash(q, layer[0], layer[1], *scales, n_lens, st, km, splits=splits)
+                            torch.cuda.synchronize()
+                            _check_close(f"{label} S={splits}", one, want, q_dtype)
+                            if not torch.equal(one, two) or (splits == planned and not torch.equal(one, got)):
+                                raise AssertionError(f"{label} S={splits}: two calls differ in their bits")
+                if is_cuda and b == 3 and q_dtype == torch.bfloat16:
+                    _graph_replay_check(name, launch, layer, q, t, gen, device)
             del cache
         print(f"kernel vs plain flash_decode_attention{{,_q8}} {tag} (B={b} H={h} T={t} D={d}): ok, bf16, f32 and "
               f"int8 caches, bf16 and f32 q, valid_len {list(lens)}, masks none, start, key_mask, both"
-              f"{', interleaved' if b == 3 else ''}; worst bf16 max abs err {worst}")
+              f"{', interleaved' if b == 3 else ''}"
+              + (f"; S = {planned} (the planner's) and forced {list(forced)}, each twice with equal bits"
+                 f"{'; replayed from a CUDA graph after the masks changed' if b == 3 else ''}" if is_cuda else "")
+              + f"; worst bf16 max abs err {worst}")
     return worst
 
 
@@ -525,9 +582,10 @@ def phase_microbench(device, **kwargs) -> dict:
     out = {"launches": path_counts, "flash_decode_attention": end["flash_decode_attention"],
            "flash_decode_attention_q8": end["flash_decode_attention_q8"],
            "_packed_dma_probe": res["rar_xl"]["_packed_dma_probe"], "row_mean_probe": res["call_floor"]}
-    full = res["chameleon_4k_full"]
-    print(f"microbench: at the full 4k cache flash_decode_attention {full['flash_decode_attention']['ms']:.4f} ms vs "
-          f"SDPA {full['flash_decode_attention']['library_ms']:.4f} ms; per-launch floor at "
+    full = res["chameleon_4k_full"]["flash_decode_attention"]
+    print(f"microbench: at the full 4k cache flash_decode_attention (S = {full['splits']}) {full['graph_ms']:.4f} ms "
+          f"replayed from a CUDA graph vs SDPA {full['library_graph_ms']:.4f} ms, by events {full['ms']:.4f} ms vs "
+          f"{full['library_ms']:.4f} ms; per-launch floor at "
           f"{min(res['call_floor']['floor_us'])} row (row_mean_probe) "
           f"{res['call_floor']['floor_us'][min(res['call_floor']['floor_us'])]['us']:.2f} us enqueued by the host, "
           f"{res['call_floor']['floor_us'][min(res['call_floor']['floor_us'])]['graph_us']:.2f} us replayed from a "
@@ -989,10 +1047,12 @@ def main() -> int:
         "launches": counts[name],
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"],
+        "graph_ms": numbers[name].get("graph_ms"),
         "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"],
         "bound_by": numbers[name]["bound_by"],
         "library_ms": numbers[name]["library_ms"],
+        "library_graph_ms": numbers[name].get("library_graph_ms"),
     } for name, _, source, replaces in _kernels()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

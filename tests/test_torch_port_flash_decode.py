@@ -215,3 +215,116 @@ def test_flash_route_auto_rule():
     attention below; True / False force."""
     assert tl.USE_FLASH_DECODE is None and tl.FLASH_DECODE_MIN_CACHE == jl.FLASH_DECODE_MIN_CACHE == 2048
     assert not tl._flash_enabled(2047) and tl._flash_enabled(2048) and tl._flash_enabled(4096)
+
+
+SPLIT_MASKS = ["none", "start", "key_mask", "both", "short", "masked_split"]
+
+
+def _split_case(rng, b, t, tile, splits, masks):
+    """``(valid_len, start, key_mask)`` of one mask case of the split tests:
+    ``short`` has fewer valid slots than splits, ``masked_split`` masks
+    every slot of the second share (or of the second tile when there is one
+    share)."""
+    valid_len = 2 if masks == "short" else t - 13
+    starts, km = _masks(rng, b, t, valid_len, masks in ("start", "both"), masks in ("key_mask", "both", "masked_split"))
+    if masks == "masked_split":
+        n_tiles = -(-valid_len // tile)
+        per = -(-n_tiles // splits) if splits > 1 else 1
+        km[:, per * tile: 2 * per * tile] = False
+        assert km[:, :valid_len].any(axis=1).all() and not km[:, per * tile: min(2 * per * tile, valid_len)].any()
+    return valid_len, starts, km
+
+
+@pytest.mark.parametrize("masks", SPLIT_MASKS)
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_split_plain_matches_plain(kind, splits, masks):
+    """The split arithmetic of kernels #5 and #6 (per-share ``(max, sum,
+    acc)``, merged in split order, empty shares included) against the plain
+    versions that CPU tensors take: within 1e-6 of the largest output at
+    f32, for 1, 2, 3 and 8 shares."""
+    rng = np.random.default_rng(31 * splits + SPLIT_MASKS.index(masks))
+    b, h, t, d = 3, 2, 200, 16
+    q = _t(rng.standard_normal((b, h, 1, d)).astype(np.float32))
+    if kind == "f32":
+        k, v = (_t(rng.standard_normal((b, h, t, d)).astype(np.float32)) for _ in range(2))
+        scales = ()
+    else:
+        k, v = (_t(rng.integers(-127, 128, (b, h, t, d)).astype(np.int8)) for _ in range(2))
+        scales = tuple(_t((rng.random((b, h, t)) * 0.02 + 0.001).astype(np.float32)).bfloat16() for _ in range(2))
+    tile = tfd.flash_decode_tile(d, k.dtype)
+    assert tile == 32
+    valid_len, starts, km = _split_case(rng, b, t, tile, splits, masks)
+    got = tfd.flash_decode_attention_split_plain(q, k, v, valid_len, _t(starts), _t(km), splits, *scales)
+    if kind == "f32":
+        want = tfd.flash_decode_attention_plain(q, k, v, valid_len, _t(starts), _t(km))
+    else:
+        want = tfd.flash_decode_attention_q8_plain(q, k, v, *scales, valid_len, _t(starts), _t(km))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max() + 1e-7
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("splits", [2, 3, 8])
+@pytest.mark.parametrize("d,dtype,start,key_mask", [c for c in CASES if c[0] != 80])
+def test_split_plain_matches_jax_kernel(d, dtype, start, key_mask, splits, kind):
+    """The split arithmetic against JAX's kernels in interpret mode, as
+    ``test_flash_decode_matches_jax_kernel`` and its q8 twin run them, at
+    their tolerances, over a cache long enough to fill several shares."""
+    rng = np.random.default_rng(200 + d + 7 * start + 13 * key_mask + splits)
+    b, h, t, valid_len = 3, 2, 96, 70
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((b, h, 1, d), (b, h, t, d), (b, h, t, d)))
+    starts, km = _masks(rng, b, t, valid_len, start, key_mask)
+    jmasks = dict(start=None if starts is None else jnp.asarray(starts), key_mask=None if km is None else jnp.asarray(km))
+    if kind == "float":
+        want = jfd.flash_decode_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                                          jnp.int32(valid_len), interpret=True, **jmasks)
+        got = tfd.flash_decode_attention_split_plain(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt), valid_len,
+                                                     _t(starts), _t(km), splits)
+    else:
+        jcache = jkv.KVCache.zeros(2, b, h, t, d, dtype=jnp.int8).write(1, 0, jnp.asarray(k), jnp.asarray(v))
+        tcache = bridge.quant_cache(*(np.asarray(x) for x in (jcache.k, jcache.v, jcache.k_scale, jcache.v_scale)))
+        want = jfd.flash_decode_attention_q8(jnp.asarray(q, jdt), jcache.k[1], jcache.v[1], jcache.k_scale[1],
+                                             jcache.v_scale[1], jnp.int32(valid_len), interpret=True, **jmasks)
+        got = tfd.flash_decode_attention_split_plain(_t(q).to(tdt), tcache.k[1], tcache.v[1], valid_len, _t(starts),
+                                                     _t(km), splits, tcache.k_scale[1], tcache.v_scale[1])
+    assert got.dtype == tdt
+    _close(got, np.asarray(want, np.float32), dtype == "bf16")
+
+
+@pytest.mark.parametrize("b,h,t,want", [
+    (3, 32, 4096, 4),      # the interleaved Chameleon rows: 96 (row, head)s on 132 SMs, 384 blocks
+    (3, 32, 2252, 4),      # the entry point's two-image cache
+    (16, 16, 4096, 1),
+    (128, 16, 258, 1),     # RAR-XL: 2048 (row, head)s fill the card by themselves
+    (24, 32, 1043, 1),
+    (5, 3, 40, 1),         # a cache shorter than one share
+    (5, 3, 2100, 8),
+    (1, 1, 4096, 8),
+    (1, 1, 300, 2),
+])
+def test_flash_decode_splits_planner(b, h, t, want):
+    """The split count is a function of the shapes and the SM count only,
+    at least 1, 1 where ``b * h`` alone gives every SM three blocks, never
+    above 8 (the kernel takes up to 16), never more than one share per 128
+    cache slots, and never a grid of more blocks than the card holds at
+    once."""
+    s = tfd.flash_decode_splits(b, h, t, 132)
+    assert s == want and 1 <= s <= 8 <= tfd._FLASH_MAX_SPLITS
+    assert s == 1 or (s * b * h <= 3 * 132 and s * tfd._FLASH_MIN_SHARE <= t)
+    assert tfd.flash_decode_splits(b + 2, h, t, 1) == 1  # three (row, head)s fill a card of one SM
+    assert tfd.flash_decode_splits(b, h, t, 132) == s  # nothing but its arguments decides
+
+
+@pytest.mark.parametrize("d,dtype,tile,load", [
+    (128, torch.bfloat16, 16, 16), (128, torch.int8, 32, 16), (128, torch.float32, 8, 16),
+    (80, torch.bfloat16, 16, 16), (104, torch.bfloat16, 16, 16), (80, torch.int8, 32, 16),
+    (104, torch.int8, 16, 8), (20, torch.int8, 32, 4), (20, torch.bfloat16, 32, 8), (8, torch.float32, 32, 16),
+])
+def test_flash_decode_tile_and_load(d, dtype, tile, load):
+    """The tile (the unit of the split and of the softmax) and the bytes of
+    one lane's load, as the kernel derives them from the head dim and the
+    payload type: 16-byte loads wherever a slot is a multiple of 16 bytes."""
+    assert tfd._flash_load_bytes(d, dtype) == load
+    assert tfd.flash_decode_tile(d, dtype) == tile

@@ -286,14 +286,27 @@ def _flash_layer(cache_dtype, b, h, t, d, device, seed):
     return fd.flash_decode_attention, fd.flash_decode_attention_plain, (cache.k[1], cache.v[1]), g
 
 
+FLASH_SPLITS = (1, 2, 3, 8)  # forced through the private launcher; the wrappers take the planner's choice
+
+
+def _forced(layer, q, lens, start, key_mask, splits):
+    """Kernel #5 or #6 through the private launcher with ``splits`` blocks
+    per (row, head); ``layer`` is ``(k, v)`` or ``(k, v, k_scale, v_scale)``."""
+    k, v, *scales = layer
+    return fd._launch_flash(q, k, v, *(scales or (None, None)), lens, start, key_mask, splits=splits)
+
+
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32, torch.int8], ids=["bf16", "f32", "int8"])
 @pytest.mark.parametrize("d", [8, 16, 20, 80, 104, 128])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_match_plain(device, cache_dtype, d, q_dtype):
     """Kernels #5 and #6 against their plain float32 versions at short and
     long caches, with and without a ragged ``start`` and a random
-    ``key_mask`` (bool and uint8), at the tolerances of kernel #1. Every row
-    keeps at least one slot that takes part. One launch per call."""
+    ``key_mask`` (bool and uint8), at the tolerances of kernel #1: through
+    the wrapper (the planner's split count, one launch counted per call) and
+    with 1, 2, 3 and 8 blocks per (row, head) forced, ``valid_len`` 1
+    included (fewer slots than splits). Every row keeps at least one slot
+    that takes part. A repeat call gives the same bits."""
     b, h = 5, 3
     rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
     for t, lens in ((40, (1, 17, 39, 40)), (2100, (1, 33, 600, 2049, 2100))):
@@ -302,6 +315,7 @@ def test_flash_kernels_match_plain(device, cache_dtype, d, q_dtype):
         start0 = torch.randint(0, 30, (b,), generator=g, device=device, dtype=torch.int32)
         key_mask0 = torch.rand((b, t), generator=g, device=device) < 0.6
         for n in lens:
+            n_lens = torch.full((1,), n, dtype=torch.int32, device=device)
             start = torch.clamp(start0, max=n - 1)
             km = key_mask0.clone()
             km[torch.arange(b, device=device), start.long()] = True
@@ -309,13 +323,83 @@ def test_flash_kernels_match_plain(device, cache_dtype, d, q_dtype):
             km0[:, 0] = True
             for st, mask in ((None, None), (start, None), (None, km0), (start, km), (start, km.to(torch.uint8))):
                 before = launch.launches
-                got = launch(q, *layer, torch.full((1,), n, dtype=torch.int32, device=device), start=st, key_mask=mask)
+                got = launch(q, *layer, n_lens, start=st, key_mask=mask)
                 torch.cuda.synchronize()
                 assert launch.launches == before + 1
                 want = plain(q.float(), *layer, n, st, mask)
+                tol = rel * want.abs().max().item() + 1e-6
                 assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
                 err = (got.float() - want).abs().max().item()
-                assert err <= rel * want.abs().max().item() + 1e-6, (t, n, st is None, mask is None, err)
+                assert err <= tol, (t, n, st is None, mask is None, err)
+                for splits in FLASH_SPLITS:
+                    forced = _forced(layer, q, n_lens, st, mask, splits)
+                    again = _forced(layer, q, n_lens, st, mask, splits)
+                    torch.cuda.synchronize()
+                    err = (forced.float() - want).abs().max().item()
+                    assert err <= tol, (t, n, st is None, mask is None, splits, err)
+                    assert torch.equal(forced, again), (t, n, splits)
+                assert launch.launches == before + 1  # the private launcher counts nothing
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32, torch.int8], ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("d", [80, 104, 128])
+def test_flash_kernels_16_byte_loads(device, cache_dtype, d):
+    """The models' head dims on the 16-byte path (every one but int8 at D =
+    104, whose 104-byte slots take 8-byte loads), at a 3-row 4096-slot cache
+    with the three interleaved key masks, every forced split count and the
+    planner's: against the plain version, and a repeat call bit for bit. A
+    payload that is not aligned to its load raises."""
+    from wmar_tpu_torch.tools.bench_attention import interleaved_masks
+
+    b, h, t = 3, 8, 4096
+    load = fd._flash_load_bytes(d, cache_dtype)
+    assert load == (8 if (cache_dtype == torch.int8 and d == 104) else 16)
+    launch, plain, layer, g = _flash_layer(cache_dtype, b, h, t, d, device, seed=d)
+    q = torch.randn((b, h, 1, d), generator=g, device=device, dtype=torch.bfloat16)
+    for n in (2, 1160, 4096):
+        n_lens = torch.full((1,), n, dtype=torch.int32, device=device)
+        for mask in (None, interleaved_masks(t, n, 7, 64, 1024, device)):
+            want = plain(q.float(), *layer, n, None, mask)
+            tol = (2.0**-8 + 1e-5) * want.abs().max().item() + 1e-6
+            for splits in FLASH_SPLITS + (None,):
+                got = _forced(layer, q, n_lens, None, mask, splits)
+                again = _forced(layer, q, n_lens, None, mask, splits)
+                torch.cuda.synchronize()
+                assert (got.float() - want).abs().max().item() <= tol, (n, mask is None, splits)
+                assert torch.equal(got, again), (n, mask is None, splits)
+    k = layer[0]
+    flat = torch.zeros(k.numel() + 16, dtype=k.dtype, device=device)
+    shifted = flat[4:4 + k.numel()].view(k.shape)  # contiguous, 4 values past an aligned address
+    if shifted.data_ptr() % load:
+        with pytest.raises(ValueError, match="aligned"):
+            launch(q, shifted, *layer[1:], 4)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_flash_kernels_replay_from_a_cuda_graph(device, cache_dtype):
+    """One launch captured in a CUDA graph (the split count comes from the
+    shapes alone) and replayed after ``valid_len`` and ``key_mask`` were
+    changed in place gives the bits of a fresh call."""
+    b, h, t, d = 3, 8, 4096, 128
+    launch, _, layer, g = _flash_layer(cache_dtype, b, h, t, d, device, seed=5)
+    q = torch.randn((b, h, 1, d), generator=g, device=device, dtype=torch.bfloat16)
+    lens = torch.full((1,), 700, dtype=torch.int32, device=device)
+    key_mask = torch.rand((b, t), generator=g, device=device) < 0.5
+    key_mask[:, 0] = True
+    later_mask = torch.rand((b, t), generator=g, device=device) < 0.8
+    later_mask[:, 0] = True
+    launch(q, *layer, lens, key_mask=key_mask)  # the scratch is allocated outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, *layer, lens, key_mask=key_mask)
+    for n, mask in ((700, key_mask.clone()), (1, key_mask.clone()), (3000, later_mask), (4096, later_mask)):
+        lens.fill_(n)
+        key_mask.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        fresh = launch(q, *layer, lens, key_mask=key_mask)
+        assert torch.equal(out, fresh), n
 
 
 def test_flash_kernels_skip_masked_slots_and_take_int_valid_len(device):

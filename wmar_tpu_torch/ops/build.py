@@ -107,7 +107,7 @@ def load() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.wmar_flash_decode_attention
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.wmar_dma_probe
     fn.argtypes = [p, p, p, i, i, i, i, i, p]

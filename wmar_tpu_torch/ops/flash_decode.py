@@ -24,17 +24,30 @@ counterpart here, reached through the JAX package's wrappers:
   what one small launch costs.
 
 Kernels #2-#4 are one payload-templated CUDA kernel
-(``csrc/packed_decode_attention.cu``) that streams a row's slots
-``[start_b, valid_len)`` with an online softmax and skips masked slots;
-#5/#6 take the same design over the unpacked layouts. The packed routing
-keeps JAX's rule: ``start``/``key_mask`` are taken only by the chunked path
-(``T >= 1024``); at shorter ``T`` the packed wrappers raise ``ValueError``
-as JAX's do.
+(``csrc/packed_decode_attention.cu``): a block per (head, row) streams the
+row's slots ``[start_b, valid_len)`` with an online softmax and skips masked
+slots. The packed routing keeps JAX's rule: ``start``/``key_mask`` are taken
+only by the chunked path (``T >= 1024``); at shorter ``T`` the packed
+wrappers raise ``ValueError`` as JAX's do.
+
+Kernels #5/#6 are designed for the card's 132 SMs: the grid is ``(H, B,
+S)``, the ``S`` blocks of a (row, head) each take a share of ``[start_b,
+valid_len)`` in whole tiles (:func:`flash_decode_tile` slots) and the block
+that finishes last merges the partial ``(max, sum, acc)`` in split order,
+inside the same launch. :func:`flash_decode_splits` picks ``S`` from the
+shapes alone, so a CUDA graph may replay the launch while the fill grows.
+A lane loads 16 bytes at a time into a cp.async ring, the softmax runs by
+the tile, masks and scales are read by the tile, and a masked slot costs no
+payload bytes. :func:`flash_decode_attention_split_plain` is the same
+arithmetic in plain torch. The scratch for the partials and the arrival
+counters belong to this module, one set per device (see
+:func:`_flash_workspace` for what that costs).
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain torch version of the same math in float32 (the
 ``*_plain`` functions). Nothing falls back from one to the other. Each
-kernel's wrapper counts its launches in ``.launches``.
+kernel's wrapper counts its launches in ``.launches``: one per call,
+whatever ``S`` is.
 
 The attention kernels are bound by the bytes they read: the payload of the
 slots that take part plus the scales, about 43 MB per layer at RAR-XL
@@ -45,10 +58,16 @@ full cache of 1043 slots) and 53 MB at the end of an interleaved run (bf16,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _MAX_D = 256
-_FLASH_MAX_D = 128  # kernels #5 and #6: one warp reads a slot in one load
+_FLASH_MAX_D = 128  # kernels #5 and #6: at most 32 lanes of 4 float32 values to a slot
+_FLASH_PASSES = 8  # a tile is 8 loads of a warp (csrc/flash_decode_attention.cu: kPasses)
+_FLASH_MAX_SPLITS = 16  # the kernel's limit on S (kMaxSplits)
+_FLASH_MIN_SHARE = 128  # slots of the cache a split should at least stand for
+_FLASH_BLOCKS_PER_SM = 3  # blocks of kernels #5/#6 that fit one SM (64 KB of shared memory each)
 _SMEM_BYTES = 48 * 1024  # kernel #1: scores [T] + q [D] + 4 partials, as float32, without opt-in
 _CHUNK_MIN_T = 1024  # JAX's shape-aware default: the chunked kernels from 1024 slots on
 _MASKS_NEED_CHUNKED = (
@@ -285,8 +304,73 @@ packed_decode_attention_q8.launches = 0
 packed_decode_attention_q8_chunked.launches = 0
 
 
+def _flash_load_bytes(d: int, kv_dtype) -> int:
+    """Bytes of one lane's load in kernels #5 and #6: 16 where a slot's ``d``
+    values are a multiple of 16 bytes, else 8, else 4 (the kernel's rule)."""
+    slot = d * kv_dtype.itemsize
+    return 16 if slot % 16 == 0 else 8 if slot % 8 == 0 else 4
+
+
+def flash_decode_tile(d: int, kv_dtype) -> int:
+    """Slots of one tile of kernels #5 and #6 (the unit of the split over T
+    and of the softmax): the lanes of a slot are the next power of two above
+    ``d`` / (values of one load), at least 8; a warp reads ``32 / lanes``
+    slots at once and a tile is 8 such passes. 16 for bf16, 32 for int8 and
+    8 for f32 at ``d = 128``."""
+    values = _flash_load_bytes(d, kv_dtype) // kv_dtype.itemsize
+    lanes = _FLASH_PASSES
+    while lanes * values < d:
+        lanes *= 2
+    return _FLASH_PASSES * 32 // lanes
+
+
+def flash_decode_splits(b: int, h: int, t: int, sm_count: int) -> int:
+    """How many blocks ``S`` share one (row, head) in kernels #5 and #6: a
+    function of the shapes and the card's SM count only, never of the fill,
+    so that a captured launch can be replayed while ``valid_len`` grows.
+
+    As many as keep the whole grid on the card at once (three blocks fit
+    an SM; a second wave of blocks costs more than it hides), so 1 where
+    ``b * h`` alone gives every SM three blocks; at most 8, and at most one
+    split per 128 slots of the cache (3 rows x 32 heads over 4096 slots on
+    132 SMs: 4, a grid of 384 blocks)."""
+    resident = _FLASH_BLOCKS_PER_SM * sm_count
+    return max(1, min(resident // (b * h), t // _FLASH_MIN_SHARE, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_flash_workspaces: dict = {}  # device index -> [(partial, counters), ...], the last one in use
+
+
+def _flash_workspace(device, rows: int, floats: int):
+    """The scratch of kernels #5 and #6 on ``device``: ``partial`` (float32,
+    at least ``floats`` elements: ``S`` x ``(max, sum, acc[D])`` per (row,
+    head)) and ``counters`` (int32 zeros, at least ``rows``: how many of a
+    (row, head)'s blocks have arrived; the last one sets it back to 0).
+
+    One set per device, allocated on first use and grown when a larger
+    shape comes (never freed: a captured graph may still point into an old
+    one), so a call costs no allocation, no ``torch.zeros`` and no second
+    launch. The price: launches that may run at the same time (two streams,
+    or two graphs replayed side by side) must not share it, and the first
+    call at a shape must come before a graph capture, not inside one."""
+    sets = _flash_workspaces.setdefault(device.index, [])
+    if not sets or sets[-1][0].numel() < floats or sets[-1][1].numel() < rows:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the flash-decode scratch must be allocated before a CUDA graph capture: "
+                               "call the wrapper once at this shape first")
+        sets.append((torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device),
+                     torch.zeros(max(rows, 4096), dtype=torch.int32, device=device)))
+    return sets[-1]
+
+
 def _flash_check(q, k, v, kv_dtypes):
-    """Device, type, shape and contiguity checks of kernels #5 and #6."""
+    """Device, type, shape, contiguity and alignment checks of kernels #5
+    and #6."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -302,35 +386,99 @@ def _flash_check(q, k, v, kv_dtypes):
     if k.shape != (b, h, t, d) or v.shape != k.shape:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 0 < d <= _FLASH_MAX_D or d % 4:
-        raise ValueError(f"head dim {d} must be a multiple of 4 in (0, {_FLASH_MAX_D}] (32 lanes load 4 values each)")
+        raise ValueError(f"head dim {d} must be a multiple of 4 in (0, {_FLASH_MAX_D}] (a slot is read in loads of "
+                         f"16, 8 or 4 bytes by at most 32 lanes)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    quad = 4 * k.element_size()
-    if k.data_ptr() % quad or v.data_ptr() % quad:
-        raise ValueError(f"k and v must be {quad}-byte aligned")
+    load = _flash_load_bytes(d, k.dtype)
+    if k.data_ptr() % load or v.data_ptr() % load:
+        raise ValueError(f"k and v must be {load}-byte aligned: a lane loads {load} bytes of a slot of {d} {k.dtype} "
+                         f"values")
 
 
 _KV_TYPE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
-def _launch_flash(q, k, v, k_scale, v_scale, valid_len, start, key_mask) -> torch.Tensor:
-    """Launch ``csrc/flash_decode_attention.cu`` (kernels #5 and #6)."""
+def _launch_flash(q, k, v, k_scale, v_scale, valid_len, start, key_mask, splits=None) -> torch.Tensor:
+    """Launch ``csrc/flash_decode_attention.cu`` (kernels #5 and #6) with
+    ``splits`` blocks per (row, head); None lets :func:`flash_decode_splits`
+    choose."""
     b, h, _, d = q.shape
     t = k.shape[2]
+    if splits is None:
+        splits = flash_decode_splits(b, h, t, _sm_count(q.device.index))
+    if not 1 <= splits <= _FLASH_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside [1, {_FLASH_MAX_SPLITS}]")
     lens = _device_lens(valid_len, q.device)
     start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
+    partial_ptr = counters_ptr = None
+    if splits > 1:
+        partial, counters = _flash_workspace(q.device, b * h, b * h * splits * (d + 2))
+        partial_ptr, counters_ptr = partial.data_ptr(), counters.data_ptr()
     from wmar_tpu_torch.ops import build
 
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     rc = build.load().wmar_flash_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(), None if v_scale is None else v_scale.data_ptr(),
-        lens.data_ptr(), start_ptr, mask_ptr, out.data_ptr(), b, h, t, d, _KV_TYPE[k.dtype],
-        int(q.dtype == torch.bfloat16), d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        lens.data_ptr(), start_ptr, mask_ptr, out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, splits,
+        _KV_TYPE[k.dtype], int(q.dtype == torch.bfloat16), d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash decode attention kernel failed to launch: cudaError {rc}")
     return out
+
+
+def flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, splits: int, k_scale=None,
+                                       v_scale=None) -> torch.Tensor:
+    """Plain torch version of the arithmetic of kernels #5 and #6 as the
+    card does it, in float32: the slots ``[start_b, valid_len)`` of a row
+    are cut into tiles of :func:`flash_decode_tile` slots, the tiles dealt
+    to ``splits`` shares in runs of ``ceil(tiles / splits)`` (a share may be
+    empty), every share gives its ``(max, sum of exp, acc)``, and the
+    shares are merged in split order. ``k_scale``/``v_scale`` ``[B, H, T]``
+    make it kernel #6 (the score takes ``k_scale``, the probability
+    ``v_scale``). Equal to :func:`flash_decode_attention_plain` up to
+    float32 rounding; a row with no slot that takes part gets zeros. For
+    tests: it reads ``valid_len`` on the host."""
+    b, h, _, d = q.shape
+    t = k.shape[2]
+    dev = q.device
+    tile = flash_decode_tile(d, k.dtype)
+    s = torch.einsum("bhd,bhtd->bht", q[:, :, 0].to(torch.float32), k.to(torch.float32))
+    if k_scale is not None:
+        s = s * k_scale.to(torch.float32)
+    s = s * d**-0.5
+    n = min(max(int(torch.as_tensor(valid_len).reshape(-1)[0]), 1), t)
+    lo = (torch.zeros(b, dtype=torch.int64, device=dev) if start is None
+          else torch.as_tensor(start, device=dev).to(torch.int64).clamp(0, n))
+    pos = torch.arange(t, device=dev)
+    live = (pos[None, :] < n) & (pos[None, :] >= lo[:, None])
+    if key_mask is not None:
+        live = live & torch.as_tensor(key_mask, device=dev).to(torch.bool)
+    n_tiles = (n - lo + tile - 1) // tile
+    per_split = ((n_tiles + splits - 1) // splits).clamp(min=1)
+    split_of = ((pos[None, :] - lo[:, None]) // tile) // per_split[:, None]  # [B, T]
+    vf = v.to(torch.float32)
+    minus_inf = torch.tensor(float("-inf"), device=dev)
+    parts = []
+    for si in range(splits):
+        on = (live & (split_of == si))[:, None, :]
+        ss = torch.where(on, s, minus_inf)
+        top = ss.amax(dim=-1)  # -inf for an empty share
+        p = torch.where(on, torch.exp(ss - torch.where(torch.isinf(top), 0.0, top)[..., None]), 0.0)
+        pv = p if v_scale is None else p * v_scale.to(torch.float32)
+        parts.append((top, p.sum(dim=-1), torch.einsum("bht,bhtd->bhd", pv, vf)))
+    top = torch.stack([part[0] for part in parts]).amax(dim=0)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    num = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
+    den = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    for part_top, part_sum, part_acc in parts:  # split order
+        f = torch.where(torch.isinf(part_top), 0.0, torch.exp(part_top - top))
+        num = num + part_acc * f[..., None]
+        den = den + part_sum * f
+    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-38)[..., None], 0.0)
+    return out[:, :, None].to(q.dtype)
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, valid_len, start=None, key_mask=None) -> torch.Tensor:

@@ -15,10 +15,17 @@ rows, 32 heads of 128) it times, with CUDA events, per call:
                with a boolean mask (a yardstick only: the port never calls it)
   dma-probe    _packed_dma_probe (#7): the int8 packed kernel's loads alone
 
-each beside its bound: the bytes the call must move (the payload and scales of
-the slots that take part, the mask bytes, q and the output) over the card's
-3.35 TB/s, or its operations over the peak rate of its type, whichever is
-larger. Calls walk the layers of a stacked cache so that each reads from
+each twice: ``ms`` is the median of per-call CUDA-event times around the
+Python call, which includes the host's gap before the launch (15-25 us, of the
+order of the kernels themselves); ``graph_ms`` is the same calls, walking the
+layers, captured in one CUDA graph and replayed, divided by their count: what
+a call costs the card. "Time against bound" and "time against the library
+call" are read from ``graph_ms`` / ``library_graph_ms``. The flash kernels'
+lines also name the split count ``S`` that ``flash_decode_splits`` picks.
+Each stands beside its bound: the bytes the call must move (the payload and
+scales of the slots that take part, the mask bytes, q and the output) over
+the card's 3.35 TB/s, or its operations over the peak rate of its type,
+whichever is larger. Calls walk the layers of a stacked cache so that each reads from
 device memory, not from L2, as in a decode step. The Chameleon shape is timed
 twice: over the full cache, and at the end of an interleaved run (1160 valid
 slots, the three CFG rows' key masks: everything | image tokens only | <s>
@@ -37,6 +44,7 @@ events. The bounds and masks are plain functions of the shapes.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -80,6 +88,14 @@ def median_ms(fn, n_rotate: int, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, n_rotate: int, calls: int = 64) -> float:
+    """Milliseconds per call of ``calls`` calls ``fn(i % n_rotate)`` captured
+    in one CUDA graph and replayed: no host gap between the launches, and
+    each call reads what the previous ones pushed out of L2."""
+    turn = itertools.count()
+    return _graph_replay_us(lambda: fn(next(turn) % n_rotate), calls) / 1e3
 
 
 def time_turns(kernel_fn, plain_fn, n_rotate: int, reps: int) -> list:
@@ -153,11 +169,18 @@ def sdpa_mask(b, t, valid_len, start, key_mask, device) -> torch.Tensor:
     return ok[:, None, None, :]
 
 
+def library_attention(q, k, v, attn_mask) -> torch.Tensor:
+    """One ``scaled_dot_product_attention`` call over a bf16 layer: the
+    yardstick of kernel #5, timed here and called nowhere in the port."""
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+
+
 def bench_shape(tag: str, shape: dict, device, n_layers: int, reps: int, valid_len=None, start=None, key_mask=None,
                 seed: int = 0) -> dict:
     """Every decode-attention variant at one shape and one set of masks.
-    Returns ``{variant: {"ms", "plain_ms", "library_ms", "bound_ms",
-    "bound_by", "times"}}``."""
+    Returns ``{variant: {"ms", "graph_ms", "plain_ms", "library_ms",
+    "library_graph_ms", "bound_ms", "bound_by", "times"}}`` (and ``"splits"``
+    for the flash kernels)."""
     b, h, t, d = shape["b"], shape["h"], shape["t"], shape["d"]
     valid_len = valid_len or t
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -168,8 +191,12 @@ def bench_shape(tag: str, shape: dict, device, n_layers: int, reps: int, valid_l
     mk = dict(start=start, key_mask=key_mask)
     c16, c8, cp, cp4 = (caches[k] for k in ("bf16", "int8", "packed", "packed4"))
     attn_mask = sdpa_mask(b, t, valid_len, start, key_mask, device)
-    library_ms = median_ms(lambda li: F.scaled_dot_product_attention(q, c16.k[li], c16.v[li], attn_mask=attn_mask),
-                           n_layers, reps)
+
+    def sdpa(li):
+        return library_attention(q, c16.k[li], c16.v[li], attn_mask)
+
+    library_ms, library_graph_ms = median_ms(sdpa, n_layers, reps), graph_ms(sdpa, n_layers)
+    splits = fd.flash_decode_splits(b, h, t, torch.cuda.get_device_properties(device).multi_processor_count)
     variants = {
         "flash_decode_attention": (
             lambda li: fd.flash_decode_attention(q, c16.k[li], c16.v[li], lens, **mk),
@@ -195,21 +222,31 @@ def bench_shape(tag: str, shape: dict, device, n_layers: int, reps: int, valid_l
           f"start {'yes' if start is not None else 'no'}, key_mask {'yes' if key_mask is not None else 'no'}")
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), lib) in variants.items():
         times = time_turns(kernel_fn, plain_fn, n_layers, reps)
-        out[name] = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "library_ms": lib,
+        out[name] = {"ms": min(times[1], times[2]), "graph_ms": graph_ms(kernel_fn, n_layers),
+                     "plain_ms": min(times[0], times[3]), "library_ms": lib,
+                     "library_graph_ms": library_graph_ms if lib is not None else None,
                      "bound_ms": bound_ms, "bound_by": bound_by, "times": times}
-        print(f"  {name:34s} plain, kernel, kernel, plain: {' '.join(f'{x:.4f}' for x in times)} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by}" + (f"; library (SDPA, bf16 cache) {lib:.4f} ms" if lib is not None else ""))
+        if name.startswith("flash_"):
+            out[name]["splits"] = splits
+        print(f"  {name:34s} plain, kernel, kernel, plain: {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a "
+              f"CUDA graph {out[name]['graph_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}"
+              + (f"; S = {splits}" if name.startswith("flash_") else "")
+              + (f"; library (SDPA, bf16 cache) {lib:.4f} ms, from a graph {library_graph_ms:.4f} ms"
+                 if lib is not None else ""))
     if not masked:  # the probe walks all T slots, so it stands beside the full-cache calls only
         nbytes = b * t * 2 * h * d + 4 * b * h * t + b * h * d * (1 + q.element_size())
         bound_ms, bound_by = bound(nbytes, 0.0, torch.int8)
         times = time_turns(lambda li: fd._packed_dma_probe(q, cp.kv, cp.scale, li),
                            lambda li: fd._packed_dma_probe_plain(q, cp.kv, cp.scale, li), n_layers, reps)
         out["_packed_dma_probe"] = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]),
-                                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "times": times}
+                                    "graph_ms": graph_ms(lambda li: fd._packed_dma_probe(q, cp.kv, cp.scale, li),
+                                                         n_layers),
+                                    "library_ms": None, "library_graph_ms": None, "bound_ms": bound_ms,
+                                    "bound_by": bound_by, "times": times}
         print(f"  {'_packed_dma_probe':34s} plain, kernel, kernel, plain: {' '.join(f'{x:.4f}' for x in times)} ms; "
               f"bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB = "
-              f"{nbytes / (out['_packed_dma_probe']['ms'] * 1e-3) / 1e9:.0f} GB/s): the loads of "
-              f"packed_decode_attention_q8 alone")
+              f"{nbytes / (out['_packed_dma_probe']['ms'] * 1e-3) / 1e9:.0f} GB/s; replayed from a CUDA graph "
+              f"{out['_packed_dma_probe']['graph_ms']:.4f} ms): the loads of packed_decode_attention_q8 alone")
     return out
 
 
@@ -282,11 +319,14 @@ def bench_call_floor(device, rows_list=FLOOR_ROWS, cols: int = 1024, steps: int 
     times = time_turns(lambda i: fd.row_mean_probe(xs[i]), lambda i: fd.row_mean_probe_plain(xs[i]), copies, reps)
     library_ms = median_ms(lambda i: torch.mean(xs[i], 1, dtype=torch.float32), copies, reps)
     bound_ms, bound_by = bound(nbytes, 2.0 * rows * cols, torch.float32)
+    kernel_graph_ms = graph_ms(lambda i: fd.row_mean_probe(xs[i]), copies)
+    library_graph_ms = graph_ms(lambda i: torch.mean(xs[i], 1, dtype=torch.float32), copies)
     print(f"  rows={rows}, {copies} buffers walked (plain, kernel, kernel, plain): "
-          f"{' '.join(f'{x:.4f}' for x in times)} ms; torch.mean {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-          f"{bound_by}")
-    return {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "times": times, "floor_us": floor}
+          f"{' '.join(f'{x:.4f}' for x in times)} ms, replayed from a CUDA graph {kernel_graph_ms:.4f} ms; torch.mean "
+          f"{library_ms:.4f} ms, from a graph {library_graph_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    return {"ms": min(times[1], times[2]), "graph_ms": kernel_graph_ms, "plain_ms": min(times[0], times[3]),
+            "library_ms": library_ms, "library_graph_ms": library_graph_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "times": times, "floor_us": floor}
 
 
 def run(device, reps: int = 50, rar: dict = RAR_XL, cham: dict = CHAMELEON_4K, rar_layers: int = 3,
