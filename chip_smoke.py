@@ -16,7 +16,13 @@ phases:
    shape; kernels #3 and #4 (``packed_decode_attention_q8_chunked``,
    ``packed4_decode_attention_chunked``) at the Chameleon-7B shape (24 rows,
    32 heads of 128, 1043 slots, 32 layers) with a ragged ``start`` that
-   blanks the first chunk of the CFG rows and once a random ``key_mask``;
+   blanks the first chunk of the CFG rows and once a random ``key_mask``,
+   and at the interleaved sampler's shape (3 rows, 4096 slots) with a ragged
+   ``start`` and the three interleaved key masks, full and at the end of a
+   run, each case also with 1 to 16 blocks per (row, head) forced, twice
+   (equal bits; ``valid_len`` 1, 128 and 129 leave shares empty), and one
+   launch replayed from a CUDA graph after ``valid_len``, ``start`` and
+   ``key_mask`` changed in place;
    kernels #1 and #2 again at the Taming-1.4B decode shape (32 rows, 257
    slots, 16 heads of 104, 48 layers); kernel #8 (``matmul_w4``, the w4a16
    matmul) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24 rows)
@@ -137,9 +143,9 @@ def _kernels():
         ("packed_decode_attention_q8", fd.packed_decode_attention_q8,
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:127"),
         ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
-         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
+         "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
         ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
-         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:353"),
+         "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:353"),
         ("flash_decode_attention", fd.flash_decode_attention,
          "wmar_tpu_torch/csrc/flash_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:66"),
         ("flash_decode_attention_q8", fd.flash_decode_attention_q8,
@@ -262,15 +268,74 @@ def cfg_starts(rows: int, blank: int) -> torch.Tensor:
     return torch.cat([torch.arange(third), blank + torch.arange(rows - third)]).to(torch.int32)
 
 
+def _packed_case(label, launch, plain, int4, q, cache, layer, n, st, km, forced) -> float:
+    """One call of a packed kernel through its wrapper against its plain
+    version; then (chunked kernels on the card: ``forced`` not empty) the
+    private launcher with every split count of ``forced``, twice: each
+    within the tolerance, the two with equal bits."""
+    from wmar_tpu_torch.ops import flash_decode as fd
+
+    lens = torch.full((1,), n, dtype=torch.int32, device=q.device)
+    got = launch(q, cache.kv, cache.scale, layer, lens, start=st, key_mask=km)
+    if got.is_cuda:
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+    want = plain(q.float(), cache.kv, cache.scale, layer, n, st, km)
+    err = _check_close(label, got, want, q.dtype)
+    for splits in forced:
+        one = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits)
+        two = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits)
+        torch.cuda.synchronize()
+        _check_close(f"{label} S={splits}", one, want, q.dtype)
+        if not torch.equal(one, two):
+            raise AssertionError(f"{label} S={splits}: two calls differ in their bits")
+    return err
+
+
+def _packed_graph_replay_check(name, launch, cache, q, gen, device) -> None:
+    """One launch of a chunked packed kernel captured in a CUDA graph,
+    replayed after ``valid_len``, ``start`` and ``key_mask`` were changed in
+    place, must give the bits of a fresh call."""
+    b, t = q.shape[0], cache.kv.shape[2]
+    lens = torch.full((1,), min(700, t), dtype=torch.int32, device=device)
+    start = torch.zeros(b, dtype=torch.int32, device=device)
+    key_mask = torch.rand((b, t), generator=gen, device=device) < 0.5
+    later = torch.rand((b, t), generator=gen, device=device) < 0.8
+    key_mask[:, :40] = later[:, :40] = True  # every start below keeps a slot
+    launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)  # the scratch, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)
+    for n, first, mask in ((min(700, t), 0, key_mask.clone()), (1, 0, key_mask.clone()), (min(3000, t), 33, later),
+                           (t, 7, later)):
+        lens.fill_(n)
+        start.copy_(torch.tensor([0, first, first // 2] + [first] * (b - 3), dtype=torch.int32)[:b])
+        key_mask.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)):
+            raise AssertionError(f"{name}: a replayed launch differs from a fresh call at valid_len {n}")
+
+
 def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32, 128, 32),
                          rar_lens=(1, 2, 129, 258), cham_lens=(1, 128, 129, 600, 1043), blank=130,
-                         reps=50) -> dict:
+                         reps=50, sampler=(3, 4096, 32, 128, 2), sampler_lens=(1, 128, 129, 1160, 4096),
+                         interleaved=(7, 64, 1024), forced=tuple(range(1, 17))) -> dict:
     """Kernels #2-#4 against their plain versions, and timed beside them at
-    full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``."""
+    full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``. The
+    chunked kernels #3 and #4 run at the Chameleon text-to-image shape
+    ``cham`` and at the interleaved sampler's shape ``sampler`` (``(B, T, H,
+    D, layers)``: three rows, with no mask, a ragged ``start`` and the three
+    interleaved key masks at each ``valid_len``), every case through the
+    wrapper and (on the card) with every split count of ``forced`` twice
+    with equal bits; ``valid_len`` 1, 128 and 129 leave shares empty. Then
+    one launch is replayed from a CUDA graph after ``valid_len``, ``start``
+    and ``key_mask`` changed in place."""
     from wmar_tpu_torch.ops import flash_decode as fd
-    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, interleaved_masks, time_turns
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    is_cuda = torch.device(device).type == "cuda"
     out = {}
     cases = [("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
               "packed", rar, rar_lens, False),
@@ -282,28 +347,27 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
         cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
         start0 = cfg_starts(b, blank).to(device)
         key_mask0 = torch.rand((b, t), generator=gen, device=device) < 0.7
+        splits = forced if masked and is_cuda else ()  # the CPU has no kernel to split
         worst = 0.0
         for q_dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
             for layer in (0, n_layers - 1):
                 for n in lens_list:
-                    lens = torch.full((1,), n, dtype=torch.int32, device=device)
                     start = torch.clamp(start0, max=n - 1)  # every row keeps a valid slot
                     key_mask = key_mask0.clone()
                     key_mask[torch.arange(b, device=device), start.long()] = True
                     for st, km in ((None, None), (start, None), (start, key_mask)) if masked else ((None, None),):
-                        got = launch(q, cache.kv, cache.scale, layer, lens, start=st, key_mask=km)
-                        if got.is_cuda:
-                            torch.cuda.synchronize()  # a fault in the kernel shows here
-                        want = plain(q.float(), cache.kv, cache.scale, layer, n, st, km)
-                        err = _check_close(f"{name} {q_dtype} layer={layer} valid_len={n} start={st is not None} "
-                                           f"key_mask={km is not None}", got, want, q_dtype)
+                        err = _packed_case(f"{name} {q_dtype} layer={layer} valid_len={n} start={st is not None} "
+                                           f"key_mask={km is not None}", launch, plain, kind == "packed4", q, cache,
+                                           layer, n, st, km, splits if layer else ())
                         worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
         variants = "none, start, start + key_mask" if masked else "none"
         print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}): ok, valid_len {list(lens_list)}, "
-              f"masks {variants}, layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
+              f"masks {variants}, layers 0 and {n_layers - 1}, bf16 and f32 q"
+              + (f"; on layer {n_layers - 1} also S forced to each of {list(splits)}, twice with equal bits"
+                 if splits else "") + f"; worst bf16 max abs err {worst:.3e}")
         out[name] = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None}
-        if torch.device(device).type != "cuda":  # times only on the card
+        if not is_cuda:  # times only on the card
             continue
         q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
         lens = torch.full((1,), t, dtype=torch.int32, device=device)
@@ -320,8 +384,34 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
                      "graph_ms": graph_ms(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st), n_layers)}
         print(f"time {name}, full cache{' with the ragged start' if masked else ''} (plain, kernel, kernel, "
               f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph "
-              f"{out[name]['graph_ms']:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
+              f"{out[name]['graph_ms']:.4f} ms; bound {bound_ms:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
               f"= {nbytes / (out[name]['graph_ms'] * 1e-3) / 1e9:.0f} GB/s")
+        del cache
+    # the interleaved sampler's shape: three CFG rows over one long cache
+    b, t, h, d, n_layers = sampler
+    start0 = torch.tensor([0, 130, 37], dtype=torch.int32)[:b].to(device)
+    for name, launch, plain, kind, *_ in cases[1:]:
+        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+        worst = 0.0
+        for q_dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
+            for n in sampler_lens:
+                masks = [(None, None), (torch.clamp(start0, max=n - 1), None)]
+                if b == 3:
+                    masks.append((None, interleaved_masks(t, n, *interleaved, device)))
+                for st, km in masks:
+                    err = _packed_case(f"{name} sampler shape {q_dtype} valid_len={n} start={st is not None} "
+                                       f"key_mask={km is not None}", launch, plain, kind == "packed4", q, cache,
+                                       n_layers - 1, n, st, km, forced if is_cuda else ())
+                    worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
+            if is_cuda and q_dtype == torch.bfloat16:
+                _packed_graph_replay_check(name, launch, cache, q, gen, device)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], worst)
+        print(f"kernel vs plain {name} (B={b} T={t} H={h} D={d}, the interleaved sampler's shape): ok, valid_len "
+              f"{list(sampler_lens)}, masks none, start{', interleaved' if b == 3 else ''}, bf16 and f32 q"
+              + (f"; S = the planner's and forced to each of {list(forced)}, twice with equal bits; replayed from a "
+                 f"CUDA graph after valid_len, start and key_mask changed" if is_cuda else "")
+              + f"; worst bf16 max abs err {worst:.3e}")
         del cache
     return out
 

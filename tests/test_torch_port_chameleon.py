@@ -172,7 +172,8 @@ def test_chip_smoke_chameleon_phases_on_cpu():
     import chip_smoke
 
     out = chip_smoke.phase_packed_kernels("cpu", rar=(4, 10, 2, 20, 3), cham=(6, 300, 2, 16, 2), rar_lens=(1, 2, 10),
-                                          cham_lens=(1, 128, 129, 300))
+                                          cham_lens=(1, 128, 129, 300), sampler=(3, 200, 2, 16, 2),
+                                          sampler_lens=(1, 129, 200), interleaved=(3, 5, 100))
     assert set(out) == {"packed_decode_attention_q8", "packed_decode_attention_q8_chunked",
                         "packed4_decode_attention_chunked"}
     assert all(0 < o["max_abs_err"] < 2e-2 for o in out.values())

@@ -81,10 +81,70 @@ def test_hash_greenlist_bit_identical(vocab, split, seeding):
 
 def test_make_greenlist_refuses_unported_sources():
     ts = TSpec.from_string("fixed-clustering-h=0-d=2.0-g=0.25", vocab_size=64)
+    full = tgl.VQInfo(64, alive_ids=np.arange(40), embedding=np.zeros((64, 4), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgl.make_greenlist(ts, tgl.VQInfo(64))
+        tgl.make_greenlist(ts, full)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgl.make_greenlist(TSpec.from_string("linear-rand-h=1-d=2.0-g=0.25", vocab_size=64), torch_compat=True)
+
+
+@pytest.mark.parametrize("lacking", ["vq", "embedding", "alive_ids"])
+def test_make_greenlist_clustering_needs_embedding_and_alive_ids(lacking):
+    """Where the clustering split lacks the codebook or the alive ids, the
+    port raises the JAX package's ``ValueError``, message and all."""
+    parts = dict(alive_ids=np.arange(40), embedding=np.zeros((64, 4), np.float32))
+    parts.pop(lacking, None)
+    errors = []
+    for mod, spec_cls in ((jgl, JSpec), (tgl, TSpec)):
+        vq = None if lacking == "vq" else mod.VQInfo(64, **parts)
+        with pytest.raises(ValueError, match="clustering split needs") as e:
+            mod.make_greenlist(spec_cls.from_string("fixed-clustering-h=0-d=2.0-g=0.25", vocab_size=64), vq)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+def test_make_greenlist_calls_the_sources_as_jax_does(monkeypatch):
+    """The clustering source gets ``(spec, embedding, alive_ids)`` and the
+    torch-compat tables ``(spec, alive_ids)``, as in the JAX package."""
+    calls = {}
+    for mod in (jgl, tgl):
+        monkeypatch.setattr(mod, "clustering_greenlist", lambda *a, m=mod: calls.setdefault((m, "c"), a))
+        monkeypatch.setattr(mod, "build_table_torch_compat", lambda *a, m=mod: calls.setdefault((m, "t"), a))
+    alive, emb = np.arange(40), np.ones((64, 4), np.float32)
+    for mod, spec_cls in ((jgl, JSpec), (tgl, TSpec)):
+        vq = mod.VQInfo(64, alive_ids=alive, embedding=emb)
+        clus = spec_cls.from_string("fixed-clustering-h=0-d=2.0-g=0.25", vocab_size=64)
+        rand = spec_cls.from_string("linear-rand-h=1-d=2.0-g=0.25", vocab_size=64)
+        mod.make_greenlist(clus, vq)
+        mod.make_greenlist(rand, vq, torch_compat=True)
+        mod.make_greenlist(rand, None, torch_compat=True)
+        assert calls[(mod, "c")][0] is clus and calls[(mod, "c")][1] is emb and calls[(mod, "c")][2] is alive
+        assert calls[(mod, "t")][0] is rand and calls[(mod, "t")][1] is alive and len(calls[(mod, "t")]) == 2
+
+
+@pytest.mark.parametrize("asset,vocab,n_ids", [("assets/vqgan_alive_ids.txt", 16384, 971),
+                                                ("assets/rar_all_ids.txt", 1024, 1024)])
+def test_alive_id_files_give_jax_thresholds(asset, vocab, n_ids):
+    """The port's own reader of the alive-id files gives the ids of
+    ``generate.py``'s, and under ``stratifiedrand`` the port's
+    ``HashGreenlist`` thresholds equal the JAX package's bit for bit."""
+    from wmar_tpu_torch import generate as tgen
+
+    sys.path.insert(0, REPO)
+    try:
+        import generate as jgen
+    finally:
+        sys.path.remove(REPO)
+    ids = tgen._load_alive_ids(asset)
+    np.testing.assert_array_equal(ids, jgen._load_alive_ids(os.path.join(REPO, asset)))
+    assert ids.shape == (n_ids,) and tgen._load_alive_ids("assets/no_such_file.txt") is None
+    js, ts = _specs("linear-stratifiedrand-h=1-d=2.0-g=0.25", vocab)
+    jg = jgl.HashGreenlist(js, alive_mask=jgl.VQInfo(vocab, alive_ids=ids).alive_mask)
+    tg = tgl.HashGreenlist(ts, alive_mask=tgl.VQInfo(vocab, alive_ids=ids).alive_mask)
+    np.testing.assert_array_equal(tg._thresholds.numpy().astype(np.uint32), np.asarray(jg._thresholds))
+    if n_ids < vocab:  # the alive set moves the rates: plain rand thresholds differ
+        plain = tgl.HashGreenlist(ts)._thresholds.numpy()
+        assert (tg._thresholds.numpy() != plain).any()
 
 
 @pytest.mark.parametrize("method", [

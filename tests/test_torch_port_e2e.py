@@ -173,3 +173,83 @@ def test_generate_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA"):
             tgen.main(base)
+
+
+def test_parser_takes_every_flag_of_generate_py():
+    """The five flags of ``generate.py`` that the port's parser lacked parse
+    with its types and defaults."""
+    from wmar_tpu_torch import generate as tgen
+
+    sys.path.insert(0, REPO)
+    try:
+        import generate as jgen
+    finally:
+        sys.path.remove(REPO)
+    flags = ("syncpath", "exact_jpeg", "nc_weights_dir", "nc_allow_random", "diffpure_weights")
+    given = ["--syncpath", "s.ckpt", "--exact_jpeg", "true", "--nc_weights_dir", "w", "--nc_allow_random", "yes",
+             "--diffpure_weights", "adm.msgpack"]
+    for argv in ([], given):
+        port = tgen.get_parser().parse_args(["--outdir", "o", *argv])
+        ref = jgen.get_parser().parse_args(["--outdir", "o", *argv])
+        assert {f: getattr(port, f) for f in flags} == {f: getattr(ref, f) for f in flags}
+
+
+def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path):
+    """``--syncpath none --sync false`` (what the sweep configs pass) runs;
+    each of the new flags with a value that needs unported code exits through
+    ``_refuse_unported`` with its ROADMAP item."""
+    from wmar_tpu_torch import generate as tgen
+
+    base = ["--model", "taming", "--tiny", "--device", "cpu", "--no_augs", "--conditioning", "0,1",
+            "--batch_size", "2", "--outdir", str(tmp_path)]
+    records = tgen.main(base + ["--syncpath", "none", "--sync", "false", "--exact_jpeg", "false",
+                                "--nc_allow_random", "false"])
+    assert len(records) == 4
+    for extra in (["--syncpath", "sync.ckpt"], ["--exact_jpeg", "true"], ["--nc_weights_dir", "w"],
+                  ["--nc_allow_random", "true"], ["--diffpure_weights", "adm.msgpack"]):
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            tgen.main(base + extra)
+
+
+@pytest.mark.parametrize("model,asset,cls", [("taming", "assets/vqgan_alive_ids.txt", "TamingARMM"),
+                                             ("rar", "assets/rar_all_ids.txt", "RarARMM")])
+def test_full_size_loaders_pass_the_alive_ids(monkeypatch, model, asset, cls):
+    """At full size the loaders hand the wrapper the alive ids of the
+    model's asset file, as ``generate.py`` does; never for ``--tiny``. The
+    full-size networks are not built here: their constructors are stubbed."""
+    import wmar_tpu_torch.models as tmodels
+    from wmar_tpu_torch import generate as tgen
+
+    seen = {}
+    for name in ("init_gpt", "init_taming_vqgan", "init_rar", "init_maskgit"):
+        monkeypatch.setattr(tmodels, name, lambda *a, **k: None)
+    monkeypatch.setattr(tmodels, cls, lambda *a, **k: seen.update(k) or "wrapper")
+    args = tgen.get_parser().parse_args(["--model", model, "--outdir", "o", "--device", "cpu"])
+    assert tgen.load_wrapper(args, torch.device("cpu")) == "wrapper"
+    np.testing.assert_array_equal(seen["alive_ids"], tgen._load_alive_ids(asset))
+    assert len(seen["alive_ids"]) in (971, 1024)
+    args.tiny = True
+    seen.clear()
+    tgen.load_wrapper(args, torch.device("cpu"))
+    assert seen["alive_ids"] is None
+
+
+def test_set_watermarker_none_keeps_the_greenlist():
+    """``set_watermarker(None)`` clears the spec and keeps the last
+    greenlist, as the JAX wrapper does."""
+    from wmar_tpu.models.armm import ARMMWrapper as JWrapper
+    from wmar_tpu_torch.models.armm import ARMMWrapper as TWrapper
+
+    kept = []
+    for base, spec_cls, kwargs in ((JWrapper, JSpec, {}), (TWrapper, TSpec, {"device": "cpu"})):
+        class Bare(base):
+            def get_vq(self):
+                return None
+
+        w = Bare(**kwargs)
+        w.set_watermarker(spec_cls.from_string("linear-rand-h=1-d=2.0-g=0.25", vocab_size=64))
+        first = w.greenlist
+        w.set_watermarker(None)
+        assert w.watermark_spec is None and w.watermark_runtime() is None
+        kept.append(w.greenlist is first)
+    assert kept == [True, True]

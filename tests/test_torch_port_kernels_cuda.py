@@ -68,14 +68,22 @@ PACKED_KERNELS = {
 }
 
 
+PACKED_SPLITS = (1, 2, 3, 8, 16)  # forced through the private launcher; the wrappers take the planner's choice
+
+
 @pytest.mark.parametrize("kernel", list(PACKED_KERNELS))
-@pytest.mark.parametrize("d", [16, 20, 80, 88, 128, 256])
+@pytest.mark.parametrize("d", [16, 20, 80, 88, 104, 128, 132, 256])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
     """Kernels #2-#4 against their plain float32 versions, with and without
     a ragged ``start`` and a random ``key_mask`` on the chunked ones, at the
     tolerances of kernel #1. Every row keeps at least one valid slot (the
-    kernels' precondition)."""
+    kernels' precondition). The chunked ones go through the wrapper (the
+    planner's split count) and through the private launcher with 1, 2, 3, 8
+    and 16 blocks per (row, head) forced (``valid_len`` 1, 128 and 129 leave
+    shares empty), twice with equal bits. The head dims cover the 16-byte
+    loads (16, 80, 128, 256), the 8-byte (88, 104) and the 4-byte (20); 132
+    fits no warp and takes the slot-by-slot kernel."""
     launch, plain, cls, t = PACKED_KERNELS[kernel]
     b, h = 5, 3
     cache, g = _cache(2, b, h, t, d, device, seed=d, cls=cls)
@@ -103,6 +111,109 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
                 assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
                 err = (got.float() - want).abs().max().item()
                 assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, start is None, key_mask is None, err)
+                for splits in PACKED_SPLITS if kernel != "q8" and layer == 1 else ():
+                    args = (q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device),
+                            start, key_mask, kernel == "packed4_chunked")
+                    forced, again = fd._launch_packed(*args, splits=splits), fd._launch_packed(*args, splits=splits)
+                    torch.cuda.synchronize()
+                    err = (forced.float() - want).abs().max().item()
+                    assert err <= rel * want.abs().max().item() + 1e-6, (n, start is None, key_mask is None, splits, err)
+                    assert torch.equal(forced, again), (n, splits)
+                assert launch.launches == before + 1  # the private launcher counts nothing
+
+
+@pytest.mark.parametrize("kernel", ["q8_chunked", "packed4_chunked"])
+def test_packed_chunked_kernels_replay_from_a_cuda_graph(device, kernel):
+    """One launch of kernel #3 or #4 captured in a CUDA graph (the split
+    count comes from the shapes alone) and replayed after ``valid_len``,
+    ``start`` and ``key_mask`` were changed in place gives the bits of a
+    fresh call."""
+    launch, _, cls, _ = PACKED_KERNELS[kernel]
+    b, h, t, d = 3, 8, 4096, 128
+    cache, g = _cache(2, b, h, t, d, device, seed=5, cls=cls)
+    q = torch.randn((b, h, 1, d), generator=g, device=device, dtype=torch.bfloat16)
+    lens = torch.full((1,), 700, dtype=torch.int32, device=device)
+    start = torch.zeros(b, dtype=torch.int32, device=device)
+    key_mask = torch.rand((b, t), generator=g, device=device) < 0.5
+    later_mask = torch.rand((b, t), generator=g, device=device) < 0.8
+    key_mask[:, :40] = later_mask[:, :40] = True  # every start below keeps a slot
+    launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)  # the scratch, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)
+    for n, first, mask in ((700, 0, key_mask.clone()), (1, 0, key_mask.clone()), (3000, 33, later_mask),
+                           (4096, 7, later_mask)):
+        lens.fill_(n)
+        start.copy_(torch.tensor([0, first, first // 2], dtype=torch.int32))
+        key_mask.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        fresh = launch(q, cache.kv, cache.scale, 1, lens, start=start, key_mask=key_mask)
+        assert torch.equal(out, fresh), n
+
+
+@pytest.mark.parametrize("kernel", ["q8_chunked", "packed4_chunked"])
+def test_packed_chunked_kernels_skip_masked_slots(device, kernel):
+    """A masked slot costs its mask byte only: NaN scales planted at the
+    masked slots of the kernel's input do not reach the output, which equals
+    the plain version's on a clean copy; a Python-int ``valid_len`` works; a
+    row with no slot that takes part gets zeros."""
+    launch, plain, cls, _ = PACKED_KERNELS[kernel]
+    b, h, t, d = 3, 2, 1100, 16
+    cache, g = _cache(1, b, h, t, d, device, seed=1, cls=cls)
+    q = torch.randn((b, h, 1, d), generator=g, device=device)
+    km = torch.rand((b, t), generator=g, device=device) < 0.5
+    km[:, 3] = True
+    want = plain(q, cache.kv, cache.scale, 0, 900, None, km)
+    poisoned = cache.scale.clone()
+    poisoned[0][~km[:, None, :].expand(b, 2 * h, t)] = float("nan")
+    for splits in (None, 1, 5):
+        got = fd._launch_packed(q, cache.kv, poisoned, 0, 900, None, km, kernel == "packed4_chunked", splits=splits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    km[1] = False
+    got = launch(q, cache.kv, poisoned, 0, 900, key_mask=km)
+    assert bool((got[1] == 0).all()) and torch.isfinite(got).all()
+
+
+def test_packed_chunked_kernels_reject_bad_inputs(device):
+    """Wrong dtypes, shapes, devices, a head dim that is no multiple of 4, a
+    payload that is not aligned to its 16-byte loads, a bad split count and
+    mis-shaped masks raise, and nothing is counted."""
+    b, h, t, d = 2, 2, 1024, 16
+    c4, _ = _cache(1, b, h, t, d, device)
+    c8, _ = _cache(1, b, h, t, d, device, cls=PackedQuantKVCache)
+    q = torch.zeros((b, h, 1, d), device=device)
+    k4, k8 = fd.packed4_decode_attention_chunked, fd.packed_decode_attention_q8_chunked
+    before = (k4.launches, k8.launches)
+    with pytest.raises(TypeError):
+        k4(q.half(), c4.kv, c4.scale, 0, 4)
+    with pytest.raises(TypeError):
+        k4(q, c8.kv, c8.scale, 0, 4)
+    with pytest.raises(TypeError):
+        k8(q, c4.kv, c4.scale, 0, 4)
+    with pytest.raises(ValueError):
+        k8(q, c8.kv.cpu(), c8.scale, 0, 4)
+    with pytest.raises(ValueError):
+        k4(torch.zeros((b, h, 2, d), device=device), c4.kv, c4.scale, 0, 4)
+    with pytest.raises(IndexError):
+        k4(q, c4.kv, c4.scale, 1, 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k4(torch.zeros((b, h, 1, 6), device=device), torch.zeros((1, b, t, h * 6), dtype=torch.uint8, device=device),
+           torch.ones((1, b, 2 * h, t), dtype=torch.bfloat16, device=device), 0, 4)
+    with pytest.raises(ValueError, match="key_mask"):
+        k4(q, c4.kv, c4.scale, 0, 4, key_mask=torch.ones((b, t + 1), dtype=torch.bool, device=device))
+    with pytest.raises(ValueError, match="start"):
+        k8(q, c8.kv, c8.scale, 0, 4, start=torch.zeros(b + 1, dtype=torch.int32, device=device))
+    with pytest.raises(ValueError, match="splits"):
+        fd._launch_packed(q, c4.kv, c4.scale, 0, 4, None, None, True, splits=17)
+    flat = torch.zeros(c4.kv.numel() + 16, dtype=torch.uint8, device=device)
+    shifted = flat[4:4 + c4.kv.numel()].view(c4.kv.shape)  # contiguous, 4 bytes past an aligned address
+    with pytest.raises(ValueError, match="aligned"):
+        k4(q, shifted, c4.scale, 0, 4)
+    assert before == (k4.launches, k8.launches)
 
 
 def test_packed_wrappers_route_by_length(device):

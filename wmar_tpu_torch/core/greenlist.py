@@ -138,10 +138,14 @@ def make_greenlist(
     torch_compat: bool = False,
     device: Union[str, torch.device] = "cpu",
 ) -> HashGreenlist:
-    """The hash greenlist for ``spec`` on ``device``."""
+    """The right greenlist source for ``spec``, on ``device``: the hash
+    source, unless the spec or ``torch_compat`` asks for one that is not
+    ported yet (called as the JAX package calls them)."""
     if spec.split_strategy == SplitStrategy.CLUSTERING:
-        return clustering_greenlist(spec, vq)
+        if vq is None or vq.embedding is None or vq.alive_ids is None:
+            raise ValueError("clustering split needs VQInfo with embedding + alive_ids")
+        return clustering_greenlist(spec, vq.embedding, vq.alive_ids)
     if torch_compat:
-        return build_table_torch_compat(spec, vq)
+        return build_table_torch_compat(spec, vq.alive_ids if vq is not None else None)
     alive_mask = vq.alive_mask if vq is not None else None
     return HashGreenlist(spec, alive_mask=alive_mask, device=device)

@@ -1,12 +1,13 @@
 // Single-token decode attention over the packed KV caches (int4 and int8),
 // streamed in chunks with an online softmax, for Hopper.
 //
-// Replaces three TPU kernels of the JAX package's ops/flash_decode.py:
-//   _packed_attn_kernel_q8                 the int8 cache, T < 1024, no masks;
-//   _packed_attn_kernel_q8_chunked{,_km}   the int8 cache, T >= 1024;
-//   _packed4_attn_kernel_chunked{,_km}     the int4 cache, T >= 1024;
-// the last two through _chunked_body, with a per-row first slot (start) and
-// an optional per-row slot mask (key_mask). One template covers all three:
+// Replaces the TPU kernel _packed_attn_kernel_q8 of the JAX package's
+// ops/flash_decode.py (the int8 cache, T < 1024, no masks). It was first
+// written for the two chunked kernels as well (T >= 1024, through
+// _chunked_body, with a per-row first slot, start, and an optional per-row
+// slot mask, key_mask); those now have the tiled kernel of
+// packed_chunked_attention.cu and come here only at a head dim whose slot
+// fits no warp there (no multiple of 8 above 128). One template covers all:
 // the payload (int4 or int8) is a template argument, start and key_mask are
 // null pointers where the call has none. Built with nvcc for sm_90a into a
 // shared library with a plain C interface, loaded through ctypes by

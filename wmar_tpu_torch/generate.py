@@ -44,15 +44,23 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NOT_PORTED = {
     "modelpath": "checkpoint loading (ROADMAP queue 1, item 14: state-dict loads)",
     "encoder_ft_ckpt": "RCC deltas (ROADMAP queue 1, item 10)",
     "decoder_ft_ckpt": "RCC deltas (ROADMAP queue 1, item 10)",
     "sync": "sync (ROADMAP queue 1, item 11)",
+    "syncpath": "sync (ROADMAP queue 1, item 11)",
     "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
+    "nc_weights_dir": "the neural attacks (ROADMAP queue 1, item 12)",
+    "nc_allow_random": "the neural attacks (ROADMAP queue 1, item 12)",
     "include_diffpure": "the neural attacks (ROADMAP queue 1, item 12)",
+    "diffpure_weights": "the neural attacks (ROADMAP queue 1, item 12)",
+    "exact_jpeg": "the attack grid (ROADMAP queue 1, item 8)",
     "wm_torch_compat": "torch-compat greenlist tables (ROADMAP queue 1, item 1)",
 }
 
@@ -91,8 +99,12 @@ def get_parser():
         p.add_argument(f"--{flag}", type=int, default=1, help="multi-GPU: not ported yet")
     p.add_argument("--orig_only", type=str2bool, default=False)
     p.add_argument("--include_neural_compress", type=str2bool, default=False)
+    p.add_argument("--nc_weights_dir", type=str, default=None)
+    p.add_argument("--nc_allow_random", type=str2bool, default=False)
     p.add_argument("--include_diffpure", type=str2bool, default=False)
+    p.add_argument("--diffpure_weights", type=str, default=None)
     p.add_argument("--max_roundtrips", type=int, default=1)
+    p.add_argument("--exact_jpeg", type=str2bool, default=False)
     p.add_argument("--wm_method", type=str, default="gentime", choices=["none", "gentime"])
     p.add_argument("--wm_seed_strategy", type=str, default="linear", choices=["fixed", "linear", "spatial"])
     p.add_argument("--wm_split_strategy", type=str, default="stratifiedrand",
@@ -102,6 +114,7 @@ def get_parser():
     p.add_argument("--wm_gamma", type=float, default=0.25)
     p.add_argument("--wm_torch_compat", type=str2bool, default=False)
     p.add_argument("--sync", type=str2bool, default=False)
+    p.add_argument("--syncpath", type=str, default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_augs", action="store_true")
     p.add_argument("--interleaved", type=str, default=None,
@@ -121,7 +134,6 @@ def run_interleaved(args, wrapper, apply_wm: bool):
     (decode -> encode round trip) codes."""
     import json
 
-    import numpy as np
 
     from wmar_tpu_torch.core.detect import detect
     from wmar_tpu_torch.eval.pipeline import to_pillow
@@ -190,6 +202,21 @@ def synthetic_tokenizer(n_chars: int):
     return lambda text: [6 + (ord(c) % 20) for c in text[:n_chars]]
 
 
+def _load_alive_ids(path):
+    """The codebook ids a generator uses, from a file of comma-separated
+    ints (relative paths from the repository root); None without the file."""
+    path = os.path.join(REPO_ROOT, path)
+    if not os.path.exists(path):
+        return None
+    ids = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                ids.extend(int(x) for x in line.split(","))
+    return np.asarray(ids)
+
+
 def load_chameleon(args, device: torch.device):
     from wmar_tpu_torch.models import (
         CHAMELEON_7B,
@@ -235,14 +262,14 @@ def load_taming(args, device: torch.device):
         gpt_cfg = GPTConfig(vocab_size=64, block_size=300, n_layer=2, n_head=2, n_embd=32)
         vq_cfg = VQGANConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
                              z_channels=32, n_embed=64, embed_dim=16)
-        dtype, cache_dtype = torch.float32, torch.float32
+        dtype, cache_dtype, alive = torch.float32, torch.float32, None
     else:
         gpt_cfg, vq_cfg = TAMING_GPT_1_4B, TAMING_IMAGENET_F16
-        dtype, cache_dtype = torch.bfloat16, torch.bfloat16
+        dtype, cache_dtype, alive = torch.bfloat16, torch.bfloat16, _load_alive_ids("assets/vqgan_alive_ids.txt")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     gpt = init_gpt(gpt_cfg, gen, dtype=dtype, device=device)
     vq = init_taming_vqgan(vq_cfg, gen, dtype=dtype, device=device)
-    return TamingARMM(gpt, vq, cache_dtype=cache_dtype, device=device)
+    return TamingARMM(gpt, vq, alive_ids=alive, cache_dtype=cache_dtype, device=device)
 
 
 def load_wrapper(args, device: torch.device):
@@ -265,19 +292,19 @@ def load_wrapper(args, device: torch.device):
                             image_seq_len=16, codebook_size=64, num_classes=10)
         vq_cfg = MaskGitVQConfig(resolution=8, hidden_channels=32, channel_mult=(1, 2),
                                  num_res_blocks=1, z_channels=16, n_embed=64, embed_dim=16)
-        dtype, cache_dtype = torch.float32, torch.float32
+        dtype, cache_dtype, alive = torch.float32, torch.float32, None
     else:
         rar_cfg, vq_cfg = rar_config(args.rar_size), MASKGIT_IMAGENET_F16
-        dtype, cache_dtype = torch.bfloat16, torch.bfloat16
+        dtype, cache_dtype, alive = torch.bfloat16, torch.bfloat16, _load_alive_ids("assets/rar_all_ids.txt")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rar = init_rar(rar_cfg, gen, dtype=dtype, device=device)
     vq = init_maskgit(vq_cfg, gen, dtype=dtype, device=device)
-    return RarARMM(rar, vq, cache_dtype=cache_dtype, device=device)
+    return RarARMM(rar, vq, alive_ids=alive, cache_dtype=cache_dtype, device=device)
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    for attr in ("encoder_ft_ckpt", "decoder_ft_ckpt", "modelpath"):
+    for attr in ("encoder_ft_ckpt", "decoder_ft_ckpt", "syncpath", "modelpath"):
         if getattr(args, attr, None) == "none":
             setattr(args, attr, None)
     _refuse_unported(args)

@@ -60,8 +60,7 @@ class ARMMWrapper:
 
     def set_watermarker(self, spec: Optional[WatermarkSpec], torch_compat: bool = False):
         self.watermark_spec = spec
-        self.greenlist = None
-        if spec is not None:
+        if spec is not None:  # None keeps the last greenlist, as in the JAX package
             self.greenlist = make_greenlist(spec, self.get_vq(), torch_compat=torch_compat, device=self.device)
 
     def watermark_runtime(self) -> Optional[WatermarkRuntime]:

@@ -103,6 +103,9 @@ def load() -> ctypes.CDLL:
     fn = lib.wmar_packed_decode_attention
     fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
+    fn = lib.wmar_packed_chunked_attention
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
     fn = lib.wmar_w4_matmul
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = i

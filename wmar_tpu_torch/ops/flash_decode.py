@@ -23,25 +23,30 @@ counterpart here, reached through the JAX package's wrappers:
   ``csrc/probes.cu``: what the int8 decode kernel's loads alone cost, and
   what one small launch costs.
 
-Kernels #2-#4 are one payload-templated CUDA kernel
+Kernel #2 is a payload-templated CUDA kernel
 (``csrc/packed_decode_attention.cu``): a block per (head, row) streams the
-row's slots ``[start_b, valid_len)`` with an online softmax and skips masked
-slots. The packed routing keeps JAX's rule: ``start``/``key_mask`` are taken
-only by the chunked path (``T >= 1024``); at shorter ``T`` the packed
-wrappers raise ``ValueError`` as JAX's do.
+row's slots with an online softmax, slot by slot. The packed routing keeps
+JAX's rule: ``start``/``key_mask`` are taken only by the chunked path (``T
+>= 1024``); at shorter ``T`` the packed wrappers raise ``ValueError`` as
+JAX's do.
 
-Kernels #5/#6 are designed for the card's 132 SMs: the grid is ``(H, B,
-S)``, the ``S`` blocks of a (row, head) each take a share of ``[start_b,
-valid_len)`` in whole tiles (:func:`flash_decode_tile` slots) and the block
-that finishes last merges the partial ``(max, sum, acc)`` in split order,
-inside the same launch. :func:`flash_decode_splits` picks ``S`` from the
-shapes alone, so a CUDA graph may replay the launch while the fill grows.
-A lane loads 16 bytes at a time into a cp.async ring, the softmax runs by
-the tile, masks and scales are read by the tile, and a masked slot costs no
-payload bytes. :func:`flash_decode_attention_split_plain` is the same
-arithmetic in plain torch. The scratch for the partials and the arrival
-counters belong to this module, one set per device (see
-:func:`_flash_workspace` for what that costs).
+Kernels #3-#6 are designed for the card's 132 SMs (#5/#6:
+``csrc/flash_decode_attention.cu``; #3/#4, over the packed layouts where a
+head's bytes of a slot lie ``H*D`` or ``2*H*D`` bytes apart:
+``csrc/packed_chunked_attention.cu``): the grid is ``(H, B, S)``, the ``S``
+blocks of a (row, head) each take a share of ``[start_b, valid_len)`` in
+whole tiles (:func:`flash_decode_tile` / :func:`packed_decode_tile` slots)
+and the block that finishes last merges the partial ``(max, sum, acc)`` in
+split order, inside the same launch. :func:`flash_decode_splits` and
+:func:`packed_decode_splits` pick ``S`` from the shapes alone, so a CUDA
+graph may replay the launch while the fill grows. A lane loads 16 bytes at
+a time into a cp.async ring, the softmax runs by the tile, masks and scales
+are read by the tile, and a masked slot costs no payload bytes.
+:func:`flash_decode_attention_split_plain` (and, over the packed layouts,
+:func:`packed_decode_attention_split_plain`) is the same arithmetic in
+plain torch. The scratch for the partials and the arrival counters belong
+to this module, one set per device (see :func:`_flash_workspace` for what
+that costs).
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain torch version of the same math in float32 (the
@@ -68,6 +73,9 @@ _FLASH_PASSES = 8  # a tile is 8 loads of a warp (csrc/flash_decode_attention.cu
 _FLASH_MAX_SPLITS = 16  # the kernel's limit on S (kMaxSplits)
 _FLASH_MIN_SHARE = 128  # slots of the cache a split should at least stand for
 _FLASH_BLOCKS_PER_SM = 3  # blocks of kernels #5/#6 that fit one SM (64 KB of shared memory each)
+_PACKED_MAX_SPLITS = 16  # kernels #3/#4: the kernel's limit on S (kMaxSplits)
+_PACKED_BLOCKS_PER_SM = 3  # blocks an SM that the planner of kernels #3/#4 counts on: the int8 kernel's (64 KB of
+# ring each at D = 128). The int4 kernel fits six, but its sweep prefers the same S (tools/bench_flash_splits --packed)
 _SMEM_BYTES = 48 * 1024  # kernel #1: scores [T] + q [D] + 4 partials, as float32, without opt-in
 _CHUNK_MIN_T = 1024  # JAX's shape-aware default: the chunked kernels from 1024 slots on
 _MASKS_NEED_CHUNKED = (
@@ -189,16 +197,26 @@ def _chunked_route(kv_all, start, key_mask) -> bool:
     return chunked
 
 
-def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool) -> torch.Tensor:
-    """Launch ``csrc/packed_decode_attention.cu`` (kernels #2-#4)."""
+def _check_packed(q, kv_all, scale_all, layer: int, int4: bool):
+    """The checks of kernels #2-#4 and #7: :func:`_check`, a head dim of
+    whole 32-bit words and a payload aligned to them. Returns the layer's
+    views, which the kernel reads in place."""
     _check(q, kv_all, scale_all, layer, torch.uint8 if int4 else torch.int8, 1 if int4 else 2)
-    b, h, _, d = q.shape
-    t = kv_all.shape[2]
+    d = q.shape[3]
     if d % 4:
         raise ValueError(f"head dim {d} must be a multiple of 4 (the kernel reads 32-bit words)")
-    kv_layer, scale_layer = kv_all[layer], scale_all[layer]  # views: the kernel reads in place
+    kv_layer, scale_layer = kv_all[layer], scale_all[layer]
     if kv_layer.data_ptr() % 4:
         raise ValueError("the cache payload must be 4-byte aligned")
+    return kv_layer, scale_layer
+
+
+def _launch_packed_stream(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool) -> torch.Tensor:
+    """Launch ``csrc/packed_decode_attention.cu``: kernel #2, and kernels #3
+    and #4 at the head dims their tiled kernel does not take."""
+    kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
+    b, h, _, d = q.shape
+    t = kv_all.shape[2]
     lens = _device_lens(valid_len, q.device)
     start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
     from wmar_tpu_torch.ops import build
@@ -211,6 +229,75 @@ def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask,
     )
     if rc != 0:
         raise RuntimeError(f"packed decode attention kernel failed to launch: cudaError {rc}")
+    return out
+
+
+def _packed_load_bytes(d: int) -> int:
+    """Bytes of one lane's load in kernels #3 and #4: a head's slot is ``d``
+    bytes of nibbles, or ``d`` bytes of K and ``d`` of V; 16 where ``d`` is a
+    multiple of 16, else 8, else 4 (the kernel's rule)."""
+    return 16 if d % 16 == 0 else 8 if d % 8 == 0 else 4
+
+
+def packed_decode_tile(d: int) -> int:
+    """Slots of one tile of kernels #3 and #4 (the unit of the split over T
+    and of the softmax), or 0 where a slot of ``d`` values does not fit a
+    warp: the lanes of a slot are the next power of two above ``d`` / (bytes
+    of one load), at least 8; a warp reads ``32 / lanes`` slots at once and a
+    tile is 8 such passes. 32 up to ``d = 128`` (16 at 88 and 104, whose
+    loads are 8 bytes), 16 above; 0 for ``d = 132, 140, ...``, which are no
+    multiple of 8."""
+    lanes = _FLASH_PASSES
+    while lanes * _packed_load_bytes(d) < d:
+        lanes *= 2
+    return _FLASH_PASSES * 32 // lanes if lanes <= 32 else 0
+
+
+def packed_decode_splits(b: int, h: int, t: int, sm_count: int) -> int:
+    """How many blocks ``S`` share one (row, head) in kernels #3 and #4: a
+    function of the shapes and the card's SM count only, never of the fill
+    (see :func:`flash_decode_splits`). As many as keep the whole grid on the
+    card at once, at most one per 128 slots of the cache and at most 16:
+    1 at 24 rows x 32 heads over 1043 slots on 132 SMs, 4 at 3 rows x 32
+    heads over 4096."""
+    resident = _PACKED_BLOCKS_PER_SM * sm_count
+    return max(1, min(resident // (b * h), t // _FLASH_MIN_SHARE, _PACKED_MAX_SPLITS))
+
+
+def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool,
+                   splits=None) -> torch.Tensor:
+    """Launch ``csrc/packed_chunked_attention.cu`` (kernels #3 and #4) with
+    ``splits`` blocks per (row, head); None lets :func:`packed_decode_splits`
+    choose. A head dim whose slot does not fit a warp's lanes (no multiple of
+    8 above 128) goes to the slot-by-slot kernel instead."""
+    kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
+    b, h, _, d = q.shape
+    t = kv_all.shape[2]
+    if not packed_decode_tile(d):
+        return _launch_packed_stream(q, kv_all, scale_all, layer, valid_len, start, key_mask, int4)
+    if kv_layer.data_ptr() % _packed_load_bytes(d):
+        raise ValueError(f"the cache payload must be {_packed_load_bytes(d)}-byte aligned: a lane loads that many "
+                         f"bytes of a slot of {d} values")
+    if splits is None:
+        splits = packed_decode_splits(b, h, t, _sm_count(q.device.index))
+    if not 1 <= splits <= _PACKED_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside [1, {_PACKED_MAX_SPLITS}]")
+    lens = _device_lens(valid_len, q.device)
+    start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
+    partial_ptr = counters_ptr = None
+    if splits > 1:
+        partial, counters = _flash_workspace(q.device, b * h, b * h * splits * (d + 2))
+        partial_ptr, counters_ptr = partial.data_ptr(), counters.data_ptr()
+    from wmar_tpu_torch.ops import build
+
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    rc = build.load().wmar_packed_chunked_attention(
+        q.data_ptr(), kv_layer.data_ptr(), scale_layer.data_ptr(), lens.data_ptr(), start_ptr, mask_ptr,
+        out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, splits, int(int4), int(q.dtype == torch.bfloat16),
+        d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"packed chunked attention kernel failed to launch: cudaError {rc}")
     return out
 
 
@@ -253,7 +340,7 @@ def packed_decode_attention_q8(q, kv_all, scale_all, layer: int, valid_len, star
         return packed_decode_attention_q8_chunked(q, kv_all, scale_all, layer, valid_len, start, key_mask)
     if q.device.type == "cpu":
         return packed_decode_attention_q8_plain(q, kv_all, scale_all, layer, valid_len)
-    out = _launch_packed(q, kv_all, scale_all, layer, valid_len, None, None, int4=False)
+    out = _launch_packed_stream(q, kv_all, scale_all, layer, valid_len, None, None, int4=False)
     packed_decode_attention_q8.launches += 1
     return out
 
@@ -430,10 +517,10 @@ def _launch_flash(q, k, v, k_scale, v_scale, valid_len, start, key_mask, splits=
 
 
 def flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, splits: int, k_scale=None,
-                                       v_scale=None) -> torch.Tensor:
+                                       v_scale=None, tile=None) -> torch.Tensor:
     """Plain torch version of the arithmetic of kernels #5 and #6 as the
     card does it, in float32: the slots ``[start_b, valid_len)`` of a row
-    are cut into tiles of :func:`flash_decode_tile` slots, the tiles dealt
+    are cut into tiles of ``tile`` slots (None: :func:`flash_decode_tile`), the tiles dealt
     to ``splits`` shares in runs of ``ceil(tiles / splits)`` (a share may be
     empty), every share gives its ``(max, sum of exp, acc)``, and the
     shares are merged in split order. ``k_scale``/``v_scale`` ``[B, H, T]``
@@ -444,7 +531,7 @@ def flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, spli
     b, h, _, d = q.shape
     t = k.shape[2]
     dev = q.device
-    tile = flash_decode_tile(d, k.dtype)
+    tile = tile or flash_decode_tile(d, k.dtype)
     s = torch.einsum("bhd,bhtd->bht", q[:, :, 0].to(torch.float32), k.to(torch.float32))
     if k_scale is not None:
         s = s * k_scale.to(torch.float32)
@@ -479,6 +566,25 @@ def flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, spli
         den = den + part_sum * f
     out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-38)[..., None], 0.0)
     return out[:, :, None].to(q.dtype)
+
+
+def packed_decode_attention_split_plain(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, splits: int,
+                                        int4: bool) -> torch.Tensor:
+    """Plain torch version of the arithmetic of kernels #3 (``int4`` False)
+    and #4 as the card does it: the layer unpacked to integer-valued ``k, v
+    [B, H, T, D]``, then :func:`flash_decode_attention_split_plain` with
+    tiles of :func:`packed_decode_tile` slots. For tests."""
+    b, h, _, d = q.shape
+    t = kv_all.shape[2]
+    sc = scale_all[layer].to(torch.float32)
+    if int4:
+        u = kv_all[layer].to(torch.int32).reshape(b, t, h, d).transpose(1, 2)
+        k, v = ((u & 0xF) - 8).to(torch.float32), ((u >> 4) - 8).to(torch.float32)
+    else:
+        kv = kv_all[layer].to(torch.float32).reshape(b, t, 2, h, d)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    return flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, splits, sc[:, :h], sc[:, h:],
+                                              tile=packed_decode_tile(d))
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, valid_len, start=None, key_mask=None) -> torch.Tensor:
@@ -556,13 +662,8 @@ def _packed_dma_probe(q, kv_all, scale_all, layer: int) -> torch.Tensor:
     layer = int(layer)
     if q.device.type == "cpu":
         return _packed_dma_probe_plain(q, kv_all, scale_all, layer)
-    _check(q, kv_all, scale_all, layer, torch.int8, 2)
+    kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4=False)
     b, h, _, d = q.shape
-    if d % 4:
-        raise ValueError(f"head dim {d} must be a multiple of 4 (the kernel reads 32-bit words)")
-    kv_layer, scale_layer = kv_all[layer], scale_all[layer]
-    if kv_layer.data_ptr() % 4:
-        raise ValueError("the cache payload must be 4-byte aligned")
     from wmar_tpu_torch.ops import build
 
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)

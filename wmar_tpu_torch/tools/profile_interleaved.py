@@ -3,6 +3,7 @@
 
     python -m wmar_tpu_torch.tools.profile_interleaved [--first_step 1040] [--steps 8] \\
         [--caches bf16,int8] [--json out.json]
+    python -m wmar_tpu_torch.tools.profile_interleaved --t2i --first_step 1000 --caches packed,packed4
 
 Builds CHAMELEON_7B at full width and depth (random weights from ``--seed``,
 int8 linears, the synthetic vocabulary and tokenizer), runs
@@ -18,6 +19,11 @@ the kernel launches, the device time, and the device time by kernel name.
 The profiler slows the host, so the host-clock time here is above that of
 an unprofiled run; the device time and the launch count are not affected.
 
+With ``--t2i`` the window lies in the text-to-image sampler instead
+(``wrapper.sample`` on the 8 prompts of ``chip_smoke.py``: 24 CFG rows over
+1043 slots, temperature 0.9, top-p 0.9), where the ``packed`` and ``packed4``
+caches are read by the chunked packed kernels.
+
 It needs a CUDA card and fails without one.
 """
 
@@ -32,6 +38,8 @@ from types import SimpleNamespace
 import torch
 
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
+T2I_PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls", "a tall ship",
+               "an old bridge at night"]
 
 
 def build_wrapper(device, seed: int):
@@ -46,14 +54,20 @@ def build_wrapper(device, seed: int):
     return wrapper
 
 
-def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int, top: int = 12) -> dict:
+def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int, top: int = 12,
+                   t2i: bool = False) -> dict:
     """One whole run with the window around ``steps`` iterations from loop
     step ``first_step`` on (an image-token step at the defaults). Loop step
-    ``s`` is forward call ``s + 2`` (call 1 is the prefill)."""
+    ``s`` is forward call ``s + 2`` (call 1 is the prefill). ``t2i``: the
+    text-to-image sampler on 8 prompts instead of the interleaved loop."""
     from torch.profiler import ProfilerActivity, profile
 
     from wmar_tpu_torch.models import GenParams
+    from wmar_tpu_torch.models import chameleon as t2i_module
     from wmar_tpu_torch.models import chameleon_interleaved as il
+
+    if t2i:
+        il = t2i_module  # the module whose llama_forward the window hooks
 
     wrapper.cache_dtype = cache_dtype
     device = wrapper.device
@@ -74,10 +88,15 @@ def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int,
         return real(*args, **kwargs)
 
     il.llama_forward = forward
+    gen_params = GenParams(temperature=0.9, top_k=None, top_p=0.9)
     try:
-        il.sample_interleaved_fused(wrapper, "a cat", GenParams(temperature=0.9, top_k=None, top_p=0.9),
-                                    max_images=1, apply_watermark=True, cache_budget=4096,
-                                    generator=torch.Generator(device=device).manual_seed(seed))
+        if t2i:
+            wrapper.sample(T2I_PROMPTS, gen_params, apply_watermark=True,
+                           generator=torch.Generator(device=device).manual_seed(seed))
+        else:
+            il.sample_interleaved_fused(wrapper, "a cat", gen_params, max_images=1, apply_watermark=True,
+                                        cache_budget=4096,
+                                        generator=torch.Generator(device=device).manual_seed(seed))
     finally:
         il.llama_forward = real
     if "t1" not in clock:
@@ -110,6 +129,7 @@ def main(argv=None) -> int:
     p.add_argument("--first_step", type=int, default=1040)
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--caches", type=str, default="bf16,int8")
+    p.add_argument("--t2i", action="store_true", help="the text-to-image sampler (24 CFG rows) instead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", type=str, default=None)
     args = p.parse_args(argv)
@@ -124,7 +144,7 @@ def main(argv=None) -> int:
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "packed": "packed", "packed4": "packed4"}
     out = {"card": card_line()}
     for name in args.caches.split(","):
-        out[name] = profile_window(wrapper, dtypes[name], args.first_step, args.steps, args.seed)
+        out[name] = profile_window(wrapper, dtypes[name], args.first_step, args.steps, args.seed, t2i=args.t2i)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
