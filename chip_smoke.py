@@ -10,9 +10,10 @@ phases:
    one nvcc per source, in parallel), print the build time, the card's
    name and power limit, and the TF32 switches (both off, so float32
    matmuls and convolutions are exact);
-2. kernel vs plain: kernel #1 (``packed4_decode_attention``) at the decode
-   shapes of RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D
-   48/80/88); kernel #2 (``packed_decode_attention_q8``) at the RAR-XL
+2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
+   slots the tiled kernel of #3/#4 without masks) at the decode shapes of
+   RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88),
+   one launch replayed from a CUDA graph after ``valid_len`` changed; kernel #2 (``packed_decode_attention_q8``) at the RAR-XL
    shape; kernels #3 and #4 (``packed_decode_attention_q8_chunked``,
    ``packed4_decode_attention_chunked``) at the Chameleon-7B shape (24 rows,
    32 heads of 128, 1043 slots, 32 layers) with a ragged ``start`` that
@@ -24,10 +25,15 @@ phases:
    launch replayed from a CUDA graph after ``valid_len``, ``start`` and
    ``key_mask`` changed in place;
    kernels #1 and #2 again at the Taming-1.4B decode shape (32 rows, 257
-   slots, 16 heads of 104, 48 layers); kernel #8 (``matmul_w4``, the w4a16
-   matmul) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24 rows)
-   and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64 and
-   32; kernels #5 and #6 (``flash_decode_attention`` over a bf16 or f32
+   slots, 16 heads of 104, 48 layers), #1 timed there too; kernel #8
+   (``matmul_w4``, the w4a16 matmul: bf16 x on the tensor cores, f32 x on the
+   CUDA cores) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24
+   rows) and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64
+   and 32, at group 128 with every split count of K from 1 to its most
+   forced, twice (equal bits), one launch replayed from a CUDA graph, and
+   timed at Taming's four products and Chameleon's FFN beside its bound,
+   ``torch._weight_int4pack_mm`` and a bf16 matmul
+   (``wmar_tpu_torch.tools.bench_w4``); kernels #5 and #6 (``flash_decode_attention`` over a bf16 or f32
    cache, ``flash_decode_attention_q8`` over an int8 one) at the
    interleaved Chameleon shape (3 rows, 32 heads of 128, 4096 slots) and at
    a RAR-like shape (16 rows, 16 heads of 80), ``valid_len`` 1, 2, 1043,
@@ -37,8 +43,8 @@ phases:
    and one launch replayed from a CUDA graph after ``valid_len`` and
    ``key_mask`` changed in place; kernel #7 (``_packed_dma_probe``) exactly and
    kernel #9 (``row_mean_probe``) within bf16 rounding; each against its
-   plain float32 version, and timed beside it (#1-#4 at full fill, #8 at
-   the Taming shapes and the Chameleon FFN shape);
+   plain float32 version, and timed beside it (#1-#4 at full fill, by
+   CUDA events and replayed from a CUDA graph);
 3. microbench: ``wmar_tpu_torch.tools.bench_attention`` at the RAR-XL and
    the Chameleon-4k shapes: #5 and #6 beside their plain versions, the
    packed kernels over the same K/V, one ``scaled_dot_product_attention``
@@ -139,7 +145,7 @@ def _kernels():
 
     return [
         ("packed4_decode_attention", fd.packed4_decode_attention,
-         "wmar_tpu_torch/csrc/packed4_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:677"),
+         "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:677"),
         ("packed_decode_attention_q8", fd.packed_decode_attention_q8,
          "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:127"),
         ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
@@ -224,8 +230,21 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
                     worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
         print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}): ok, "
               f"valid_len {list(valid_lens)}, layers 0 and {n_layers - 1}, bf16 and f32 q")
-        if name == "rar_xl":
+        if name == "rar_xl" and torch.device(device).type == "cuda":
             q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+            lens = torch.full((1,), 2, dtype=torch.int32, device=device)
+            packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)
+            for n in (2, 129, t):
+                lens.fill_(n)
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(replayed, packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)):
+                    raise AssertionError(f"{name}: a replayed launch differs from a fresh call at valid_len {n}")
+            print(f"kernel #1 {name}: one launch replayed from a CUDA graph at valid_len 2, 129, {t}: equal bits")
             lens = torch.full((1,), t, dtype=torch.int32, device=device)
             plain_ms, ms, ms2, plain_ms2 = time_turns(
                 lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
@@ -447,6 +466,30 @@ def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129
     return out
 
 
+def time_taming_attention(device, shape=(48, 32, 257, 16, 104), reps=50) -> dict:
+    """Kernel #1 at the Taming-1.4B decode shape ``(L, B, T, H, D)``, full
+    fill, walking the layers: replayed from a CUDA graph and by CUDA events,
+    beside its byte bound and its plain version."""
+    from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
+    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
+
+    n_layers, b, t, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    cache = _filled_cache(n_layers, b, h, t, d, gen, device)
+    q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+    lens = torch.full((1,), t, dtype=torch.int32, device=device)
+    times = time_turns(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
+                       lambda li: packed4_decode_attention_plain(q, cache.kv, cache.scale, li, lens), n_layers, reps)
+    bound_ms, bound_by = attention_bound(b, h, t, d, t, 0.5, True, q.dtype, torch.uint8)
+    out = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "bound_ms": bound_ms,
+           "bound_by": bound_by, "graph_ms": graph_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li,
+                                                                                           lens), n_layers)}
+    print(f"time packed4_decode_attention at Taming-1.4B (B={b} T={t} H={h} D={d}), full cache (plain, kernel, "
+          f"kernel, plain): {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph "
+          f"{out['graph_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / out['graph_ms']:.0f}%)")
+    return out
+
+
 def _w4_weights(k, n, group, gen, device, copies=1):
     """``copies`` int4-quantized random ``[k, n]`` matrices, as
     ``wquant.quantize_matrix_int4`` makes them."""
@@ -458,12 +501,20 @@ def _w4_weights(k, n, group, gen, device, copies=1):
 
 def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_bytes=120e6) -> dict:
     """Kernel #8 (``matmul_w4``) against its plain float32 version with bf16
-    x, at every ``(label, M, K, N)`` case and group size (and with f32 x at
-    the first case), then timed beside it at the ``timed`` cases, walking
-    enough weight copies to exceed the L2 cache, as a decode step does.
-    Returns ``{"max_abs_err", "ms", "plain_ms"}`` of the first timed case."""
+    x, at every ``(label, M, K, N)`` case and group size (and with f32 x, the
+    CUDA-core route, at the first case); on the card also, at group 128,
+    every split count from 1 to its most forced through the private
+    launcher, twice with equal bits, and one launch replayed from a CUDA
+    graph. Then timed at the ``timed`` cases by
+    ``wmar_tpu_torch.tools.bench_w4``, walking enough weight copies to exceed
+    the L2 cache as a decode step does: replayed from a CUDA graph and by
+    CUDA events, beside the byte bound, the plain version, one
+    ``torch._weight_int4pack_mm`` call (the library yardstick) and one bf16
+    ``torch.matmul`` on the dequantized weight. Returns the numbers of the
+    first timed case, and every timed case under ``"shapes"``."""
+    from wmar_tpu_torch.ops import w4_matmul as tw4
     from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
-    from wmar_tpu_torch.tools.bench_attention import bound, graph_ms, time_turns
+    from wmar_tpu_torch.tools import bench_w4
 
     if cases is None:
         cases = ([("taming", 32, k, n) for k, n in TAMING_MATMULS]
@@ -472,6 +523,7 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
                  + [("ragged", m, 4096, 4096) for m in (1, 7, 456)])
     if timed is None:
         timed = [("taming", 32, k, n) for k, n in TAMING_MATMULS] + [("chameleon ffn", 24, 4096, 11008)]
+    is_cuda = torch.device(device).type == "cuda"
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     worst = 0.0
     for ci, (label, m, k, n) in enumerate(cases):
@@ -483,33 +535,52 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
                 if got.is_cuda:
                     torch.cuda.synchronize()  # a fault in the kernel shows here
                 want = matmul_w4_plain(x.float(), w["q4"], w["s4"])
-                err = _check_close(f"matmul_w4 {label} M={m} K={k} N={n} G={group} {x_dtype}", got, want, x_dtype)
+                tag = f"matmul_w4 {label} M={m} K={k} N={n} G={group} {x_dtype}"
+                err = _check_close(tag, got, want, x_dtype)
                 worst = max(worst, err) if x_dtype == torch.bfloat16 else worst
+                for splits in range(1, min(-(-k // 128), 8) + 1) \
+                        if is_cuda and group == 128 and x_dtype == torch.bfloat16 else ():
+                    one, two = tw4._launch(x, w["q4"], w["s4"], splits), tw4._launch(x, w["q4"], w["s4"], splits)
+                    torch.cuda.synchronize()
+                    _check_close(f"{tag} S={splits}", one, want, x_dtype)
+                    if not torch.equal(one, two):
+                        raise AssertionError(f"{tag} S={splits}: two calls differ in their bits")
         print(f"kernel vs plain matmul_w4 {label} M={m} K={k} N={n}: ok, groups {list(groups)}"
-              f"{', bf16 and f32 x' if ci == 0 else ', bf16 x'}")
+              f"{', bf16 and f32 x' if ci == 0 else ', bf16 x'}"
+              + (f"; at G=128 S forced to each of 1..{min(-(-k // 128), 8)}, twice with equal bits" if is_cuda else ""))
     print(f"kernel vs plain matmul_w4: worst bf16 max abs err {worst:.3e}")
-    out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None}
-    if torch.device(device).type != "cuda":  # times only on the card
+    out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None, "shapes": []}
+    if not is_cuda:  # times only on the card
         return out
+    # one launch replayed from a CUDA graph after x changed in place
+    label, m, k, n = timed[0] if timed else cases[0]
+    (w,) = _w4_weights(k, n, 128, gen, device)
+    x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
+    matmul_w4(x, w["q4"], w["s4"])  # the kernel library is loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = matmul_w4(x, w["q4"], w["s4"])
+    for _ in range(2):
+        x.copy_(torch.randn((m, k), generator=gen, device=device))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, matmul_w4(x, w["q4"], w["s4"])):
+            raise AssertionError(f"matmul_w4 {label}: a replayed launch differs from a fresh call")
+    print(f"matmul_w4 {label} M={m} K={k} N={n}: one launch (S = "
+          f"{tw4.w4_splits(m, n, k, 128, torch.cuda.get_device_properties(device).multi_processor_count)}) replayed "
+          f"from a CUDA graph after x changed: equal bits")
     for ti, (label, m, k, n) in enumerate(timed):
-        wbytes = k * n // 2 + 2 * (k // 128) * n  # nibbles + bf16 scales, group 128
-        copies = max(1, int(-(-l2_bytes // wbytes)))
-        ws = _w4_weights(k, n, 128, gen, device, copies)
-        x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
-        times = time_turns(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]),
-                           lambda i: matmul_w4_plain(x, ws[i]["q4"], ws[i]["s4"]), copies, reps)
-        ms, plain_ms = min(times[1], times[2]), min(times[0], times[3])
+        shape = bench_w4.time_shape(device, label, m, k, n, gen, reps=reps, l2_bytes=l2_bytes)
+        if not shape["max_abs_err"] <= shape["tol"]:
+            raise AssertionError(f"matmul_w4 {label}: max abs err {shape['max_abs_err']} > {shape['tol']}")
+        out["shapes"].append(shape)
         if ti == 0:
-            # weights and scales, x and the output once each; 2 flops per weight and row at the bf16 rate
-            bound_ms, bound_by = bound(wbytes + 2 * m * (k + n), 2.0 * m * k * n, torch.bfloat16)
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                       graph_ms=graph_ms(lambda i: matmul_w4(x, ws[i]["q4"], ws[i]["s4"]), copies))
-        print(f"time matmul_w4 {label} M={m} K={k} N={n} G=128, {copies} weight copies walked (plain, kernel, "
-              f"kernel, plain): {' '.join(f'{t:.4f}' for t in times)} ms"
-              f"{'; replayed from a CUDA graph %.4f ms' % out['graph_ms'] if ti == 0 else ''}; kernel "
-              f"{wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weight bytes, {2 * m * k * n / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain "
-              f"{2 * m * k * n / (plain_ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        del ws
+            lib = shape["int4pack_same_function"]
+            out.update(ms=shape["ms"], plain_ms=shape["plain_ms"], bound_ms=shape["bound_ms"],
+                       bound_by=shape["bound_by"], graph_ms=shape["graph_ms"],
+                       library_ms=shape["int4pack_ms"] if lib else None,
+                       library_graph_ms=shape["int4pack_graph_ms"] if lib else None)
     return out
 
 
@@ -1106,6 +1177,7 @@ def main() -> int:
     numbers.update(timed("kernels #2-#4", phase_packed_kernels, device))
     for name, err in timed("kernels #1, #2 at Taming", phase_taming_attention, device).items():
         numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], err)
+    numbers["packed4_decode_attention"]["taming"] = timed("kernel #1 at Taming, timed", time_taming_attention, device)
     numbers["matmul_w4"] = timed("kernel #8", phase_w4, device)
     errs = timed("kernels #5, #6", phase_flash_kernels, device)
     errs.update(timed("kernels #7, #9", phase_probes, device))
@@ -1143,6 +1215,9 @@ def main() -> int:
         "bound_by": numbers[name]["bound_by"],
         "library_ms": numbers[name]["library_ms"],
         "library_graph_ms": numbers[name].get("library_graph_ms"),
+        **({"taming": numbers[name]["taming"]} if "taming" in numbers[name] else {}),
+        **({"shapes": [{k: v for k, v in sh.items() if k != "times"} for sh in numbers[name]["shapes"]]}
+           if "shapes" in numbers[name] else {}),
     } for name, _, source, replaces in _kernels()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ import torch
 
 from wmar_tpu_torch.engine.kvcache import KVCache, Packed4QuantKVCache, PackedQuantKVCache
 from wmar_tpu_torch.ops import flash_decode as fd
+from wmar_tpu_torch.ops import w4_matmul as tw4
 from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
 from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
@@ -35,27 +36,68 @@ def _cache(n_layers, b, h, t, d, device, seed=0, cls=Packed4QuantKVCache):
     return cache, g
 
 
-@pytest.mark.parametrize("d", [16, 20, 48, 80, 88, 256])
+@pytest.mark.parametrize("d", [6, 16, 20, 30, 48, 80, 88, 104, 128, 132, 256])
+@pytest.mark.parametrize("t", [1, 33, 257, 258, 1023])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-def test_kernel_matches_plain(device, d, q_dtype):
-    """Max abs error, relative to the largest output: 2^-8 + 1e-5 for bf16 q
-    (bf16's rounding of the output plus float32 summation order) and 1e-5
-    for f32 q."""
-    b, h, t = 5, 3, 40
-    cache, g = _cache(2, b, h, t, d, device, seed=d)
+def test_kernel_matches_plain(device, d, t, q_dtype):
+    """Kernel #1 (the tiled kernel of kernels #3/#4 without masks; at D = 132
+    the slot-by-slot kernel, at D = 6 and 30 the same byte by byte) against
+    its plain version: max abs error, relative to the largest output, 2^-8 +
+    1e-5 for bf16 q (bf16's rounding of the output plus float32 summation
+    order) and 1e-5 for f32 q. One launch counted per call, on kernel #1's
+    count only. T = 1023 at D = 256 was past the first design's 48 KB of
+    scores."""
+    b, h = 5, 3
+    cache, g = _cache(2, b, h, t, d, device, seed=d + t)
     q = torch.randn((b, h, 1, d), generator=g, device=device).to(q_dtype)
     rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
     for layer in (0, 1):
-        for n in (1, 2, 17, 39, 40):
-            before = packed4_decode_attention.launches
+        for n in sorted({1, 2, t // 2 + 1, max(t - 1, 1), t}):
+            before = (packed4_decode_attention.launches, fd.packed4_decode_attention_chunked.launches)
             got = packed4_decode_attention(q, cache.kv, cache.scale, layer,
                                            torch.full((1,), n, dtype=torch.int32, device=device))
             torch.cuda.synchronize()
-            assert packed4_decode_attention.launches == before + 1
+            assert (packed4_decode_attention.launches, fd.packed4_decode_attention_chunked.launches) == (
+                before[0] + 1, before[1])
             want = packed4_decode_attention_plain(q.float(), cache.kv, cache.scale, layer, n)
             assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
             err = (got.float() - want).abs().max().item()
             assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, err)
+            for wh in (True, False) if fd.packed_decode_tile(d) and d % 4 == 0 else ():  # both layouts of the tiled kernel
+                lens = torch.full((1,), n, dtype=torch.int32, device=device)
+                one = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, None, None, True, splits=1, warp_head=wh)
+                two = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, None, None, True, splits=1, warp_head=wh)
+                torch.cuda.synchronize()
+                assert (one.float() - want).abs().max().item() <= rel * want.abs().max().item() + 1e-6, (n, wh)
+                assert torch.equal(one, two), (n, wh)
+
+
+def test_packed4_launches_per_route(device):
+    """``packed4_decode_attention`` counts kernel #1 below 1024 slots (the
+    tiled kernel, the slot-by-slot one at D = 132 and 6, and a payload view
+    off its 16-byte alignment) and kernel #4's count from 1024 on; the
+    private launcher counts nothing."""
+    k1, k4 = packed4_decode_attention, fd.packed4_decode_attention_chunked
+    for t, d, want in ((1023, 128, (1, 0)), (1024, 128, (0, 1)), (40, 132, (1, 0)), (40, 6, (1, 0))):
+        cache, g = _cache(1, 2, 2, t, d, device, seed=t)
+        q = torch.randn((2, 2, 1, d), generator=g, device=device)
+        before = (k1.launches, k4.launches)
+        k1(q, cache.kv, cache.scale, 0, t)
+        assert (k1.launches - before[0], k4.launches - before[1]) == want, (t, d)
+    cache, g = _cache(1, 2, 2, 40, 16, device)
+    flat = torch.zeros(cache.kv.numel() + 16, dtype=torch.uint8, device=device)
+    shifted = flat[4:4 + cache.kv.numel()].view(cache.kv.shape)
+    shifted.copy_(cache.kv)
+    q = torch.randn((2, 2, 1, 16), generator=g, device=device)
+    before = k1.launches
+    got = k1(q, shifted, cache.scale, 0, 40)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    torch.testing.assert_close(got, packed4_decode_attention_plain(q, cache.kv, cache.scale, 0, 40), rtol=1e-5,
+                               atol=1e-5)
+    before = (k1.launches, k4.launches)
+    fd._launch_packed(q, cache.kv, cache.scale, 0, 40, None, None, True, splits=2)
+    assert (k1.launches, k4.launches) == before
 
 
 # (wrapper that launches the kernel, its plain version, cache class, T)
@@ -81,7 +123,8 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
     kernels' precondition). The chunked ones go through the wrapper (the
     planner's split count) and through the private launcher with 1, 2, 3, 8
     and 16 blocks per (row, head) forced (``valid_len`` 1, 128 and 129 leave
-    shares empty), twice with equal bits. The head dims cover the 16-byte
+    shares empty) and with a warp per (row, head), twice with equal bits.
+    The head dims cover the 16-byte
     loads (16, 80, 128, 256), the 8-byte (88, 104) and the 4-byte (20); 132
     fits no warp and takes the slot-by-slot kernel."""
     launch, plain, cls, t = PACKED_KERNELS[kernel]
@@ -111,10 +154,12 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
                 assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
                 err = (got.float() - want).abs().max().item()
                 assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, start is None, key_mask is None, err)
-                for splits in PACKED_SPLITS if kernel != "q8" and layer == 1 else ():
+                for splits, wh in ([(s_, False) for s_ in PACKED_SPLITS] + [(1, True)]
+                                   if kernel != "q8" and layer == 1 else ()):
                     args = (q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device),
                             start, key_mask, kernel == "packed4_chunked")
-                    forced, again = fd._launch_packed(*args, splits=splits), fd._launch_packed(*args, splits=splits)
+                    forced = fd._launch_packed(*args, splits=splits, warp_head=wh)
+                    again = fd._launch_packed(*args, splits=splits, warp_head=wh)
                     torch.cuda.synchronize()
                     err = (forced.float() - want).abs().max().item()
                     assert err <= rel * want.abs().max().item() + 1e-6, (n, start is None, key_mask is None, splits, err)
@@ -334,6 +379,75 @@ def test_w4_matmul_matches_plain(device, m, k, n, group, x_dtype):
     assert err <= rel * want.abs().max().item() + 1e-6, err
 
 
+W4_SPLIT_M = [1, 7, 17, 32, 33, 128, 456]
+
+
+@pytest.mark.parametrize("m", W4_SPLIT_M)
+@pytest.mark.parametrize("n", [1664, 1000, 16384])
+@pytest.mark.parametrize("group", [128, 64, 32])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_forced_splits(device, m, n, group, x_dtype):
+    """Kernel #8 at K = 1664 (13 chunks of 128) against its plain version,
+    at the tolerances above: through the wrapper (the planner's split count
+    on the tensor cores for bf16 x; the CUDA-core kernel for f32 x), and for
+    bf16 x with every split count from 1 to 8 (a cluster's most) forced
+    through the private launcher, twice with equal bits. N = 1000 leaves the last 128-column tile
+    ragged and takes 8-byte copies of q."""
+    k = 1664
+    g = torch.Generator(device=device).manual_seed(m + n + group)
+    w = wquant.quantize_matrix_int4(torch.randn((k, n), generator=g, device=device) * 0.02, group=group)
+    x = torch.randn((m, k), generator=g, device=device).to(x_dtype)
+    want = matmul_w4_plain(x.float(), w["q4"], w["s4"])
+    tol = (2.0**-8 + 1e-5 if x_dtype == torch.bfloat16 else 1e-5) * want.abs().max().item() + 1e-6
+    before = matmul_w4.launches
+    got = matmul_w4(x, w["q4"], w["s4"])
+    torch.cuda.synchronize()
+    assert matmul_w4.launches == before + 1 and got.dtype == x_dtype and got.shape == (m, n)
+    assert (got.float() - want).abs().max().item() <= tol
+    for splits in range(1, 9) if x_dtype == torch.bfloat16 else ():
+        one, two = tw4._launch(x, w["q4"], w["s4"], splits=splits), tw4._launch(x, w["q4"], w["s4"], splits=splits)
+        torch.cuda.synchronize()
+        assert (one.float() - want).abs().max().item() <= tol, splits
+        assert torch.equal(one, two), splits
+    assert matmul_w4.launches == before + 1  # the private launcher counts nothing
+
+
+@pytest.mark.parametrize("m,k,group", [(5, 352, 32), (20, 320, 64), (3, 96, 32)])
+def test_w4_matmul_ragged_chunks(device, m, k, group):
+    """A K that is no multiple of 128 leaves the last chunk part empty; every
+    split count up to the chunks, against the plain version."""
+    g = torch.Generator(device=device).manual_seed(k)
+    w = wquant.quantize_matrix_int4(torch.randn((k, 264), generator=g, device=device) * 0.02, group=group)
+    x = torch.randn((m, k), generator=g, device=device, dtype=torch.bfloat16)
+    want = matmul_w4_plain(x.float(), w["q4"], w["s4"])
+    tol = (2.0**-8 + 1e-5) * want.abs().max().item() + 1e-6
+    for splits in range(1, min(-(-k // 128), 8) + 1):
+        got = tw4._launch(x, w["q4"], w["s4"], splits=splits)
+        torch.cuda.synchronize()
+        assert (got.float() - want).abs().max().item() <= tol, splits
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 1664, 1664), (24, 4096, 11008)])
+def test_w4_matmul_replays_from_a_cuda_graph(device, m, k, n):
+    """One launch of kernel #8 (with the planner's split count, above 1 at
+    these shapes) captured in a CUDA graph and replayed after x changed in
+    place gives the bits of a fresh call."""
+    g = torch.Generator(device=device).manual_seed(n)
+    w = wquant.quantize_matrix_int4(torch.randn((k, n), generator=g, device=device) * 0.02, group=128)
+    x = torch.randn((m, k), generator=g, device=device, dtype=torch.bfloat16)
+    assert tw4.w4_splits(m, n, k, 128, fd._sm_count(device.index)) > 1
+    matmul_w4(x, w["q4"], w["s4"])  # the kernel library is loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul_w4(x, w["q4"], w["s4"])
+    for _ in range(2):
+        x.copy_(torch.randn((m, k), generator=g, device=device))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, matmul_w4(x, w["q4"], w["s4"]))
+
+
 def test_w4_matmul_rejects_bad_inputs(device):
     """A wrong dtype, a mismatched K, a non-contiguous x, an unsupported group
     or operands on two devices raise, and nothing is launched."""
@@ -355,6 +469,17 @@ def test_w4_matmul_rejects_bad_inputs(device):
         matmul_w4(x, q4.reshape(16, 8, 64), torch.ones((16, 64), dtype=torch.bfloat16, device=device))
     with pytest.raises(ValueError, match="device"):
         matmul_w4(x, q4.cpu(), s4)
+    flat = torch.zeros(x.numel() + 8, dtype=x.dtype, device=device)
+    with pytest.raises(ValueError, match="aligned"):  # 2 bytes past an aligned address
+        matmul_w4(flat[1:1 + x.numel()].view(x.shape), q4, s4)
+    with pytest.raises(ValueError, match="splits"):
+        tw4._launch(x, q4, s4, splits=3)  # K = 256 is two chunks of 128
+    with pytest.raises(ValueError, match="splits"):
+        tw4._launch(torch.randn((4, 2048), device=device, dtype=torch.bfloat16),
+                    *wquant.quantize_matrix_int4(torch.randn((2048, 64), device=device), group=128).values(),
+                    splits=9)  # a cluster holds 8
+    with pytest.raises(ValueError, match="splits"):
+        tw4._launch(x.float(), q4, s4, splits=2)  # the CUDA-core kernel does not split
     assert matmul_w4.launches == before
 
 

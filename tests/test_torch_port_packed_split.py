@@ -94,6 +94,24 @@ def test_packed_split_plain_vs_jax_chunked_kernel(kind, splits):
             np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0, err_msg=f"{n} {name}")
 
 
+@pytest.mark.parametrize("d,t", [(80, 258), (104, 257)])
+def test_packed4_split_plain_vs_jax_single_block_kernel(d, t):
+    """Kernel #1's arithmetic on the card (the tiled kernel without masks:
+    tiles of ``packed_decode_tile(d)`` slots, 30 at RAR-XL's D = 80 and 16 at
+    Taming's D = 104, S = 1 as the planner gives at both main-path shapes,
+    and S = 2) against JAX's single-block kernel ``_packed4_attn_kernel`` in
+    interpret mode over a full and a part-filled cache: atol 2e-2, that
+    kernel's bf16 dots."""
+    tc, jc, q, _, _ = _filled("packed4", d, t, seed=d, jax_too=True, t=t)
+    assert tfd.packed_decode_splits(128 if d == 80 else 32, 16, t, 132) == 1
+    for n in (t, t // 2 + 1, 1):
+        want = np.asarray(jfd.packed4_decode_attention(jnp.asarray(q), jc.kv, jc.scale, 0, n, interpret=True))
+        for splits in (1, 2):
+            got = tfd.packed_decode_attention_split_plain(torch.as_tensor(q), tc.kv, tc.scale, 0, n, None, None,
+                                                          splits, int4=True)
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0, err_msg=f"{n} S={splits}")
+
+
 def test_packed_split_plain_row_without_a_slot_is_zero():
     """A row whose slots are all masked gets zeros, as on the card."""
     tc, _, q, _, km = _filled("packed4", 16, 200, seed=3)
@@ -103,12 +121,14 @@ def test_packed_split_plain_row_without_a_slot_is_zero():
     assert bool((got[1] == 0).all()) and bool(torch.isfinite(got).all()) and bool((got[0] != 0).any())
 
 
-@pytest.mark.parametrize("d,tile", [(16, 32), (20, 32), (80, 32), (88, 16), (104, 16), (128, 32), (256, 16),
-                                    (132, 0), (252, 0)])
+@pytest.mark.parametrize("d,tile", [(16, 32), (20, 30), (40, 30), (80, 30), (88, 16), (104, 16), (128, 32),
+                                    (256, 16), (132, 0), (252, 0)])
 def test_packed_decode_tile(d, tile):
     """Slots of a tile: 8 passes of a warp whose lanes of a slot are the next
-    power of two above d / (16, 8 or 4 bytes a load), at least 8; 0 where a
-    slot does not fit a warp (those head dims keep the slot-by-slot kernel)."""
+    power of two above d / (16, 8 or 4 bytes a load), at least 8; a slot of
+    five loads (20, 40, 80) five passes of six groups of five lanes; 0 where
+    a slot does not fit a warp (those head dims keep the slot-by-slot
+    kernel)."""
     assert tfd.packed_decode_tile(d) == tile
     assert tfd._packed_load_bytes(d) == (16 if d % 16 == 0 else 8 if d % 8 == 0 else 4)
 

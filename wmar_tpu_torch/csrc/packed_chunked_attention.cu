@@ -1,5 +1,5 @@
-// Single-token decode attention over the packed KV caches (int4 and int8)
-// from 1024 slots on, for Hopper: every (row, head) split over T in one
+// Single-token decode attention over the packed KV caches (int4 and int8),
+// for Hopper: every (row, head) split over T in one
 // launch, 16-byte loads through a cp.async ring, softmax by the tile,
 // nibbles and bytes made floats without a convert.
 //
@@ -7,13 +7,15 @@
 // through _chunked_body (:365), with a per-row first slot (start) and an
 // optional per-row slot mask (key_mask):
 //   packed_decode_attention_q8 (:303)  _packed_attn_kernel_q8_chunked{,_km}  the int8 cache, T >= 1024;
-//   packed4_decode_attention   (:798)  _packed4_attn_kernel_chunked{,_km}    the int4 cache, T >= 1024.
-// One template covers both: the payload (int4 or int8) and the bytes of one
+//   packed4_decode_attention   (:798)  _packed4_attn_kernel_chunked{,_km}    the int4 cache, T >= 1024;
+// and, launched without start and key_mask, the int4 cache's short-cache kernel
+//   packed4_decode_attention   (:817)  _packed4_attn_kernel                  the int4 cache, T < 1024.
+// One template covers all: the payload (int4 or int8) and the bytes of one
 // load (16, 8 or 4) are template arguments; start and key_mask are null
 // pointers where the call has none. Built with nvcc for sm_90a into a shared
 // library with a plain C interface, loaded through ctypes by
 // wmar_tpu_torch/ops/flash_decode.py. The slot-by-slot kernel of
-// packed_decode_attention.cu stays for the caches below 1024 slots.
+// packed_decode_attention.cu stays for the int8 cache below 1024 slots.
 //
 // Layout of one layer (read in place from the stacked cache by offset):
 //   int4  kv uint8 [B, T, H*D]    low nibble K, high nibble V, value = nibble - 8
@@ -53,6 +55,17 @@
 //     needs no barrier. 32 KB a block (int4) and 80 registers a thread let
 //     six blocks share an SM, so the 768 blocks of a Chameleon call are on
 //     the card at once; the int8 kernel's 64 KB let three;
+//   - a warp per (row, head) (kWarpHead, the wrapper's choice, S = 1): where
+//     there are at least 12 (row, head) pairs an SM, as at RAR-XL's short
+//     cache (128 rows x 16 heads, 258 slots), a block of four warps sharing
+//     one pair would give each warp two or three tiles and a merge; there a
+//     block is four heads of one row, each warp walks all the tiles of its
+//     own pair through its ring and writes its output, with no merge;
+//   - a slot of five loads (RAR-XL's D = 80 at 16 bytes) takes groups of
+//     five lanes (LPS = 5): six slots a pass and 30 of 32 lanes busy, where
+//     groups of eight kept 20 busy; a tile is five such passes, 30 slots.
+//     The sums over a group are a shuffle down to its first lane and a
+//     broadcast, the sums over the groups a gather in group order;
 //   - the mask and the scales go by the tile: lane i reads the key_mask byte
 //     and the two scales of slot i of the tile (the scales [2H, T] are
 //     contiguous over T), one ballot gives the tile's live word. A tile with
@@ -129,6 +142,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kPasses = 8;      // slots-per-pass x kPasses = a tile; also the least lanes of a slot
 constexpr int kStagesInt4 = 2;  // tiles of a warp's ring: all but one on their way
 constexpr int kStagesInt8 = 2;
+
+// The lanes of a slot: a power of two of them (LPS 0: 2^lps_log2, at least kPasses, read at run time), or,
+// where a slot is five loads (D = 80 at 16 bytes a load, 20 at 4), LPS = 5: six groups of five lanes a warp
+// (two lanes idle) and five passes, a tile of 30 slots.
+template <int LPS>
+struct Lanes {
+  static constexpr int kGroups = LPS ? 32 / LPS : 0;
+  static constexpr int kPassesOf = LPS ? (32 / kGroups < kPasses ? 32 / kGroups : kPasses) : kPasses;
+};
 constexpr int kMaxD = 256;
 constexpr int kMaxSplits = 16;
 constexpr unsigned kFull = 0xffffffffu;
@@ -218,20 +240,20 @@ struct WarpCtx {
   size_t row_bytes;        // from one slot of the row to the next
   int v_off;               // int8: from a slot's K bytes to its V bytes
   int lo, n;               // slots [lo, n) take part
-  int first_tile, n_mine;  // this warp's tiles: first_tile + j * kWarps, j < n_mine
+  int first_tile, n_mine, tile_step;  // this warp's tiles: first_tile + j * tile_step, j < n_mine
   int tile, lps_log2;
   int lane, chunk;
   int slot0;  // the lane group's first slot of a tile: it takes slots slot0 + p, p < kPasses
   bool own;  // this lane holds values of a slot
 };
 
-template <bool kInt4, int VB>
+template <bool kInt4, int VB, int kP>
 __device__ __forceinline__ TileMeta request_tile(const WarpCtx& c, int j, int stage) {
   constexpr int kPlane = kPasses * 32 * VB;  // a tile's bytes of one payload
   constexpr int kStageBytes = (kInt4 ? 1 : 2) * kPlane;
   TileMeta mt{0u, 0.f, 0.f};
   if (j < c.n_mine) {  // uniform across the warp
-    const int t0 = c.lo + (c.first_tile + j * kWarps) * c.tile;
+    const int t0 = c.lo + (c.first_tile + j * c.tile_step) * c.tile;
     const int t = t0 + c.lane;
     bool in = c.lane < c.tile && t < c.n;
     if (in && c.mask != nullptr) in = c.mask[t] != 0;
@@ -245,7 +267,7 @@ __device__ __forceinline__ TileMeta request_tile(const WarpCtx& c, int j, int st
       const uint32_t mine = mt.live >> c.slot0;
       const unsigned char* src0 = c.kb + static_cast<size_t>(t0 + c.slot0) * c.row_bytes + c.chunk * VB;
 #pragma unroll
-      for (int p = 0; p < kPasses; ++p) {
+      for (int p = 0; p < kP; ++p) {
         if ((mine >> p) & 1u) {
           const unsigned char* src = src0 + p * c.row_bytes;
           copy_async<VB>(ks + (p * 32 + c.lane) * VB, src);
@@ -258,9 +280,10 @@ __device__ __forceinline__ TileMeta request_tile(const WarpCtx& c, int j, int st
   return mt;
 }
 
-template <bool kInt4, int VB>
+template <bool kInt4, int VB, int LPS>
 __device__ __forceinline__ void compute_tile(const WarpCtx& c, const TileMeta& mt, int stage, const float* qf,
                                              float* acc, float& m, float& l, float sm_scale) {
+  constexpr int kP = Lanes<LPS>::kPassesOf;
   constexpr int kPlane = kPasses * 32 * VB;
   constexpr int kStageBytes = (kInt4 ? 1 : 2) * kPlane;
   constexpr int kWords = VB / 4;
@@ -270,8 +293,8 @@ __device__ __forceinline__ void compute_tile(const WarpCtx& c, const TileMeta& m
 #ifdef WMAR_PACKED_LOADS_ONLY
   uint32_t sink = 0u;
 #pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
-    if (((mt.live >> (c.slot0 + p)) & 1u) && c.own) {
+  for (int p = 0; p < kP; ++p) {
+    if (c.own && ((mt.live >> (c.slot0 + p)) & 1u)) {
       uint32_t w[kWords];
       load_words<VB>(ks + (p * 32 + c.lane) * VB, w);
 #pragma unroll
@@ -293,9 +316,9 @@ __device__ __forceinline__ void compute_tile(const WarpCtx& c, const TileMeta& m
   // to -inf and its probability to 0 (q is 0 in a lane beyond D, and that
   // lane's acc is never stored), so the eight passes are straight-line code
   // that the compiler can interleave.
-  float s[kPasses];
+  float s[kP];
 #pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
+  for (int p = 0; p < kP; ++p) {
     uint32_t w[kWords];
     load_words<VB>(ks + (p * 32 + c.lane) * VB, w);
     float part = 0.f;
@@ -308,27 +331,42 @@ __device__ __forceinline__ void compute_tile(const WarpCtx& c, const TileMeta& m
     }
     s[p] = part;
   }
-  // the lanes of a slot add up their parts: kPasses independent chains
-  for (int off = (1 << c.lps_log2) >> 1; off > 0; off >>= 1) {
+  // the lanes of a slot add up their parts: kP independent chains
+  if constexpr (LPS == 0) {
+    for (int off = (1 << c.lps_log2) >> 1; off > 0; off >>= 1) {
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) s[p] += __shfl_xor_sync(kFull, s[p], off);
+      for (int p = 0; p < kP; ++p) s[p] += __shfl_xor_sync(kFull, s[p], off);
+    }
+  } else {  // groups of LPS lanes: down to the group's first lane, then a broadcast
+#pragma unroll
+    for (int off = 1; off < LPS; off <<= 1) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const float o = __shfl_down_sync(kFull, s[p], off);
+        if (c.chunk + off < LPS) s[p] += o;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) s[p] = __shfl_sync(kFull, s[p], c.lane - c.chunk);
   }
-  const uint32_t mine = mt.live >> c.slot0;  // bit p: the slot of pass p takes part
+  const uint32_t mine = mt.live >> c.slot0;  // bit p: the slot of pass p takes part (none for an idle lane)
   float tile_max = -INFINITY;
 #pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
+  for (int p = 0; p < kP; ++p) {
     const float sc = __shfl_sync(kFull, mt.ks, c.slot0 + p);
     s[p] = ((mine >> p) & 1u) ? s[p] * sc * sm_scale : -INFINITY;
     tile_max = fmaxf(tile_max, s[p]);
   }
-  for (int off = 1 << c.lps_log2; off < 32; off <<= 1) tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, off));
+  for (int off = LPS ? 1 : 1 << c.lps_log2; off < 32; off <<= 1) {
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, off));
+  }
   const float m_new = fmaxf(m, tile_max);  // finite: the tile has a live slot
   const float corr = exp2f(m - m_new);     // 0 while m is -inf
   l *= corr;
 #pragma unroll
   for (int e = 0; e < VB; ++e) acc[e] *= corr;
 #pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
+  for (int p = 0; p < kP; ++p) {
     const bool on = (mine >> p) & 1u;
     const float vsc = __shfl_sync(kFull, mt.vs, c.slot0 + p);
     const float pr = on ? exp2f(s[p] - m_new) : 0.f;
@@ -350,7 +388,9 @@ __device__ __forceinline__ void compute_tile(const WarpCtx& c, const TileMeta& m
 
 // Blocks that share an SM: six of int4 (a ring of 32 KB; 80 registers a thread, so that the 768 blocks of
 // a Chameleon call are on the card at once), three of int8 (64 KB).
-template <typename QT, bool kInt4, int VB>
+// kWarpHead (S = 1 only): each warp takes a (row, head) of its own, all its tiles, and writes its output; the
+// block is kWarps heads of one row. Else the kWarps warps of a block share one (row, head).
+template <typename QT, bool kInt4, int VB, bool kWarpHead, int LPS>
 __global__ void __launch_bounds__(kThreads, kInt4 ? 6 : 3) packed_chunked_attention_kernel(
     const QT* __restrict__ q, const uint8_t* __restrict__ kv, const __nv_bfloat16* __restrict__ scale,
     const int32_t* __restrict__ valid_len, const int32_t* __restrict__ start,
@@ -358,19 +398,21 @@ __global__ void __launch_bounds__(kThreads, kInt4 ? 6 : 3) packed_chunked_attent
     unsigned int* __restrict__ counters, int T, int H, int D, int lps_log2, float sm_scale) {
   constexpr int kStages = kInt4 ? kStagesInt4 : kStagesInt8;
   constexpr int kStageBytes = (kInt4 ? 1 : 2) * kPasses * 32 * VB;
+  constexpr int kP = Lanes<LPS>::kPassesOf;
   extern __shared__ __align__(16) unsigned char ring_all[];  // [kWarps][kStages][a tile]
   __shared__ float s_m[kWarps];
   __shared__ float s_l[kWarps];
   __shared__ float s_acc[kWarps][kMaxD];
   __shared__ bool s_last;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int S = gridDim.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int h = kWarpHead ? blockIdx.x * kWarps + warp : blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int S = gridDim.z;
+  if (kWarpHead && h >= H) return;  // no block barrier in this mode
   const int HD = H * D;
   const int n = min(max(valid_len[0], 1), T);
   const int lo = start ? min(max(start[b], 0), n) : 0;
@@ -388,17 +430,31 @@ __global__ void __launch_bounds__(kThreads, kInt4 ? 6 : 3) packed_chunked_attent
   c.lo = lo;
   c.n = n;
   c.lps_log2 = lps_log2;
-  c.tile = kPasses * (32 >> lps_log2);
   c.lane = lane;
-  c.chunk = lane & ((1 << lps_log2) - 1);
-  c.slot0 = (lane >> lps_log2) * kPasses;
-  c.own = c.chunk * VB < D;
+  if constexpr (LPS == 0) {
+    c.tile = kPasses * (32 >> lps_log2);
+    c.chunk = lane & ((1 << lps_log2) - 1);
+    c.slot0 = (lane >> lps_log2) * kPasses;
+    c.own = c.chunk * VB < D;
+  } else {
+    c.tile = Lanes<LPS>::kGroups * kP;
+    c.chunk = lane % LPS;
+    c.slot0 = (lane / LPS) * kP;  // the idle lanes' is c.tile
+    c.own = lane < Lanes<LPS>::kGroups * LPS && c.chunk * VB < D;
+  }
   // this block's share of the tiles, and this warp's part of it
   const int n_tiles = (n - lo + c.tile - 1) / c.tile;
   const int per_split = (n_tiles + S - 1) / S;
   const int share = max(min(per_split, n_tiles - split * per_split), 0);
-  c.first_tile = split * per_split + warp;
-  c.n_mine = share > warp ? (share - warp + kWarps - 1) / kWarps : 0;
+  if (kWarpHead) {
+    c.first_tile = 0;
+    c.n_mine = n_tiles;
+    c.tile_step = 1;
+  } else {
+    c.first_tile = split * per_split + warp;
+    c.n_mine = share > warp ? (share - warp + kWarps - 1) / kWarps : 0;
+    c.tile_step = kWarps;
+  }
 
   float qf[VB];  // a byte of the lane's load is one value of D
   float acc[VB];
@@ -412,23 +468,45 @@ __global__ void __launch_bounds__(kThreads, kInt4 ? 6 : 3) packed_chunked_attent
 
   TileMeta meta[kStages];
 #pragma unroll
-  for (int u = 0; u < kStages - 1; ++u) meta[u] = request_tile<kInt4, VB>(c, u, u);
+  for (int u = 0; u < kStages - 1; ++u) meta[u] = request_tile<kInt4, VB, kP>(c, u, u);
   for (int j0 = 0; j0 < c.n_mine; j0 += kStages) {
 #pragma unroll
     for (int u = 0; u < kStages; ++u) {  // tile j0 + u lies in stage u
       constexpr int kAhead = kStages - 1;
-      meta[(u + kAhead) % kStages] = request_tile<kInt4, VB>(c, j0 + u + kAhead, (u + kAhead) % kStages);
+      meta[(u + kAhead) % kStages] = request_tile<kInt4, VB, kP>(c, j0 + u + kAhead, (u + kAhead) % kStages);
       wait_group<kAhead>();  // all but the newest kAhead groups have landed: tile j0 + u is there
-      compute_tile<kInt4, VB>(c, meta[u], u, qf, acc, m, l, sm_scale * kLog2e);
+      compute_tile<kInt4, VB, LPS>(c, meta[u], u, qf, acc, m, l, sm_scale * kLog2e);
     }
   }
   wait_group<0>();
 
   // the lane groups of a warp hold different slots: add them up
-  for (int off = 1 << lps_log2; off < 32; off <<= 1) {
-    l += __shfl_xor_sync(kFull, l, off);
+  if constexpr (LPS == 0) {
+    for (int off = 1 << lps_log2; off < 32; off <<= 1) {
+      l += __shfl_xor_sync(kFull, l, off);
 #pragma unroll
-    for (int e = 0; e < VB; ++e) acc[e] += __shfl_xor_sync(kFull, acc[e], off);
+      for (int e = 0; e < VB; ++e) acc[e] += __shfl_xor_sync(kFull, acc[e], off);
+    }
+  } else {  // in group order: lane c of group 0 gathers lane c of every group
+    float lt = 0.f, at[VB];
+#pragma unroll
+    for (int e = 0; e < VB; ++e) at[e] = 0.f;
+#pragma unroll
+    for (int g = 0; g < Lanes<LPS>::kGroups; ++g) {
+      lt += __shfl_sync(kFull, l, g * LPS + c.chunk);
+#pragma unroll
+      for (int e = 0; e < VB; ++e) at[e] += __shfl_sync(kFull, acc[e], g * LPS + c.chunk);
+    }
+    l = lt;
+#pragma unroll
+    for (int e = 0; e < VB; ++e) acc[e] = at[e];
+  }
+  if (kWarpHead) {  // this warp saw every slot of its (row, head)
+    if (c.slot0 == 0 && c.own) {
+#pragma unroll
+      for (int e = 0; e < VB; ++e) out[qo + c.chunk * VB + e] = from_float<QT>(l > 0.f ? acc[e] / l : 0.f);
+    }
+    return;
   }
   if (lane == 0) {
     s_m[warp] = m;
@@ -493,6 +571,7 @@ struct Args {
   const void *q, *kv, *scale, *valid_len, *start, *key_mask;
   void *out, *partial, *counters;
   int B, H, T, D, S;
+  bool warp_head;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -506,10 +585,14 @@ cudaError_t launch_one(const Args& a) {
   while ((1 << lps_log2) < kPasses || (1 << lps_log2) * VB < a.D) ++lps_log2;
   if (lps_log2 > 5) return cudaErrorInvalidValue;
   const size_t ring = static_cast<size_t>(kWarps) * kStages * (kInt4 ? 1 : 2) * kPasses * 32 * VB;
-  auto kernel = packed_chunked_attention_kernel<QT, kInt4, VB>;
+  const bool five = a.D == 5 * VB;
+  auto kernel = a.warp_head ? (five ? &packed_chunked_attention_kernel<QT, kInt4, VB, true, 5>
+                                    : &packed_chunked_attention_kernel<QT, kInt4, VB, true, 0>)
+                            : (five ? &packed_chunked_attention_kernel<QT, kInt4, VB, false, 5>
+                                    : &packed_chunked_attention_kernel<QT, kInt4, VB, false, 0>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(ring));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, a.B, a.S);
+  const dim3 grid(a.warp_head ? (a.H + kWarps - 1) / kWarps : a.H, a.B, a.S);
   kernel<<<grid, kThreads, ring, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const uint8_t*>(a.kv), static_cast<const __nv_bfloat16*>(a.scale),
       static_cast<const int32_t*>(a.valid_len), static_cast<const int32_t*>(a.start),
@@ -535,18 +618,20 @@ cudaError_t launch_payload(const Args& a, int q_is_bf16) {
 // loads 16 bytes where D is a multiple of 16, else 8, else 4 (then D <= 128),
 // and kv_layer must be aligned to that load; the Python wrapper checks both.
 // splits in [1, 16]: with splits > 1, partial must hold B*H*splits*(D+2)
-// floats and counters B*H zeros (the kernel leaves them 0). start and
-// key_mask may be null.
+// floats and counters B*H zeros (the kernel leaves them 0). warp_head (splits
+// 1 only): a warp per (row, head). start and key_mask may be null.
 extern "C" int wmar_packed_chunked_attention(
     const void* q, const void* kv_layer, const void* scale_layer, const void* valid_len, const void* start,
     const void* key_mask, void* out, void* partial, void* counters, int B, int H, int T, int D, int splits,
-    int int4_payload, int q_is_bf16, float sm_scale, void* stream) {
+    int warp_head, int int4_payload, int q_is_bf16, float sm_scale, void* stream) {
   const Args a{q, kv_layer, scale_layer, valid_len, start, key_mask, out, partial, counters,
-               B, H, T, D, splits, sm_scale, reinterpret_cast<cudaStream_t>(stream)};
+               B, H, T, D, splits, warp_head != 0, sm_scale, reinterpret_cast<cudaStream_t>(stream)};
   if (D <= 0 || D > kMaxD || D % 4 != 0 || splits < 1 || splits > kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (splits > 1 && (partial == nullptr || counters == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 1 && (warp_head || partial == nullptr || counters == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = int4_payload ? launch_payload<true>(a, q_is_bf16) : launch_payload<false>(a, q_is_bf16);
   return static_cast<int>(err);
 }

@@ -7,7 +7,10 @@
 // _chunked_body, with a per-row first slot, start, and an optional per-row
 // slot mask, key_mask); those now have the tiled kernel of
 // packed_chunked_attention.cu and come here only at a head dim whose slot
-// fits no warp there (no multiple of 8 above 128). One template covers all:
+// fits no warp there (no multiple of 8 above 128). So does the short-cache
+// int4 kernel (_packed4_attn_kernel, T < 1024), whose own route is the tiled
+// kernel too: it comes here at those head dims and at one that is no
+// multiple of 4 (its runs are then read byte by byte). One template covers all:
 // the payload (int4 or int8) is a template argument, start and key_mask are
 // null pointers where the call has none. Built with nvcc for sm_90a into a
 // shared library with a plain C interface, loaded through ctypes by
@@ -92,7 +95,20 @@ __device__ __forceinline__ float v_of(uint32_t w, int c) {
   return (float)(int)(int8_t)byte;
 }
 
-template <typename QT, bool kInt4>
+// Word j (bytes 4j .. 4j + 3) of a slot's D-byte run. kBytes (a head dim that
+// is no multiple of 4, whose runs are not 4-byte aligned): four byte loads, and
+// a byte beyond D is 0x88, an int4 value of 0 (q is 0 there, and its acc is
+// never stored).
+template <bool kBytes>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* run, int j, int D) {
+  if (!kBytes) return __ldg(reinterpret_cast<const uint32_t*>(run) + j);
+  uint32_t w = 0u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) w |= (4 * j + c < D ? static_cast<uint32_t>(__ldg(run + 4 * j + c)) : 0x88u) << (8 * c);
+  return w;
+}
+
+template <typename QT, bool kInt4, bool kBytes>
 __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
     const QT* __restrict__ q, const uint8_t* __restrict__ kv,
     const __nv_bfloat16* __restrict__ scale, const int32_t* __restrict__ valid_len,
@@ -109,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
   const int warp = tid >> 5;
   const int HD = H * D;
   const int row_bytes = kInt4 ? HD : 2 * HD;
-  const int nw = D >> 2;  // words of one slot's D bytes
+  const int nw = (D + 3) >> 2;  // words of one slot's D bytes, the last one ragged where D is no multiple of 4
   const int n = min(max(valid_len[0], 1), T);
   const int lo = start ? min(max(start[b], 0), n) : 0;
 
@@ -127,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
     const int j = lane + 32 * i;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      qf[i][c] = j < nw ? to_float(q[qo + 4 * j + c]) : 0.f;
+      qf[i][c] = 4 * j + c < D ? to_float(q[qo + 4 * j + c]) : 0.f;
       acc[i][c] = 0.f;
     }
   }
@@ -145,13 +161,13 @@ __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
       ok[u] = t < n && (mask == nullptr || mask[t] != 0);
       ks[u] = ok[u] ? __bfloat162float(k_scale[t]) : 0.f;
       vs[u] = ok[u] ? __bfloat162float(v_scale[t]) : 0.f;
-      const uint32_t* row = reinterpret_cast<const uint32_t*>(kvb + (size_t)t * row_bytes);
+      const uint8_t* run = kvb + (size_t)t * row_bytes;
 #pragma unroll
       for (int i = 0; i < kMaxWords; ++i) {
         const int j = lane + 32 * i;
         const bool in = ok[u] && j < nw;
-        kw[u][i] = in ? __ldg(row + j) : 0u;
-        vw[u][i] = (!kInt4 && in) ? __ldg(row + (HD >> 2) + j) : 0u;
+        kw[u][i] = in ? load_word<kBytes>(run, j, D) : 0u;
+        vw[u][i] = (!kInt4 && in) ? load_word<kBytes>(run + HD, j, D) : 0u;
       }
     }
 #pragma unroll
@@ -185,9 +201,9 @@ __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxWords; ++i) {
     const int j = lane + 32 * i;
-    if (j < nw) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s_acc[warp][4 * j + c] = acc[i][c];
+    for (int c = 0; c < 4; ++c) {
+      if (4 * j + c < D) s_acc[warp][4 * j + c] = acc[i][c];
     }
   }
   __syncthreads();
@@ -207,42 +223,46 @@ __global__ void __launch_bounds__(kThreads) packed_decode_attention_kernel(
   }
 }
 
-template <bool kInt4>
+template <typename QT, bool kInt4, bool kBytes>
+void launch_typed(const void* q, const void* kv, const void* scale, const void* valid_len, const void* start,
+                  const void* key_mask, void* out, int B, int H, int T, int D, float sm_scale, cudaStream_t s) {
+  packed_decode_attention_kernel<QT, kInt4, kBytes><<<dim3(H, B), kThreads, 0, s>>>(
+      static_cast<const QT*>(q), static_cast<const uint8_t*>(kv), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const int32_t*>(valid_len), static_cast<const int32_t*>(start),
+      static_cast<const uint8_t*>(key_mask), static_cast<QT*>(out), T, H, D, sm_scale);
+}
+
+template <bool kInt4, bool kBytes>
 void launch(const void* q, const void* kv, const void* scale, const void* valid_len,
             const void* start, const void* key_mask, void* out, int B, int H, int T, int D,
             int q_is_bf16, float sm_scale, cudaStream_t s) {
-  const dim3 grid(H, B);
-  const auto* kvp = static_cast<const uint8_t*>(kv);
-  const auto* sp = static_cast<const __nv_bfloat16*>(scale);
-  const auto* lp = static_cast<const int32_t*>(valid_len);
-  const auto* st = static_cast<const int32_t*>(start);
-  const auto* km = static_cast<const uint8_t*>(key_mask);
   if (q_is_bf16) {
-    packed_decode_attention_kernel<__nv_bfloat16, kInt4><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), kvp, sp, lp, st, km,
-        static_cast<__nv_bfloat16*>(out), T, H, D, sm_scale);
+    launch_typed<__nv_bfloat16, kInt4, kBytes>(q, kv, scale, valid_len, start, key_mask, out, B, H, T, D, sm_scale, s);
   } else {
-    packed_decode_attention_kernel<float, kInt4><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), kvp, sp, lp, st, km, static_cast<float*>(out), T, H, D,
-        sm_scale);
+    launch_typed<float, kInt4, kBytes>(q, kv, scale, valid_len, start, key_mask, out, B, H, T, D, sm_scale, s);
   }
 }
 
 }  // namespace
 
-// D must be a multiple of 4 in (0, 256], and kv_layer 4-byte aligned; the
-// Python wrapper checks both. start and key_mask may be null.
+// D in (0, 256]; the int8 payload needs D a multiple of 4 and kv_layer 4-byte
+// aligned (word loads), the int4 one takes any D (word loads where D is a
+// multiple of 4 and kv_layer 4-byte aligned, else byte loads); the Python
+// wrapper checks it. start and key_mask may be null.
 extern "C" int wmar_packed_decode_attention(
     const void* q, const void* kv_layer, const void* scale_layer, const void* valid_len,
     const void* start, const void* key_mask, void* out, int B, int H, int T, int D,
     int int4_payload, int q_is_bf16, float sm_scale, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (int4_payload) {
-    launch<true>(q, kv_layer, scale_layer, valid_len, start, key_mask, out, B, H, T, D, q_is_bf16,
-                 sm_scale, s);
+  if (D <= 0 || D > kMaxD || (!int4_payload && D % 4 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (int4_payload && (D % 4 != 0 || reinterpret_cast<uintptr_t>(kv_layer) % 4 != 0)) {
+    launch<true, true>(q, kv_layer, scale_layer, valid_len, start, key_mask, out, B, H, T, D, q_is_bf16, sm_scale, s);
+  } else if (int4_payload) {
+    launch<true, false>(q, kv_layer, scale_layer, valid_len, start, key_mask, out, B, H, T, D, q_is_bf16, sm_scale,
+                        s);
   } else {
-    launch<false>(q, kv_layer, scale_layer, valid_len, start, key_mask, out, B, H, T, D, q_is_bf16,
-                  sm_scale, s);
+    launch<false, false>(q, kv_layer, scale_layer, valid_len, start, key_mask, out, B, H, T, D, q_is_bf16, sm_scale,
+                         s);
   }
   return static_cast<int>(cudaGetLastError());
 }

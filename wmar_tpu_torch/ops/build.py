@@ -97,17 +97,14 @@ def load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.wmar_packed4_decode_attention
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
-    fn.restype = i
     fn = lib.wmar_packed_decode_attention
     fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.wmar_packed_chunked_attention
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.wmar_w4_matmul
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.wmar_flash_decode_attention
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]

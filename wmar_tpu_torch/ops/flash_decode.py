@@ -5,10 +5,11 @@ probe of ``tools/bench_call_floor.py``) has a hand-written sm_90a
 counterpart here, reached through the JAX package's wrappers:
 
 * :func:`packed4_decode_attention` (the int4 ``Packed4QuantKVCache``):
-  below 1024 slots ``_packed4_attn_kernel`` (kernel #1,
-  ``csrc/packed4_decode_attention.cu``); from 1024 slots on the chunked
+  below 1024 slots ``_packed4_attn_kernel`` (kernel #1), launched on the
+  tiled kernel of ``csrc/packed_chunked_attention.cu`` without ``start``
+  and ``key_mask``; from 1024 slots on the chunked
   ``_packed4_attn_kernel_chunked{,_km}`` (#4), here
-  :func:`packed4_decode_attention_chunked`.
+  :func:`packed4_decode_attention_chunked`, the same source.
 * :func:`packed_decode_attention_q8` (the int8 ``PackedQuantKVCache``):
   below 1024 slots ``_packed_attn_kernel_q8`` (#2); from 1024 slots on the
   chunked ``_packed_attn_kernel_q8_chunked{,_km}`` (#3), here
@@ -30,9 +31,9 @@ JAX's rule: ``start``/``key_mask`` are taken only by the chunked path (``T
 >= 1024``); at shorter ``T`` the packed wrappers raise ``ValueError`` as
 JAX's do.
 
-Kernels #3-#6 are designed for the card's 132 SMs (#5/#6:
-``csrc/flash_decode_attention.cu``; #3/#4, over the packed layouts where a
-head's bytes of a slot lie ``H*D`` or ``2*H*D`` bytes apart:
+Kernels #1 and #3-#6 are designed for the card's 132 SMs (#5/#6:
+``csrc/flash_decode_attention.cu``; #1, #3 and #4, over the packed layouts
+where a head's bytes of a slot lie ``H*D`` or ``2*H*D`` bytes apart:
 ``csrc/packed_chunked_attention.cu``): the grid is ``(H, B, S)``, the ``S``
 blocks of a (row, head) each take a share of ``[start_b, valid_len)`` in
 whole tiles (:func:`flash_decode_tile` / :func:`packed_decode_tile` slots)
@@ -74,9 +75,9 @@ _FLASH_MAX_SPLITS = 16  # the kernel's limit on S (kMaxSplits)
 _FLASH_MIN_SHARE = 128  # slots of the cache a split should at least stand for
 _FLASH_BLOCKS_PER_SM = 3  # blocks of kernels #5/#6 that fit one SM (64 KB of shared memory each)
 _PACKED_MAX_SPLITS = 16  # kernels #3/#4: the kernel's limit on S (kMaxSplits)
+_WARP_HEAD_PER_SM = 12  # (row, head) pairs an SM from which kernels #1/#3/#4 give each pair a warp of its own
 _PACKED_BLOCKS_PER_SM = 3  # blocks an SM that the planner of kernels #3/#4 counts on: the int8 kernel's (64 KB of
 # ring each at D = 128). The int4 kernel fits six, but its sweep prefers the same S (tools/bench_flash_splits --packed)
-_SMEM_BYTES = 48 * 1024  # kernel #1: scores [T] + q [D] + 4 partials, as float32, without opt-in
 _CHUNK_MIN_T = 1024  # JAX's shape-aware default: the chunked kernels from 1024 slots on
 _MASKS_NEED_CHUNKED = (
     "start/key_mask support requires the chunked path (T >= 1024); "
@@ -211,10 +212,17 @@ def _check_packed(q, kv_all, scale_all, layer: int, int4: bool):
     return kv_layer, scale_layer
 
 
-def _launch_packed_stream(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool) -> torch.Tensor:
-    """Launch ``csrc/packed_decode_attention.cu``: kernel #2, and kernels #3
-    and #4 at the head dims their tiled kernel does not take."""
-    kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
+def _launch_packed_stream(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool,
+                          any_d: bool = False) -> torch.Tensor:
+    """Launch ``csrc/packed_decode_attention.cu``: kernel #2, and kernels #1,
+    #3 and #4 at the head dims their tiled kernel does not take. ``any_d``
+    (kernel #1 only): an int4 head dim that is no multiple of 4, or a payload
+    off 4-byte alignment, which the kernel reads byte by byte."""
+    if any_d:
+        _check(q, kv_all, scale_all, layer, torch.uint8, 1)
+        kv_layer, scale_layer = kv_all[layer], scale_all[layer]
+    else:
+        kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
     b, h, _, d = q.shape
     t = kv_all.shape[2]
     lens = _device_lens(valid_len, q.device)
@@ -240,13 +248,17 @@ def _packed_load_bytes(d: int) -> int:
 
 
 def packed_decode_tile(d: int) -> int:
-    """Slots of one tile of kernels #3 and #4 (the unit of the split over T
-    and of the softmax), or 0 where a slot of ``d`` values does not fit a
+    """Slots of one tile of kernels #1, #3 and #4 (the unit of the split over
+    T and of the softmax), or 0 where a slot of ``d`` values does not fit a
     warp: the lanes of a slot are the next power of two above ``d`` / (bytes
     of one load), at least 8; a warp reads ``32 / lanes`` slots at once and a
     tile is 8 such passes. 32 up to ``d = 128`` (16 at 88 and 104, whose
     loads are 8 bytes), 16 above; 0 for ``d = 132, 140, ...``, which are no
-    multiple of 8."""
+    multiple of 8. A slot of exactly five loads (``d = 80`` at 16 bytes, 40
+    at 8, 20 at 4) takes groups of five lanes instead, six slots a pass and
+    five passes: 30."""
+    if d == 5 * _packed_load_bytes(d):
+        return 30
     lanes = _FLASH_PASSES
     while lanes * _packed_load_bytes(d) < d:
         lanes *= 2
@@ -264,12 +276,24 @@ def packed_decode_splits(b: int, h: int, t: int, sm_count: int) -> int:
     return max(1, min(resident // (b * h), t // _FLASH_MIN_SHARE, _PACKED_MAX_SPLITS))
 
 
+def packed_decode_warp_head(b: int, h: int, splits: int, sm_count: int) -> bool:
+    """Whether kernels #1, #3 and #4 give each (row, head) one warp (a block
+    is four heads of a row) instead of a block of four warps: with one split
+    and at least 12 pairs an SM, where blocks of four warps would each see
+    only a few tiles of a short cache and wait on their first loads (RAR-XL,
+    128 rows x 16 heads; not Taming's 32 x 16 or Chameleon's 24 x 32, whose
+    pairs alone would leave SMs with too few warps)."""
+    return splits == 1 and b * h >= _WARP_HEAD_PER_SM * sm_count
+
+
 def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool,
-                   splits=None) -> torch.Tensor:
-    """Launch ``csrc/packed_chunked_attention.cu`` (kernels #3 and #4) with
-    ``splits`` blocks per (row, head); None lets :func:`packed_decode_splits`
-    choose. A head dim whose slot does not fit a warp's lanes (no multiple of
-    8 above 128) goes to the slot-by-slot kernel instead."""
+                   splits=None, warp_head=None) -> torch.Tensor:
+    """Launch ``csrc/packed_chunked_attention.cu`` (kernels #1, #3 and #4)
+    with ``splits`` blocks per (row, head); None lets
+    :func:`packed_decode_splits` choose, and ``warp_head`` None lets
+    :func:`packed_decode_warp_head` choose the warp-per-(row, head) layout. A
+    head dim whose slot does not fit a warp's lanes (no multiple of 8 above
+    128) goes to the slot-by-slot kernel instead."""
     kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
     b, h, _, d = q.shape
     t = kv_all.shape[2]
@@ -282,6 +306,10 @@ def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask,
         splits = packed_decode_splits(b, h, t, _sm_count(q.device.index))
     if not 1 <= splits <= _PACKED_MAX_SPLITS:
         raise ValueError(f"splits {splits} outside [1, {_PACKED_MAX_SPLITS}]")
+    if warp_head is None:
+        warp_head = packed_decode_warp_head(b, h, splits, _sm_count(q.device.index))
+    if warp_head and splits != 1:
+        raise ValueError("the warp-per-(row, head) layout takes one split")
     lens = _device_lens(valid_len, q.device)
     start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
     partial_ptr = counters_ptr = None
@@ -293,8 +321,8 @@ def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask,
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     rc = build.load().wmar_packed_chunked_attention(
         q.data_ptr(), kv_layer.data_ptr(), scale_layer.data_ptr(), lens.data_ptr(), start_ptr, mask_ptr,
-        out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, splits, int(int4), int(q.dtype == torch.bfloat16),
-        d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, splits, int(warp_head), int(int4),
+        int(q.dtype == torch.bfloat16), d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"packed chunked attention kernel failed to launch: cudaError {rc}")
@@ -345,18 +373,15 @@ def packed_decode_attention_q8(q, kv_all, scale_all, layer: int, valid_len, star
     return out
 
 
-def _check_single_block(q, kv_all, scale_all, layer: int):
-    _check(q, kv_all, scale_all, layer, torch.uint8, 1)
-    t, d = kv_all.shape[2], q.shape[3]
-    if (t + d + 4) * 4 > _SMEM_BYTES:
-        raise ValueError(f"{t} slots need more than the kernel's {_SMEM_BYTES} bytes of shared memory")
-
-
 def packed4_decode_attention(q, kv_all, scale_all, layer: int, valid_len, start=None, key_mask=None) -> torch.Tensor:
     """Fused decode attention over a ``Packed4QuantKVCache`` layer.
 
     Below 1024 slots kernel #1 (no masks: ``start``/``key_mask`` raise
     ``ValueError``), from 1024 on :func:`packed4_decode_attention_chunked`.
+    Kernel #1 is the tiled kernel of kernels #3 and #4 launched without
+    masks (any ``T``; the planner's split count), counted here; a head dim
+    that is no multiple of 4, or a payload that is not aligned to its loads,
+    takes the slot-by-slot kernel (byte by byte where it must).
     On CUDA, ``valid_len`` is best a device int32 tensor of one element,
     which the kernel reads on the device; a Python int is filled into one.
     Slots beyond ``valid_len`` never take part; it must be in [1, T].
@@ -366,21 +391,13 @@ def packed4_decode_attention(q, kv_all, scale_all, layer: int, valid_len, start=
         return packed4_decode_attention_chunked(q, kv_all, scale_all, layer, valid_len, start, key_mask)
     if q.device.type == "cpu":
         return packed4_decode_attention_plain(q, kv_all, scale_all, layer, valid_len)
-    _check_single_block(q, kv_all, scale_all, layer)
-    from wmar_tpu_torch.ops import build
-
-    b, h, _, d = q.shape
-    t = kv_all.shape[2]
-    lens = _device_lens(valid_len, q.device)
-    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
-    kv_layer, scale_layer = kv_all[layer], scale_all[layer]  # views: the kernel reads in place
-    rc = build.load().wmar_packed4_decode_attention(
-        q.data_ptr(), kv_layer.data_ptr(), scale_layer.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, h, t, d, int(q.dtype == torch.bfloat16), d**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"packed4 decode attention kernel failed to launch: cudaError {rc}")
+    d = q.shape[-1]
+    if d % 4 or kv_all[layer].data_ptr() % _packed_load_bytes(d):
+        # a head dim that is no multiple of 4 (no model of the repo has one), or a payload view that is not aligned
+        # to the tiled kernel's loads: the slot-by-slot kernel reads any
+        out = _launch_packed_stream(q, kv_all, scale_all, layer, valid_len, None, None, int4=True, any_d=True)
+    else:
+        out = _launch_packed(q, kv_all, scale_all, layer, valid_len, None, None, int4=True)
     packed4_decode_attention.launches += 1
     return out
 

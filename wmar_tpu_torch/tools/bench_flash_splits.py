@@ -24,7 +24,10 @@ bound: at the 4096-slot shape (full, and the end of an interleaved run) and
 at the Chameleon text-to-image shape (24 CFG rows, 1043 slots full, the ragged
 ``start`` of ``chip_smoke.py``), first through the wrappers (the planner's
 ``S``), then every ``S`` of ``--splits`` forced, then the fill sweep at the
-4096-slot shape. ``--loads_only`` builds the library with
+4096-slot shape. First of all it times the short caches of RAR-XL (128 rows,
+258 slots, 16 heads of 80) and Taming-1.4B (32 rows, 257 slots, 16 heads of
+104) through the public wrappers ``packed_decode_attention_q8`` (#2) and
+``packed4_decode_attention`` (#1, the same tiled kernel as #4 in this tree). ``--loads_only`` builds the library with
 ``-DWMAR_PACKED_LOADS_ONLY`` (the kernels' math compiled out): what their loads
 alone cost. Run with ``PYTHONPATH`` set to an older tree whose launcher takes
 no ``splits``, it times that tree's wrappers only: the parent's numbers in the
@@ -88,6 +91,7 @@ def run(device, splits, fills, shape=ba.CHAMELEON_4K, n_layers: int = 4, reps: i
 
 
 CHAMELEON_T2I = dict(b=24, h=32, t=1043, d=128)  # CHAMELEON_7B, 8 prompts x 3 CFG rows, 19 + 1024 slots
+TAMING = dict(b=32, h=16, t=257, d=104)  # TAMING_GPT_1_4B, 32 classes; 1 + 256 slots
 
 
 def run_packed(device, splits, fills, n_layers: int = 4) -> None:
@@ -97,17 +101,21 @@ def run_packed(device, splits, fills, n_layers: int = 4) -> None:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     payloads = (("#3", "packed", False, fd.packed_decode_attention_q8_chunked, 1, torch.int8),
                 ("#4", "packed4", True, fd.packed4_decode_attention_chunked, 0.5, torch.uint8))
+    # below 1024 slots the public wrappers, kernels #2 (int8) and #1 (int4), in this tree and an older one
+    short = {"#3": ("#2", fd.packed_decode_attention_q8), "#4": ("#1", fd.packed4_decode_attention)}
     t2i_start = torch.cat([torch.arange(8), 130 + torch.arange(16)]).to(torch.int32).to(device)
-    cases = [("t2i, full, ragged start", CHAMELEON_T2I, 1043, t2i_start, None),
+    cases = [("RAR-XL, full", ba.RAR_XL, 258, None, None), ("Taming-1.4B, full", TAMING, 257, None, None),
+             ("t2i, full, ragged start", CHAMELEON_T2I, 1043, t2i_start, None),
              ("sampler, full", ba.CHAMELEON_4K, 4096, None, None),
              ("sampler, end of a run", ba.CHAMELEON_4K, 1160, None, "interleaved")]
     caches = {}
     for tag, shape, n, start, mask in cases:
         b, h, t, d = shape["b"], shape["h"], shape["t"], shape["d"]
+        layers = max(n_layers, -(-120_000_000 // (b * t * h * d)))  # the int4 layers walked pass the 50 MB L2
         if (b, t) not in caches:
             gen = torch.Generator(device=device).manual_seed(1)
             caches.clear()  # one shape's caches at a time
-            caches[(b, t)] = (ba.filled_caches(n_layers, b, h, t, d, gen, device, kinds=("packed", "packed4")),
+            caches[(b, t)] = (ba.filled_caches(layers, b, h, t, d, gen, device, kinds=("packed", "packed4")),
                               torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16))
         cs, q = caches[(b, t)]
         lens = torch.full((1,), n, dtype=torch.int32, device=device)
@@ -115,13 +123,20 @@ def run_packed(device, splits, fills, n_layers: int = 4) -> None:
         planned = fd.packed_decode_splits(b, h, t, sms) if can_force else None
         print(f"{tag}: B={b} H={h} T={t} D={d}, valid_len {n}; the planner's S = {planned}")
         for name, kind, int4, wrapper, payload_bytes, kv_dtype in payloads:
+            if t < 1024:
+                name, wrapper = short[name]
             c = cs[kind]
             bound_ms, _ = ba.attention_bound(b, h, t, d, n, payload_bytes, True, q.dtype, kv_dtype, start, km)
-            ms = ba.graph_ms(lambda li: wrapper(q, c.kv, c.scale, li, lens, start=start, key_mask=km), n_layers)
+            ms = ba.graph_ms(lambda li: wrapper(q, c.kv, c.scale, li, lens, start=start, key_mask=km), layers)
             row = [f"wrapper {ms:.4f}"]
             for s in splits if can_force else ():
                 row.append(f"S={s}: " + "%.4f" % ba.graph_ms(
-                    lambda li: fd._launch_packed(q, c.kv, c.scale, li, lens, start, km, int4, splits=s), n_layers))
+                    lambda li: fd._launch_packed(q, c.kv, c.scale, li, lens, start, km, int4, splits=s), layers))
+            if "warp_head" in inspect.signature(fd._launch_packed).parameters:
+                for wh in (True, False):
+                    row.append(f"S=1, {'a warp' if wh else 'a block'} per (row, head): " + "%.4f" % ba.graph_ms(
+                        lambda li: fd._launch_packed(q, c.kv, c.scale, li, lens, start, km, int4, splits=1,
+                                                     warp_head=wh), layers))
             print(f"  {name} ms from a graph, bound {bound_ms:.4f}: " + " | ".join(row), flush=True)
     if not can_force:
         return

@@ -4,6 +4,7 @@
     python -m wmar_tpu_torch.tools.profile_interleaved [--first_step 1040] [--steps 8] \\
         [--caches bf16,int8] [--json out.json]
     python -m wmar_tpu_torch.tools.profile_interleaved --t2i --first_step 1000 --caches packed,packed4
+    python -m wmar_tpu_torch.tools.profile_interleaved --taming --first_step 200 --caches packed4
 
 Builds CHAMELEON_7B at full width and depth (random weights from ``--seed``,
 int8 linears, the synthetic vocabulary and tokenizer), runs
@@ -24,6 +25,12 @@ With ``--t2i`` the window lies in the text-to-image sampler instead
 1043 slots, temperature 0.9, top-p 0.9), where the ``packed`` and ``packed4``
 caches are read by the chunked packed kernels.
 
+With ``--taming`` the window lies in Taming-1.4B's sampler instead
+(``TAMING_GPT_1_4B`` with random weights from ``--seed`` made grouped-int4,
+so that every linear and the head take kernel #8; 32 classes, temperature
+1.0, top-k 250, top-p 0.92, the same watermark; 257 slots), where the
+``packed4`` cache takes kernel #1 and the ``packed`` one kernel #2.
+
 It needs a CUDA card and fails without one.
 """
 
@@ -38,6 +45,8 @@ from types import SimpleNamespace
 import torch
 
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
+TAMING_CLASSES = 32
+TAMING_GEN = dict(temperature=1.0, top_k=250, top_p=0.92)  # configs/taming_generate.json
 T2I_PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls", "a tall ship",
                "an old bridge at night"]
 
@@ -54,26 +63,46 @@ def build_wrapper(device, seed: int):
     return wrapper
 
 
+def build_taming_wrapper(device, seed: int):
+    """Taming-1.4B with grouped-int4 weights (kernel #8) and the watermark."""
+    from wmar_tpu_torch.core import WatermarkSpec
+    from wmar_tpu_torch.models import TAMING_GPT_1_4B, TAMING_IMAGENET_F16, TamingARMM, init_gpt, init_taming_vqgan
+    from wmar_tpu_torch.models.taming_gpt import quantize_gpt_params_int8
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gpt = init_gpt(TAMING_GPT_1_4B, gen, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        gpt.pos_emb.normal_(0.0, 0.02, generator=gen)
+    quantize_gpt_params_int8(gpt, compute_dtype=torch.bfloat16, bits=4)
+    vq = init_taming_vqgan(TAMING_IMAGENET_F16, gen, dtype=torch.bfloat16, device=device)
+    wrapper = TamingARMM(gpt, vq, cache_dtype="packed4", device=device)
+    wrapper.set_watermarker(WatermarkSpec.from_string(WATERMARK, vocab_size=wrapper.get_total_vocab_size(),
+                                                      spatial_dim=wrapper.codes_size))
+    return wrapper
+
+
 def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int, top: int = 12,
-                   t2i: bool = False) -> dict:
+                   t2i: bool = False, taming: bool = False) -> dict:
     """One whole run with the window around ``steps`` iterations from loop
     step ``first_step`` on (an image-token step at the defaults). Loop step
     ``s`` is forward call ``s + 2`` (call 1 is the prefill). ``t2i``: the
-    text-to-image sampler on 8 prompts instead of the interleaved loop."""
+    text-to-image sampler on 8 prompts instead of the interleaved loop;
+    ``taming``: Taming-1.4B's sampler on 32 classes."""
     from torch.profiler import ProfilerActivity, profile
 
-    from wmar_tpu_torch.models import GenParams
+    from wmar_tpu_torch.models import GenParams, taming_gpt
     from wmar_tpu_torch.models import chameleon as t2i_module
     from wmar_tpu_torch.models import chameleon_interleaved as il
 
     if t2i:
         il = t2i_module  # the module whose llama_forward the window hooks
+    hooked, attr = (taming_gpt, "gpt_forward") if taming else (il, "llama_forward")
 
     wrapper.cache_dtype = cache_dtype
     device = wrapper.device
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     calls, clock = [0], {}
-    real = il.llama_forward
+    real = getattr(hooked, attr)
 
     def forward(*args, **kwargs):
         calls[0] += 1
@@ -87,10 +116,13 @@ def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int,
             prof.stop()
         return real(*args, **kwargs)
 
-    il.llama_forward = forward
+    setattr(hooked, attr, forward)
     gen_params = GenParams(temperature=0.9, top_k=None, top_p=0.9)
     try:
-        if t2i:
+        if taming:
+            wrapper.sample(list(range(TAMING_CLASSES)), GenParams(**TAMING_GEN), apply_watermark=True,
+                           generator=torch.Generator(device=device).manual_seed(seed))
+        elif t2i:
             wrapper.sample(T2I_PROMPTS, gen_params, apply_watermark=True,
                            generator=torch.Generator(device=device).manual_seed(seed))
         else:
@@ -98,7 +130,7 @@ def profile_window(wrapper, cache_dtype, first_step: int, steps: int, seed: int,
                                         cache_budget=4096,
                                         generator=torch.Generator(device=device).manual_seed(seed))
     finally:
-        il.llama_forward = real
+        setattr(hooked, attr, real)
     if "t1" not in clock:
         raise RuntimeError(f"the window never closed: {calls[0]} forwards")
     kernels = []
@@ -130,6 +162,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--caches", type=str, default="bf16,int8")
     p.add_argument("--t2i", action="store_true", help="the text-to-image sampler (24 CFG rows) instead")
+    p.add_argument("--taming", action="store_true", help="Taming-1.4B's sampler (32 classes, int4 weights) instead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", type=str, default=None)
     args = p.parse_args(argv)
@@ -140,11 +173,12 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     print(f"card: {card_line()}")
-    wrapper = build_wrapper(device, args.seed)
+    wrapper = build_taming_wrapper(device, args.seed) if args.taming else build_wrapper(device, args.seed)
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "packed": "packed", "packed4": "packed4"}
     out = {"card": card_line()}
     for name in args.caches.split(","):
-        out[name] = profile_window(wrapper, dtypes[name], args.first_step, args.steps, args.seed, t2i=args.t2i)
+        out[name] = profile_window(wrapper, dtypes[name], args.first_step, args.steps, args.seed, t2i=args.t2i,
+                                   taming=args.taming)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
