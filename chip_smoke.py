@@ -13,8 +13,13 @@ phases:
 2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
    slots the tiled kernel of #3/#4 without masks) at the decode shapes of
    RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88),
-   one launch replayed from a CUDA graph after ``valid_len`` changed; kernel #2 (``packed_decode_attention_q8``) at the RAR-XL
-   shape; kernels #3 and #4 (``packed_decode_attention_q8_chunked``,
+   one launch replayed from a CUDA graph after ``valid_len`` changed; kernel
+   #2 (``packed_decode_attention_q8``, below 1024 slots the same tiled
+   kernel over the int8 cache) at the RAR-XL shape through the wrapper (a
+   warp per (row, head)) and with both layouts forced (a warp per (row,
+   head); blocks of four warps at S = 1, 2 and 4), twice with equal bits,
+   and one launch replayed from a CUDA graph after ``valid_len`` changed;
+   kernels #3 and #4 (``packed_decode_attention_q8_chunked``,
    ``packed4_decode_attention_chunked``) at the Chameleon-7B shape (24 rows,
    32 heads of 128, 1043 slots, 32 layers) with a ragged ``start`` that
    blanks the first chunk of the CFG rows and once a random ``key_mask``,
@@ -25,7 +30,7 @@ phases:
    launch replayed from a CUDA graph after ``valid_len``, ``start`` and
    ``key_mask`` changed in place;
    kernels #1 and #2 again at the Taming-1.4B decode shape (32 rows, 257
-   slots, 16 heads of 104, 48 layers), #1 timed there too; kernel #8
+   slots, 16 heads of 104, 48 layers), both timed there too; kernel #8
    (``matmul_w4``, the w4a16 matmul: bf16 x on the tensor cores, f32 x on the
    CUDA cores) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24
    rows) and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64
@@ -41,7 +46,9 @@ phases:
    three interleaved masks, each case with the planner's split count and
    with 1, 2, 3 and 8 blocks per (row, head) forced, twice (equal bits),
    and one launch replayed from a CUDA graph after ``valid_len`` and
-   ``key_mask`` changed in place; kernel #7 (``_packed_dma_probe``) exactly and
+   ``key_mask`` changed in place; kernel #7 (``_packed_dma_probe``, kernel
+   #2's instantiation with its math compiled out) exactly at the RAR-XL,
+   Taming and Chameleon shapes, and
    kernel #9 (``row_mean_probe``) within bf16 rounding; each against its
    plain float32 version, and timed beside it (#1-#4 at full fill, by
    CUDA events and replayed from a CUDA graph);
@@ -147,7 +154,7 @@ def _kernels():
         ("packed4_decode_attention", fd.packed4_decode_attention,
          "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:677"),
         ("packed_decode_attention_q8", fd.packed_decode_attention_q8,
-         "wmar_tpu_torch/csrc/packed_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:127"),
+         "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:127"),
         ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
          "wmar_tpu_torch/csrc/packed_chunked_attention.cu", "wmar_tpu/ops/flash_decode.py:341"),
         ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
@@ -156,7 +163,7 @@ def _kernels():
          "wmar_tpu_torch/csrc/flash_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:66"),
         ("flash_decode_attention_q8", fd.flash_decode_attention_q8,
          "wmar_tpu_torch/csrc/flash_decode_attention.cu", "wmar_tpu/ops/flash_decode.py:492"),
-        ("_packed_dma_probe", fd._packed_dma_probe, "wmar_tpu_torch/csrc/probes.cu",
+        ("_packed_dma_probe", fd._packed_dma_probe, "wmar_tpu_torch/csrc/packed_chunked_attention.cu",
          "wmar_tpu/ops/flash_decode.py:560"),
         ("matmul_w4", matmul_w4, "wmar_tpu_torch/csrc/w4_matmul.cu", "wmar_tpu/ops/w4_matmul.py:40"),
         ("row_mean_probe", fd.row_mean_probe, "wmar_tpu_torch/csrc/probes.cu", "tools/bench_call_floor.py:15"),
@@ -232,19 +239,7 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
               f"valid_len {list(valid_lens)}, layers 0 and {n_layers - 1}, bf16 and f32 q")
         if name == "rar_xl" and torch.device(device).type == "cuda":
             q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
-            lens = torch.full((1,), 2, dtype=torch.int32, device=device)
-            packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)
-            torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                replayed = packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)
-            for n in (2, 129, t):
-                lens.fill_(n)
-                graph.replay()
-                torch.cuda.synchronize()
-                if not torch.equal(replayed, packed4_decode_attention(q, cache.kv, cache.scale, 1, lens)):
-                    raise AssertionError(f"{name}: a replayed launch differs from a fresh call at valid_len {n}")
-            print(f"kernel #1 {name}: one launch replayed from a CUDA graph at valid_len 2, 129, {t}: equal bits")
+            _short_graph_replay_check(f"kernel #1 {name}", packed4_decode_attention, cache, q, t)
             lens = torch.full((1,), t, dtype=torch.int32, device=device)
             plain_ms, ms, ms2, plain_ms2 = time_turns(
                 lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
@@ -263,6 +258,25 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
     result["max_abs_err"] = worst
     print(f"kernel vs plain: worst bf16 max abs err {worst:.3e}")
     return result
+
+
+def _short_graph_replay_check(label, launch, cache, q, t) -> None:
+    """One launch of a short-cache kernel (#1, #2) captured in a CUDA graph
+    and replayed after ``valid_len`` changed in place to 2, 129 and ``t``
+    must give the bits of a fresh call."""
+    lens = torch.full((1,), 2, dtype=torch.int32, device=q.device)
+    launch(q, cache.kv, cache.scale, 1, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = launch(q, cache.kv, cache.scale, 1, lens)
+    for n in (2, 129, t):
+        lens.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, launch(q, cache.kv, cache.scale, 1, lens)):
+            raise AssertionError(f"{label}: a replayed launch differs from a fresh call at valid_len {n}")
+    print(f"{label}: one launch replayed from a CUDA graph at valid_len 2, 129, {t}: equal bits")
 
 
 def _check_close(label: str, got, want, q_dtype) -> float:
@@ -289,9 +303,10 @@ def cfg_starts(rows: int, blank: int) -> torch.Tensor:
 
 def _packed_case(label, launch, plain, int4, q, cache, layer, n, st, km, forced) -> float:
     """One call of a packed kernel through its wrapper against its plain
-    version; then (chunked kernels on the card: ``forced`` not empty) the
-    private launcher with every split count of ``forced``, twice: each
-    within the tolerance, the two with equal bits."""
+    version; then (on the card: ``forced`` not empty) the private launcher
+    with every ``(splits, warp_head)`` of ``forced`` (``warp_head`` None: the
+    planner's layout), twice: each within the tolerance, the two with equal
+    bits."""
     from wmar_tpu_torch.ops import flash_decode as fd
 
     lens = torch.full((1,), n, dtype=torch.int32, device=q.device)
@@ -300,13 +315,16 @@ def _packed_case(label, launch, plain, int4, q, cache, layer, n, st, km, forced)
         torch.cuda.synchronize()  # a fault in the kernel shows here
     want = plain(q.float(), cache.kv, cache.scale, layer, n, st, km)
     err = _check_close(label, got, want, q.dtype)
-    for splits in forced:
-        one = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits)
-        two = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits)
+    for splits, warp_head in forced:
+        one = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits,
+                                warp_head=warp_head)
+        two = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, st, km, int4, splits=splits,
+                                warp_head=warp_head)
         torch.cuda.synchronize()
-        _check_close(f"{label} S={splits}", one, want, q.dtype)
+        tag = f"{label} S={splits}" + ("" if warp_head is None else f" warp_head={warp_head}")
+        _check_close(tag, one, want, q.dtype)
         if not torch.equal(one, two):
-            raise AssertionError(f"{label} S={splits}: two calls differ in their bits")
+            raise AssertionError(f"{tag}: two calls differ in their bits")
     return err
 
 
@@ -339,9 +357,15 @@ def _packed_graph_replay_check(name, launch, cache, q, gen, device) -> None:
 def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32, 128, 32),
                          rar_lens=(1, 2, 129, 258), cham_lens=(1, 128, 129, 600, 1043), blank=130,
                          reps=50, sampler=(3, 4096, 32, 128, 2), sampler_lens=(1, 128, 129, 1160, 4096),
-                         interleaved=(7, 64, 1024), forced=tuple(range(1, 17))) -> dict:
+                         interleaved=(7, 64, 1024), forced=tuple(range(1, 17)),
+                         rar_layouts=((1, True), (1, False), (2, False), (4, False))) -> dict:
     """Kernels #2-#4 against their plain versions, and timed beside them at
-    full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``. The
+    full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``. Kernel
+    #2 runs at the RAR-XL shape ``rar`` through the wrapper (the planner's
+    layout: a warp per (row, head)) and (on the card) in every ``(splits,
+    warp_head)`` of ``rar_layouts`` (both layouts, blocks of four warps with
+    S forced to 1, 2 and 4), twice with equal bits, then one launch is
+    replayed from a CUDA graph after ``valid_len`` changed in place. The
     chunked kernels #3 and #4 run at the Chameleon text-to-image shape
     ``cham`` and at the interleaved sampler's shape ``sampler`` (``(B, T, H,
     D, layers)``: three rows, with no mask, a ragged ``start`` and the three
@@ -356,17 +380,18 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     is_cuda = torch.device(device).type == "cuda"
     out = {}
+    chunked_layouts = tuple((s_, None) for s_ in forced)
     cases = [("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
-              "packed", rar, rar_lens, False),
+              "packed", rar, rar_lens, False, tuple(rar_layouts)),
              ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
-              fd.packed_decode_attention_q8_plain, "packed", cham, cham_lens, True),
+              fd.packed_decode_attention_q8_plain, "packed", cham, cham_lens, True, chunked_layouts),
              ("packed4_decode_attention_chunked", fd.packed4_decode_attention_chunked,
-              fd.packed4_decode_attention_plain, "packed4", cham, cham_lens, True)]
-    for name, launch, plain, kind, (b, t, h, d, n_layers), lens_list, masked in cases:
+              fd.packed4_decode_attention_plain, "packed4", cham, cham_lens, True, chunked_layouts)]
+    for name, launch, plain, kind, (b, t, h, d, n_layers), lens_list, masked, layouts in cases:
         cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
         start0 = cfg_starts(b, blank).to(device)
         key_mask0 = torch.rand((b, t), generator=gen, device=device) < 0.7
-        splits = forced if masked and is_cuda else ()  # the CPU has no kernel to split
+        layouts = layouts if is_cuda else ()  # the CPU has no kernel to split
         worst = 0.0
         for q_dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
@@ -378,17 +403,21 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
                     for st, km in ((None, None), (start, None), (start, key_mask)) if masked else ((None, None),):
                         err = _packed_case(f"{name} {q_dtype} layer={layer} valid_len={n} start={st is not None} "
                                            f"key_mask={km is not None}", launch, plain, kind == "packed4", q, cache,
-                                           layer, n, st, km, splits if layer else ())
+                                           layer, n, st, km, layouts if layer else ())
                         worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
         variants = "none, start, start + key_mask" if masked else "none"
+        forced_text = (f"S forced to each of {[s_ for s_, _ in layouts]}" if masked else
+                       f"(S, a warp per (row, head)) forced to each of {list(layouts)}")
         print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}): ok, valid_len {list(lens_list)}, "
               f"masks {variants}, layers 0 and {n_layers - 1}, bf16 and f32 q"
-              + (f"; on layer {n_layers - 1} also S forced to each of {list(splits)}, twice with equal bits"
-                 if splits else "") + f"; worst bf16 max abs err {worst:.3e}")
+              + (f"; on layer {n_layers - 1} also {forced_text}, twice with equal bits" if layouts else "")
+              + f"; worst bf16 max abs err {worst:.3e}")
         out[name] = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None}
         if not is_cuda:  # times only on the card
             continue
         q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+        if not masked:
+            _short_graph_replay_check(f"kernel #2 {name}", launch, cache, q, t)
         lens = torch.full((1,), t, dtype=torch.int32, device=device)
         st = start0 if masked else None
         times = time_turns(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st),
@@ -411,6 +440,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     start0 = torch.tensor([0, 130, 37], dtype=torch.int32)[:b].to(device)
     for name, launch, plain, kind, *_ in cases[1:]:
         cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+        sampler_layouts = chunked_layouts if is_cuda else ()
         worst = 0.0
         for q_dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
@@ -421,7 +451,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
                 for st, km in masks:
                     err = _packed_case(f"{name} sampler shape {q_dtype} valid_len={n} start={st is not None} "
                                        f"key_mask={km is not None}", launch, plain, kind == "packed4", q, cache,
-                                       n_layers - 1, n, st, km, forced if is_cuda else ())
+                                       n_layers - 1, n, st, km, sampler_layouts)
                     worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
             if is_cuda and q_dtype == torch.bfloat16:
                 _packed_graph_replay_check(name, launch, cache, q, gen, device)
@@ -467,26 +497,35 @@ def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129
 
 
 def time_taming_attention(device, shape=(48, 32, 257, 16, 104), reps=50) -> dict:
-    """Kernel #1 at the Taming-1.4B decode shape ``(L, B, T, H, D)``, full
-    fill, walking the layers: replayed from a CUDA graph and by CUDA events,
-    beside its byte bound and its plain version."""
-    from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed4_decode_attention_plain
+    """Kernels #1 (int4 cache) and #2 (int8) at the Taming-1.4B decode shape
+    ``(L, B, T, H, D)``, full fill, walking the layers: replayed from a CUDA
+    graph and by CUDA events, beside the byte bound and the plain version.
+    Returns ``{name: numbers}``."""
+    from wmar_tpu_torch.ops import flash_decode as fd
     from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
 
     n_layers, b, t, h, d = shape
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    cache = _filled_cache(n_layers, b, h, t, d, gen, device)
-    q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
-    lens = torch.full((1,), t, dtype=torch.int32, device=device)
-    times = time_turns(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
-                       lambda li: packed4_decode_attention_plain(q, cache.kv, cache.scale, li, lens), n_layers, reps)
-    bound_ms, bound_by = attention_bound(b, h, t, d, t, 0.5, True, q.dtype, torch.uint8)
-    out = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "bound_ms": bound_ms,
-           "bound_by": bound_by, "graph_ms": graph_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li,
-                                                                                           lens), n_layers)}
-    print(f"time packed4_decode_attention at Taming-1.4B (B={b} T={t} H={h} D={d}), full cache (plain, kernel, "
-          f"kernel, plain): {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph "
-          f"{out['graph_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / out['graph_ms']:.0f}%)")
+    out = {}
+    for name, launch, plain, kind, payload_bytes, kv_dtype in (
+            ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, "packed4",
+             0.5, torch.uint8),
+            ("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
+             "packed", 1, torch.int8)):
+        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+        q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+        lens = torch.full((1,), t, dtype=torch.int32, device=device)
+        times = time_turns(lambda li: launch(q, cache.kv, cache.scale, li, lens),
+                           lambda li: plain(q, cache.kv, cache.scale, li, lens), n_layers, reps)
+        bound_ms, bound_by = attention_bound(b, h, t, d, t, payload_bytes, True, q.dtype, kv_dtype)
+        res = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "bound_ms": bound_ms,
+               "bound_by": bound_by, "graph_ms": graph_ms(lambda li: launch(q, cache.kv, cache.scale, li, lens),
+                                                          n_layers)}
+        out[name] = res
+        print(f"time {name} at Taming-1.4B (B={b} T={t} H={h} D={d}), full cache (plain, kernel, kernel, plain): "
+              f"{' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph {res['graph_ms']:.4f} ms; "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / res['graph_ms']:.0f}%)")
+        del cache
     return out
 
 
@@ -685,11 +724,12 @@ def phase_flash_kernels(device, shapes=(("chameleon_4k", 3, 32, 4096, 128), ("ra
     return worst
 
 
-def phase_probes(device, shapes=(("rar_xl", 128, 258, 16, 80), ("chameleon", 24, 1043, 32, 128)),
-                 rows_list=(1, 64, 1024, 4096, 16384)) -> dict:
+def phase_probes(device, shapes=(("rar_xl", 128, 258, 16, 80), ("taming", 32, 257, 16, 104),
+                                  ("chameleon", 24, 1043, 32, 128)), rows_list=(1, 64, 1024, 4096, 16384)) -> dict:
     """Kernel #7 against its plain version (equal bit for bit: one float32
     add, one rounding) at the packed-cache shapes ``(tag, B, T, H, D)`` of
-    kernels #2 and #3, and kernel #9 against its plain version within
+    kernel #2 (RAR-XL: a warp per (row, head); Taming-1.4B: blocks of four
+    warps) and kernel #3, and kernel #9 against its plain version within
     bf16's rounding of the mean (2^-8 + 1e-5 of the largest mean: the two
     sum in different orders). Returns each one's worst error."""
     from wmar_tpu_torch.ops import flash_decode as fd
@@ -709,7 +749,10 @@ def phase_probes(device, shapes=(("rar_xl", 128, 258, 16, 80), ("chameleon", 24,
                     raise AssertionError(f"_packed_dma_probe {tag} {q_dtype} layer={layer}: differs from its plain version")
                 if not got.abs().max() > 1:
                     raise AssertionError(f"_packed_dma_probe {tag}: output {got.abs().max()} is not the payload's")
-        print(f"kernel vs plain _packed_dma_probe {tag} (B={b} T={t} H={h} D={d}): equal, bf16 and f32 q, 2 layers")
+        plan = (fd.packed_decode_plan(b, h, t, d, False, fd._sm_count(torch.device(device).index or 0))
+                if torch.device(device).type == "cuda" else None)
+        print(f"kernel vs plain _packed_dma_probe {tag} (B={b} T={t} H={h} D={d}): equal, bf16 and f32 q, 2 layers"
+              + (f"; {plan}" if plan else ""))
         del cache
     for rows in rows_list:
         x = (torch.randn((rows, 1024), generator=gen, device=device) + 0.5).to(torch.bfloat16)
@@ -1177,7 +1220,8 @@ def main() -> int:
     numbers.update(timed("kernels #2-#4", phase_packed_kernels, device))
     for name, err in timed("kernels #1, #2 at Taming", phase_taming_attention, device).items():
         numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], err)
-    numbers["packed4_decode_attention"]["taming"] = timed("kernel #1 at Taming, timed", time_taming_attention, device)
+    for name, taming in timed("kernels #1, #2 at Taming, timed", time_taming_attention, device).items():
+        numbers[name]["taming"] = taming
     numbers["matmul_w4"] = timed("kernel #8", phase_w4, device)
     errs = timed("kernels #5, #6", phase_flash_kernels, device)
     errs.update(timed("kernels #7, #9", phase_probes, device))

@@ -120,13 +120,14 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
     """Kernels #2-#4 against their plain float32 versions, with and without
     a ragged ``start`` and a random ``key_mask`` on the chunked ones, at the
     tolerances of kernel #1. Every row keeps at least one valid slot (the
-    kernels' precondition). The chunked ones go through the wrapper (the
-    planner's split count) and through the private launcher with 1, 2, 3, 8
-    and 16 blocks per (row, head) forced (``valid_len`` 1, 128 and 129 leave
-    shares empty) and with a warp per (row, head), twice with equal bits.
-    The head dims cover the 16-byte
-    loads (16, 80, 128, 256), the 8-byte (88, 104) and the 4-byte (20); 132
-    fits no warp and takes the slot-by-slot kernel."""
+    kernels' precondition). Each goes through the wrapper (the planner's
+    layout) and through the private launcher with 1, 2, 3, 8 and 16 blocks
+    per (row, head) forced (``valid_len`` 1, 128 and 129 leave shares empty)
+    and with a warp per (row, head), twice with equal bits: kernel #2 is the
+    tiled kernel of #3 below 1024 slots, so it takes both layouts too. The
+    head dims cover the 16-byte loads (16, 80, 128, 256), the 8-byte (88,
+    104) and the 4-byte (20); 132 fits no warp and takes the slot-by-slot
+    kernel."""
     launch, plain, cls, t = PACKED_KERNELS[kernel]
     b, h = 5, 3
     cache, g = _cache(2, b, h, t, d, device, seed=d, cls=cls)
@@ -154,8 +155,7 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
                 assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
                 err = (got.float() - want).abs().max().item()
                 assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, start is None, key_mask is None, err)
-                for splits, wh in ([(s_, False) for s_ in PACKED_SPLITS] + [(1, True)]
-                                   if kernel != "q8" and layer == 1 else ()):
+                for splits, wh in ([(s_, False) for s_ in PACKED_SPLITS] + [(1, True)] if layer == 1 else ()):
                     args = (q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device),
                             start, key_mask, kernel == "packed4_chunked")
                     forced = fd._launch_packed(*args, splits=splits, warp_head=wh)
@@ -165,6 +165,87 @@ def test_packed_kernels_match_plain(device, kernel, d, q_dtype):
                     assert err <= rel * want.abs().max().item() + 1e-6, (n, start is None, key_mask is None, splits, err)
                     assert torch.equal(forced, again), (n, splits)
                 assert launch.launches == before + 1  # the private launcher counts nothing
+
+
+@pytest.mark.parametrize("d", [6, 16, 20, 48, 80, 88, 104, 128, 132, 256])
+@pytest.mark.parametrize("t", [1, 33, 257, 258, 1023])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_q8_kernel_matches_plain(device, d, t, q_dtype):
+    """Kernel #2 (the tiled kernel over the int8 cache without masks; at D =
+    132 the slot-by-slot kernel; D = 6 raises: int8 slots are read in 32-bit
+    words) against its plain version at kernel #1's tolerances: at D = 80
+    over 128 rows x 16 heads, where the planner gives a warp per (row, head)
+    on the H100's 132 SMs, else over 12 x 16 (blocks of four warps); both
+    layouts also forced at S = 1, twice with equal bits. One launch per
+    call, counted on kernel #2 only."""
+    k2, k3 = fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_chunked
+    b, h = (128, 16) if d == 80 else (12, 16)
+    cache, g = _cache(2, b, h, t, d, device, seed=d + t, cls=PackedQuantKVCache)
+    q = torch.randn((b, h, 1, d), generator=g, device=device).to(q_dtype)
+    rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
+    if d % 4:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            k2(q, cache.kv, cache.scale, 0, t)
+        return
+    for layer in (0, 1):
+        for n in sorted({1, 2, t // 2 + 1, max(t - 1, 1), t}):
+            lens = torch.full((1,), n, dtype=torch.int32, device=device)
+            before = (k2.launches, k3.launches)
+            got = k2(q, cache.kv, cache.scale, layer, lens)
+            torch.cuda.synchronize()
+            assert (k2.launches, k3.launches) == (before[0] + 1, before[1])
+            want = fd.packed_decode_attention_q8_plain(q.float(), cache.kv, cache.scale, layer, n)
+            assert got.dtype == q_dtype and got.shape == (b, h, 1, d)
+            err = (got.float() - want).abs().max().item()
+            assert err <= rel * want.abs().max().item() + 1e-6, (layer, n, err)
+            for wh in (True, False) if fd.packed_decode_tile(d) else ():
+                one = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, None, None, False, splits=1, warp_head=wh)
+                two = fd._launch_packed(q, cache.kv, cache.scale, layer, lens, None, None, False, splits=1, warp_head=wh)
+                torch.cuda.synchronize()
+                assert (one.float() - want).abs().max().item() <= rel * want.abs().max().item() + 1e-6, (n, wh)
+                assert torch.equal(one, two), (n, wh)
+
+
+def test_packed_blocks_per_sm(device):
+    """The tiled kernel's instantiations share an SM as their rings and
+    launch bounds ask: the int8 kernel at RAR-XL's D = 80 (three-stage ring
+    of 36 KB) and at Taming's D = 104 (the window) four blocks, so that
+    either main path's 512 blocks run in one wave on 132 SMs; int4 six (the
+    768 blocks of a Chameleon call); int8 at D = 128 three (64 KB). Where
+    the int8 loads go through L1 (a warp per (row, head), the window) the
+    DMA probe's blocks share an SM as the attention's they time."""
+    assert fd.packed_blocks_per_sm(80, False, True) == 4
+    assert fd.packed_blocks_per_sm(104, False, False) == 4
+    assert fd.packed_blocks_per_sm(128, True, False) == 6
+    assert fd.packed_blocks_per_sm(128, False, False) == 3
+    for d, warp_head in ((80, True), (104, False), (104, True), (128, True)):
+        assert fd.packed_blocks_per_sm(d, False, warp_head, probe=True) == fd.packed_blocks_per_sm(d, False, warp_head)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(128, 258, 16, 80), (32, 257, 16, 104)], ids=["rar_xl", "taming"])
+def test_packed_q8_replays_from_a_cuda_graph(device, b, t, h, d):
+    """One launch of kernel #2 captured in a CUDA graph at the RAR-XL shape
+    (a warp per (row, head)) and at Taming-1.4B's (blocks of four warps),
+    replayed after ``valid_len`` was changed in place, gives the bits of a
+    fresh call."""
+    launch = fd.packed_decode_attention_q8
+    cache, g = _cache(2, b, h, t, d, device, seed=b, cls=PackedQuantKVCache)
+    q = torch.randn((b, h, 1, d), generator=g, device=device, dtype=torch.bfloat16)
+    if fd._sm_count(0) == 132:
+        assert fd.packed_decode_plan(b, h, t, d, False, 132).warp_head == (b == 128)
+    lens = torch.full((1,), 2, dtype=torch.int32, device=device)
+    launch(q, cache.kv, cache.scale, 1, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, cache.kv, cache.scale, 1, lens)
+    for n in (2, 1, 129, t):
+        lens.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, launch(q, cache.kv, cache.scale, 1, lens)), n
+        want = fd.packed_decode_attention_q8_plain(q.float(), cache.kv, cache.scale, 1, n)
+        assert (out.float() - want).abs().max().item() <= (2.0**-8 + 1e-5) * want.abs().max().item() + 1e-6, n
 
 
 @pytest.mark.parametrize("kernel", ["q8_chunked", "packed4_chunked"])
@@ -695,12 +776,16 @@ def test_flash_kernels_reject_bad_inputs(device):
     assert before == (fd.flash_decode_attention.launches, fd.flash_decode_attention_q8.launches)
 
 
-@pytest.mark.parametrize("b,t,h,d", [(5, 40, 3, 20), (128, 258, 16, 80), (3, 1100, 4, 128), (2, 33, 2, 256)])
+@pytest.mark.parametrize("b,t,h,d", [(5, 40, 3, 20), (128, 258, 16, 80), (32, 257, 16, 104), (3, 1100, 4, 128),
+                                     (2, 33, 2, 256), (128, 40, 16, 48)])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_dma_probe_matches_plain(device, b, t, h, d, q_dtype):
-    """Kernel #7 gives its plain version's output bit for bit (one float32
-    add, one rounding), for both layers of a stacked cache; one launch per
-    call."""
+    """Kernel #7 (kernel #2's instantiation at these shapes with its math
+    compiled out: a warp per (row, head) at 128 x 16, blocks of four warps
+    and S = 2 or more at the small shapes) gives its plain version's output
+    bit for bit (one float32 add, one rounding), for both layers of a
+    stacked cache; one launch per call. A head dim that fits no warp of the
+    tiled kernel, or a uint8 payload, raises."""
     cache, _ = _cache(2, b, h, t, d, device, seed=t, cls=PackedQuantKVCache)
     q = torch.zeros((b, h, 1, d), dtype=q_dtype, device=device)
     for layer in (0, 1):
@@ -712,6 +797,10 @@ def test_dma_probe_matches_plain(device, b, t, h, d, q_dtype):
         assert got.dtype == q_dtype and torch.equal(got, want) and got.abs().max() > 1
     with pytest.raises(TypeError):
         fd._packed_dma_probe(q, cache.kv.view(torch.uint8), cache.scale, 0)
+    wide, _ = _cache(1, 2, 2, 8, 132, device, cls=PackedQuantKVCache)
+    with pytest.raises(ValueError, match="fits no warp"):
+        fd._packed_dma_probe(torch.zeros((2, 2, 1, 132), device=device), wide.kv, wide.scale, 0)
+    assert fd._packed_dma_probe.launches == before + 1
 
 
 @pytest.mark.parametrize("rows,cols", [(1, 1024), (3, 8), (64, 1024), (1000, 136), (16384, 1024)])

@@ -1,5 +1,6 @@
-"""Port parity, the split-over-T arithmetic of the chunked packed decode
-kernels (#3 int8, #4 int4) in plain torch, and their planner.
+"""Port parity, the split-over-T arithmetic of the tiled packed decode
+kernel (#1, #2 below 1024 slots; #3 int8, #4 int4 from 1024 on) in plain
+torch, and its planner.
 
 On the card the kernels cut a row's slots ``[start_b, valid_len)`` into tiles,
 deal the tiles to ``S`` blocks and merge the blocks' ``(max, sum, acc)`` in
@@ -110,6 +111,81 @@ def test_packed4_split_plain_vs_jax_single_block_kernel(d, t):
             got = tfd.packed_decode_attention_split_plain(torch.as_tensor(q), tc.kv, tc.scale, 0, n, None, None,
                                                           splits, int4=True)
             np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0, err_msg=f"{n} S={splits}")
+
+
+@pytest.mark.parametrize("d,t", [(80, 258), (104, 257)])
+def test_q8_split_plain_vs_jax_single_block_kernel(d, t):
+    """Kernel #2's arithmetic on the card (the tiled kernel over the int8
+    cache without masks: tiles of ``packed_decode_tile(d, False)`` slots, 18
+    at RAR-XL's D = 80 and 16 at Taming's D = 104, S = 1 as the planner gives
+    at both main-path shapes, and S = 2) against JAX's single-block kernel
+    ``_packed_attn_kernel_q8`` in interpret mode, as
+    ``tests/test_packed_cache.py`` runs it, over a full and a part-filled
+    cache: atol 2e-2, that kernel's bf16 dots."""
+    tc, jc, q, _, _ = _filled("packed", d, t, seed=d + 1, jax_too=True, t=t)
+    assert tfd.packed_decode_plan(128 if d == 80 else 32, 16, t, d, False, 132).splits == 1
+    for n in (t, t // 2 + 1, 1):
+        want = np.asarray(jfd.packed_decode_attention_q8(jnp.asarray(q), jc.kv, jc.scale, 0, n, interpret=True))
+        for splits in (1, 2):
+            got = tfd.packed_decode_attention_split_plain(torch.as_tensor(q), tc.kv, tc.scale, 0, n, None, None,
+                                                          splits, int4=False)
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0, err_msg=f"{n} S={splits}")
+
+
+# (B, T, H, D, int4) -> (kernel, S, a warp per (row, head), lanes of a slot, bytes of a load, slots of a tile,
+# the windowed int8 layout) on 132 SMs
+PLANS = {
+    "rar_xl": ((128, 258, 16, 80, False), ("tiled", 1, True, 5, 16, 18, False)),  # a warp per pair, five lanes
+    "rar_xl_int4": ((128, 258, 16, 80, True), ("tiled", 1, True, 5, 16, 30, False)),
+    "rar_xxl": ((128, 258, 16, 88, False), ("tiled", 1, True, 8, 16, 16, True)),  # a window of 96 bytes
+    "rar_xxl_int4": ((128, 258, 16, 88, True), ("tiled", 1, True, 16, 8, 16, False)),
+    "rar_b": ((128, 258, 16, 48, False), ("tiled", 1, True, 8, 16, 32, False)),
+    "taming": ((32, 257, 16, 104, False), ("tiled", 1, False, 8, 16, 16, True)),  # blocks: 3.9 pairs an SM
+    "taming_int4": ((32, 257, 16, 104, True), ("tiled", 1, False, 16, 8, 16, False)),
+    "taming_odd_heads": ((32, 257, 15, 104, False), ("tiled", 1, False, 16, 8, 16, False)),  # no window
+    "d132": ((128, 258, 16, 132, False), ("slot", 1, False, 0, 4, 0, False)),  # fits no warp: slot by slot
+    "d6_int4": ((4, 40, 2, 6, True), ("slot", 1, False, 0, 1, 0, False)),  # no multiple of 4: bytes, kernel #1 only
+    "t2i": ((24, 1043, 32, 128, False), ("tiled", 1, False, 8, 16, 32, False)),
+    "sampler": ((3, 4096, 32, 128, True), ("tiled", 4, False, 8, 16, 32, False)),
+    "small": ((5, 258, 3, 20, False), ("tiled", 2, False, 5, 4, 18, False)),  # few pairs: the short cache splits too
+}
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_packed_decode_plan(case):
+    """The kernel, ``S``, the warp layout and the lanes of a slot of the
+    packed decode kernels at the main paths' shapes on the H100's 132 SMs,
+    as pure functions of the shapes: kernel #2 (and #1) at RAR-XL a warp per
+    (row, head) with groups of five lanes, at Taming-1.4B blocks of four
+    warps (#2 with 16-byte loads through its window, #1 with 8-byte loads),
+    at D = 132 the slot-by-slot kernel; and ``packed_decode_tile`` /
+    ``_packed_lanes`` agree with it. The window keeps the tile of the 8-byte
+    layout; int8 groups of five lanes take 18-slot tiles, int4 ones 30."""
+    (b, t, h, d, int4), want = PLANS[case]
+    plan = tfd.packed_decode_plan(b, h, t, d, int4, 132)
+    assert plan == tfd.PackedPlan(*want)
+    if plan.kernel == "tiled":
+        assert plan.tile == tfd.packed_decode_tile(d, int4, plan.window)
+        assert plan.lanes == tfd._packed_lanes(d, plan.window)
+        if plan.window:
+            assert plan.tile == tfd.packed_decode_tile(d, True, False)
+    assert list(inspect.signature(tfd.packed_decode_plan).parameters)[:6] == ["b", "h", "t", "d", "int4", "sm_count"]
+
+
+def test_packed_decode_plan_forcing():
+    """``splits`` and ``warp_head`` force the tiled kernel's layout (what the
+    card tests and ``chip_smoke.py`` hold to equal bits), a bad pair raises,
+    and the slot-by-slot kernel ignores them."""
+    rar = (128, 16, 258, 80, False, 132)
+    assert tfd.packed_decode_plan(*rar, splits=1, warp_head=False) == tfd.PackedPlan(
+        "tiled", 1, False, 5, 16, 18, False)
+    assert tfd.packed_decode_plan(*rar, splits=4) == tfd.PackedPlan("tiled", 4, False, 5, 16, 18, False)
+    assert tfd.packed_decode_plan(32, 16, 257, 104, False, 132, warp_head=True).warp_head
+    with pytest.raises(ValueError, match="one split"):
+        tfd.packed_decode_plan(*rar, splits=2, warp_head=True)
+    with pytest.raises(ValueError, match="splits"):
+        tfd.packed_decode_plan(*rar, splits=17)
+    assert tfd.packed_decode_plan(128, 16, 258, 132, False, 132, splits=17, warp_head=True).kernel == "slot"
 
 
 def test_packed_split_plain_row_without_a_slot_is_zero():

@@ -1,19 +1,18 @@
 // Single-token decode attention over the packed KV caches (int4 and int8),
-// streamed in chunks with an online softmax, for Hopper.
-//
-// Replaces the TPU kernel _packed_attn_kernel_q8 of the JAX package's
-// ops/flash_decode.py (the int8 cache, T < 1024, no masks). It was first
-// written for the two chunked kernels as well (T >= 1024, through
-// _chunked_body, with a per-row first slot, start, and an optional per-row
-// slot mask, key_mask); those now have the tiled kernel of
-// packed_chunked_attention.cu and come here only at a head dim whose slot
-// fits no warp there (no multiple of 8 above 128). So does the short-cache
-// int4 kernel (_packed4_attn_kernel, T < 1024), whose own route is the tiled
-// kernel too: it comes here at those head dims and at one that is no
-// multiple of 4 (its runs are then read byte by byte). One template covers all:
-// the payload (int4 or int8) is a template argument, start and key_mask are
-// null pointers where the call has none. Built with nvcc for sm_90a into a
-// shared library with a plain C interface, loaded through ctypes by
+// streamed slot by slot with an online softmax, for Hopper: the fallback
+// layout of the tiled kernel of packed_chunked_attention.cu, which is the
+// route of all four packed TPU kernels of the JAX package's
+// ops/flash_decode.py (_packed4_attn_kernel, _packed_attn_kernel_q8 and the
+// two chunked ones, through _chunked_body, with a per-row first slot, start,
+// and an optional per-row slot mask, key_mask). A call comes here only where
+// that kernel does not reach: a head dim whose slot fits no warp of it (no
+// multiple of 8 above 128), on either payload and at any T; and, for the
+// int4 cache below 1024 slots, a head dim that is no multiple of 4 or a
+// payload off the tiled kernel's alignment, whose runs are then read byte by
+// byte. No model of the repository has such a head dim. One template covers
+// all: the payload (int4 or int8) is a template argument, start and key_mask
+// are null pointers where the call has none. Built with nvcc for sm_90a into
+// a shared library with a plain C interface, loaded through ctypes by
 // wmar_tpu_torch/ops/flash_decode.py.
 //
 // Layout of one layer (read in place from the stacked cache by offset):
@@ -23,10 +22,10 @@
 //   q [B, H, D] (bf16 or f32), out [B, H, D] in q's type
 //   valid_len int32 [1], start int32 [B] or null, key_mask uint8 [B, T] or null
 //
-// What bounds it: bytes. At Chameleon-7B (24 rows, 32 heads of 128, ~1043
-// slots) a full int4 call reads ~102 MB of payload and ~3 MB of scales, at
-// about 4 flops per byte, far below the card's flops-per-byte balance. The
-// design reads every byte it needs once and nothing else:
+// What bounds it: bytes, at about 4 flops per byte, far below the card's
+// flops-per-byte balance; this first design reaches a fifth to a half of the
+// card's rate (one 32-bit word a lane, slot by slot), which is why the tiled
+// kernel took over. It reads every byte it needs once and nothing else:
 //   - one block per (head h, row b), four warps. Slot t of the row is one
 //     contiguous D-byte run (2 x D for int8: K and V runs); a lane loads 4
 //     bytes of it as one 32-bit word, so a warp reads up to 128 bytes of a

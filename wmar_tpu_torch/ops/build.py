@@ -110,7 +110,10 @@ def load() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.wmar_dma_probe
-    fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.wmar_packed_blocks_per_sm
+    fn.argtypes = [i, i, i, i, i, p]
     fn.restype = i
     fn = lib.wmar_row_mean_probe
     fn.argtypes = [p, p, i, i, i, p]

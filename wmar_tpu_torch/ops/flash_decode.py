@@ -5,49 +5,51 @@ probe of ``tools/bench_call_floor.py``) has a hand-written sm_90a
 counterpart here, reached through the JAX package's wrappers:
 
 * :func:`packed4_decode_attention` (the int4 ``Packed4QuantKVCache``):
-  below 1024 slots ``_packed4_attn_kernel`` (kernel #1), launched on the
-  tiled kernel of ``csrc/packed_chunked_attention.cu`` without ``start``
-  and ``key_mask``; from 1024 slots on the chunked
-  ``_packed4_attn_kernel_chunked{,_km}`` (#4), here
-  :func:`packed4_decode_attention_chunked`, the same source.
+  below 1024 slots ``_packed4_attn_kernel`` (kernel #1); from 1024 slots on
+  the chunked ``_packed4_attn_kernel_chunked{,_km}`` (#4), here
+  :func:`packed4_decode_attention_chunked`.
 * :func:`packed_decode_attention_q8` (the int8 ``PackedQuantKVCache``):
   below 1024 slots ``_packed_attn_kernel_q8`` (#2); from 1024 slots on the
   chunked ``_packed_attn_kernel_q8_chunked{,_km}`` (#3), here
   :func:`packed_decode_attention_q8_chunked`.
+* All four are one tiled kernel, ``csrc/packed_chunked_attention.cu``, below
+  1024 slots launched without ``start`` and ``key_mask``
+  (:func:`packed_decode_plan` says how a call runs). A head dim whose slot
+  fits no warp there (no multiple of 8 above 128), and kernel #1 at a head
+  dim that is no multiple of 4 or a payload off its alignment, take the
+  slot-by-slot kernel of ``csrc/packed_decode_attention.cu``.
 * :func:`flash_decode_attention` (a bf16 or f32 ``KVCache`` layer,
   ``_decode_attn_kernel{,_km}``, #5) and :func:`flash_decode_attention_q8`
   (a ``QuantKVCache`` layer, ``_decode_attn_kernel_q8{,_km}``, #6): one
   payload-templated kernel, ``csrc/flash_decode_attention.cu``, with
   ``start`` and ``key_mask`` at any cache length.
-* :func:`_packed_dma_probe` (``_dma_probe_kernel``, #7) and
-  :func:`row_mean_probe` (the per-call floor probe, #9),
-  ``csrc/probes.cu``: what the int8 decode kernel's loads alone cost, and
+* :func:`_packed_dma_probe` (``_dma_probe_kernel``, #7): kernel #2's
+  instantiation with its math compiled out, what its loads alone cost; and
+  :func:`row_mean_probe` (the per-call floor probe, #9, ``csrc/probes.cu``):
   what one small launch costs.
 
-Kernel #2 is a payload-templated CUDA kernel
-(``csrc/packed_decode_attention.cu``): a block per (head, row) streams the
-row's slots with an online softmax, slot by slot. The packed routing keeps
-JAX's rule: ``start``/``key_mask`` are taken only by the chunked path (``T
->= 1024``); at shorter ``T`` the packed wrappers raise ``ValueError`` as
-JAX's do.
+The packed routing keeps JAX's rule: ``start``/``key_mask`` are taken only
+by the chunked path (``T >= 1024``); at shorter ``T`` the packed wrappers
+raise ``ValueError`` as JAX's do.
 
-Kernels #1 and #3-#6 are designed for the card's 132 SMs (#5/#6:
-``csrc/flash_decode_attention.cu``; #1, #3 and #4, over the packed layouts
-where a head's bytes of a slot lie ``H*D`` or ``2*H*D`` bytes apart:
+Kernels #1-#6 are designed for the card's 132 SMs (#5/#6:
+``csrc/flash_decode_attention.cu``; #1-#4, over the packed layouts where a
+head's bytes of a slot lie ``H*D`` or ``2*H*D`` bytes apart:
 ``csrc/packed_chunked_attention.cu``): the grid is ``(H, B, S)``, the ``S``
 blocks of a (row, head) each take a share of ``[start_b, valid_len)`` in
 whole tiles (:func:`flash_decode_tile` / :func:`packed_decode_tile` slots)
 and the block that finishes last merges the partial ``(max, sum, acc)`` in
-split order, inside the same launch. :func:`flash_decode_splits` and
-:func:`packed_decode_splits` pick ``S`` from the shapes alone, so a CUDA
-graph may replay the launch while the fill grows. A lane loads 16 bytes at
-a time into a cp.async ring, the softmax runs by the tile, masks and scales
-are read by the tile, and a masked slot costs no payload bytes.
-:func:`flash_decode_attention_split_plain` (and, over the packed layouts,
-:func:`packed_decode_attention_split_plain`) is the same arithmetic in
-plain torch. The scratch for the partials and the arrival counters belong
-to this module, one set per device (see :func:`_flash_workspace` for what
-that costs).
+split order, inside the same launch; where a short cache has many (row,
+head) pairs (RAR-XL) a warp takes a pair of its own instead.
+:func:`flash_decode_splits` and :func:`packed_decode_splits` pick ``S``
+from the shapes alone, so a CUDA graph may replay the launch while the fill
+grows. A lane loads 16 bytes at a time into a cp.async ring, the softmax
+runs by the tile, masks and scales are read by the tile, and a masked slot
+costs no payload bytes. :func:`flash_decode_attention_split_plain` (and,
+over the packed layouts, :func:`packed_decode_attention_split_plain`) is
+the same arithmetic in plain torch. The scratch for the partials and the
+arrival counters belong to this module, one set per device (see
+:func:`_flash_workspace` for what that costs).
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain torch version of the same math in float32 (the
@@ -57,14 +59,16 @@ whatever ``S`` is.
 
 The attention kernels are bound by the bytes they read: the payload of the
 slots that take part plus the scales, about 43 MB per layer at RAR-XL
-(int4, 128 rows), 105 MB at Chameleon-7B text-to-image (int4, 24 rows, a
-full cache of 1043 slots) and 53 MB at the end of an interleaved run (bf16,
-3 rows over one history of ~1160 slots).
+(int4, 128 rows; 87 MB int8), 105 MB at Chameleon-7B text-to-image (int4,
+24 rows, a full cache of 1043 slots) and 53 MB at the end of an interleaved
+run (bf16, 3 rows over one history of ~1160 slots).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -75,9 +79,14 @@ _FLASH_MAX_SPLITS = 16  # the kernel's limit on S (kMaxSplits)
 _FLASH_MIN_SHARE = 128  # slots of the cache a split should at least stand for
 _FLASH_BLOCKS_PER_SM = 3  # blocks of kernels #5/#6 that fit one SM (64 KB of shared memory each)
 _PACKED_MAX_SPLITS = 16  # kernels #3/#4: the kernel's limit on S (kMaxSplits)
-_WARP_HEAD_PER_SM = 12  # (row, head) pairs an SM from which kernels #1/#3/#4 give each pair a warp of its own
-_PACKED_BLOCKS_PER_SM = 3  # blocks an SM that the planner of kernels #3/#4 counts on: the int8 kernel's (64 KB of
+# (row, head) pairs an SM from which the tiled kernel gives each pair a warp, by payload (int4: #1, #4; int8: #2,
+# #3), fitted to the rows sweep of tools/bench_flash_splits --packed (258 slots, 16 heads of 80 and 104)
+_WARP_HEAD_PER_SM = {True: 12, False: 6}
+_PACKED_BLOCKS_PER_SM = 3  # blocks an SM that the planner of the tiled kernel counts on: the int8 kernel's (64 KB of
 # ring each at D = 128). The int4 kernel fits six, but its sweep prefers the same S (tools/bench_flash_splits --packed)
+_PACKED_PASSES_WINDOW = 4  # passes of a tile in the tiled kernel's windowed layout (kPassesWin)
+_PACKED_PASSES_FIVE8 = 3  # passes of a tile of the int8 payload in groups of five lanes (kPassesFive8)
+_PROBE_MAX_T = 1 << 20  # kernel #7 adds up what it loads in 32 bits (csrc/packed_chunked_attention.cu)
 _CHUNK_MIN_T = 1024  # JAX's shape-aware default: the chunked kernels from 1024 slots on
 _MASKS_NEED_CHUNKED = (
     "start/key_mask support requires the chunked path (T >= 1024); "
@@ -199,7 +208,7 @@ def _chunked_route(kv_all, start, key_mask) -> bool:
 
 
 def _check_packed(q, kv_all, scale_all, layer: int, int4: bool):
-    """The checks of kernels #2-#4 and #7: :func:`_check`, a head dim of
+    """The checks of kernels #1-#4 and #7: :func:`_check`, a head dim of
     whole 32-bit words and a payload aligned to them. Returns the layer's
     views, which the kernel reads in place."""
     _check(q, kv_all, scale_all, layer, torch.uint8 if int4 else torch.int8, 1 if int4 else 2)
@@ -214,8 +223,8 @@ def _check_packed(q, kv_all, scale_all, layer: int, int4: bool):
 
 def _launch_packed_stream(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool,
                           any_d: bool = False) -> torch.Tensor:
-    """Launch ``csrc/packed_decode_attention.cu``: kernel #2, and kernels #1,
-    #3 and #4 at the head dims their tiled kernel does not take. ``any_d``
+    """Launch ``csrc/packed_decode_attention.cu``: kernels #1-#4 at the head
+    dims their tiled kernel does not take. ``any_d``
     (kernel #1 only): an int4 head dim that is no multiple of 4, or a payload
     off 4-byte alignment, which the kernel reads byte by byte."""
     if any_d:
@@ -240,93 +249,174 @@ def _launch_packed_stream(q, kv_all, scale_all, layer: int, valid_len, start, ke
     return out
 
 
-def _packed_load_bytes(d: int) -> int:
-    """Bytes of one lane's load in kernels #3 and #4: a head's slot is ``d``
-    bytes of nibbles, or ``d`` bytes of K and ``d`` of V; 16 where ``d`` is a
-    multiple of 16, else 8, else 4 (the kernel's rule)."""
-    return 16 if d % 16 == 0 else 8 if d % 8 == 0 else 4
+def _packed_window(d: int, h: int, int4: bool) -> bool:
+    """Whether the tiled kernel reads an int8 slot in its windowed layout:
+    16-byte loads of a 16-byte-aligned window of ``d + 8`` bytes around a
+    head's run, where ``d`` is 8 bytes past a multiple of 16 (from 88 on:
+    Taming's 104, RAR-XXL's 88) and ``h`` is even (the kernel's rule,
+    ``csrc/packed_chunked_attention.cu:windowed``)."""
+    return not int4 and d % 16 == 8 and d >= 88 and h % 2 == 0
 
 
-def packed_decode_tile(d: int) -> int:
-    """Slots of one tile of kernels #1, #3 and #4 (the unit of the split over
-    T and of the softmax), or 0 where a slot of ``d`` values does not fit a
-    warp: the lanes of a slot are the next power of two above ``d`` / (bytes
-    of one load), at least 8; a warp reads ``32 / lanes`` slots at once and a
-    tile is 8 such passes. 32 up to ``d = 128`` (16 at 88 and 104, whose
-    loads are 8 bytes), 16 above; 0 for ``d = 132, 140, ...``, which are no
-    multiple of 8. A slot of exactly five loads (``d = 80`` at 16 bytes, 40
-    at 8, 20 at 4) takes groups of five lanes instead, six slots a pass and
-    five passes: 30."""
-    if d == 5 * _packed_load_bytes(d):
-        return 30
+def _packed_load_bytes(d: int, window: bool = False) -> int:
+    """Bytes of one lane's load in the tiled kernel (#1-#4): a head's slot is
+    ``d`` bytes of nibbles, or ``d`` bytes of K and ``d`` of V; 16 where ``d``
+    is a multiple of 16 or the slot is read through a ``window``, else 8,
+    else 4 (the kernel's rule)."""
+    return 16 if d % 16 == 0 or window else 8 if d % 8 == 0 else 4
+
+
+def _packed_lanes(d: int, window: bool = False) -> int:
+    """Lanes of one slot in the tiled kernel: 5 where a slot is exactly five
+    loads (``d = 80`` at 16 bytes, 40 at 8, 20 at 4), else the next power of
+    two above the slot's bytes (``d``, or ``d + 8`` through a ``window``) /
+    (bytes of one load), at least 8; 0 where that passes 32 (the slot fits no
+    warp)."""
+    vb = _packed_load_bytes(d, window)
+    if d == 5 * vb and not window:
+        return 5
     lanes = _FLASH_PASSES
-    while lanes * _packed_load_bytes(d) < d:
+    while lanes * vb < d + (8 if window else 0):
         lanes *= 2
-    return _FLASH_PASSES * 32 // lanes if lanes <= 32 else 0
+    return lanes if lanes <= 32 else 0
+
+
+def packed_decode_tile(d: int, int4: bool = True, window: bool = False) -> int:
+    """Slots of one tile of the tiled kernel (the unit of the split over T
+    and of the softmax), or 0 where a slot of ``d`` values does not fit a
+    warp: a warp reads ``32 / lanes`` slots at once (:func:`_packed_lanes`)
+    and a tile is 8 such passes: 32 up to ``d = 128`` (16 at 88 and 104,
+    whose loads are 8 bytes), 16 above; 0 for ``d = 132, 140, ...``, which
+    are no multiple of 8. Groups of five lanes take six slots a pass and
+    five passes on the int4 payload (30), three on the int8 one (18: a
+    ring of three stages in the same bytes). Through a ``window`` (int8) a
+    tile is 4 passes of 16-byte loads, the same 16 slots at 88 and 104."""
+    lanes = _packed_lanes(d, window)
+    if lanes == 5:
+        return 6 * (5 if int4 else _PACKED_PASSES_FIVE8)
+    return (_PACKED_PASSES_WINDOW if window else _FLASH_PASSES) * 32 // lanes if lanes else 0
 
 
 def packed_decode_splits(b: int, h: int, t: int, sm_count: int) -> int:
-    """How many blocks ``S`` share one (row, head) in kernels #3 and #4: a
+    """How many blocks ``S`` share one (row, head) in the tiled kernel: a
     function of the shapes and the card's SM count only, never of the fill
     (see :func:`flash_decode_splits`). As many as keep the whole grid on the
     card at once, at most one per 128 slots of the cache and at most 16:
     1 at 24 rows x 32 heads over 1043 slots on 132 SMs, 4 at 3 rows x 32
-    heads over 4096."""
+    heads over 4096, 1 at RAR-XL's and Taming's short caches."""
     resident = _PACKED_BLOCKS_PER_SM * sm_count
     return max(1, min(resident // (b * h), t // _FLASH_MIN_SHARE, _PACKED_MAX_SPLITS))
 
 
-def packed_decode_warp_head(b: int, h: int, splits: int, sm_count: int) -> bool:
-    """Whether kernels #1, #3 and #4 give each (row, head) one warp (a block
-    is four heads of a row) instead of a block of four warps: with one split
-    and at least 12 pairs an SM, where blocks of four warps would each see
-    only a few tiles of a short cache and wait on their first loads (RAR-XL,
-    128 rows x 16 heads; not Taming's 32 x 16 or Chameleon's 24 x 32, whose
-    pairs alone would leave SMs with too few warps)."""
-    return splits == 1 and b * h >= _WARP_HEAD_PER_SM * sm_count
+def packed_decode_warp_head(b: int, h: int, splits: int, int4: bool, sm_count: int) -> bool:
+    """Whether the tiled kernel gives each (row, head) one warp (a block is
+    four heads of a row) instead of a block of four warps: with one split
+    and enough pairs an SM, where blocks of four warps would each see only a
+    few tiles of a short cache and wait on their first loads. From 12 pairs
+    an SM on the int4 payload, from 6 on the int8 one, whose slots are twice
+    the bytes (the rows sweep at 258 slots, D = 80 and 104: on int8 a warp a
+    pair is 4-7% faster at 6.8 and 7.8 pairs an SM, even at 5.8, 25-35%
+    slower at 3.9; on int4 at D = 104 7% slower at 7.8). RAR-XL (128 rows x
+    16 heads: 15.5 pairs an SM on 132 SMs) takes it on both payloads;
+    Taming's 32 x 16 (3.9) and Chameleon's 24 x 32 (5.8, over 1043 slots)
+    on neither."""
+    return splits == 1 and b * h >= _WARP_HEAD_PER_SM[bool(int4)] * sm_count
+
+
+class PackedPlan(NamedTuple):
+    """How a packed decode-attention call runs on the card; see
+    :func:`packed_decode_plan`."""
+
+    kernel: str  # "tiled": csrc/packed_chunked_attention.cu; "slot": the slot-by-slot csrc/packed_decode_attention.cu
+    splits: int  # S, the blocks of one (row, head); 1 on the slot kernel
+    warp_head: bool  # a warp per (row, head), a block four heads of a row
+    lanes: int  # lanes of one slot (:func:`_packed_lanes`); 0 on the slot kernel
+    load_bytes: int  # bytes of one lane's load: 16, 8 or 4; 4 (32-bit words) or 1 on the slot kernel
+    tile: int  # slots of a tile (:func:`packed_decode_tile`); 0 on the slot kernel
+    window: bool  # int8 slots read through a 16-byte-aligned window of D + 8 bytes (:func:`_packed_window`)
+
+
+def packed_decode_plan(b: int, h: int, t: int, d: int, int4: bool, sm_count: int, splits=None,
+                       warp_head=None) -> PackedPlan:
+    """The kernel, ``S``, the warp layout and the lanes of a slot of a
+    packed decode-attention call ``[B, H, 1, D]`` over ``T`` slots of the
+    int4 (``int4``) or int8 payload: a function of the shapes and the card's
+    SM count only. The tiled kernel wherever a slot fits a warp, with
+    :func:`packed_decode_splits` and :func:`packed_decode_warp_head` unless
+    ``splits`` / ``warp_head`` force them; the slot-by-slot kernel at the head
+    dims it does not take (no multiple of 8 above 128, and, int4 only, no
+    multiple of 4: byte loads), where forcing is ignored. On 132 SMs:
+    RAR-XL (128 x 258 x 16 x 80) a warp per (row, head), groups of five
+    lanes of 16 bytes, S = 1, tiles of 30 slots (int4) or 18 (int8);
+    Taming-1.4B (32 x 257 x 16 x 104) blocks of four warps, S = 1, 16-slot
+    tiles, int4 in 16 lanes of 8 bytes, int8 in its window: 8 lanes of 16
+    bytes."""
+    if d % 4:
+        return PackedPlan("slot", 1, False, 0, 1, 0, False)
+    window = _packed_window(d, h, int4)
+    lanes = _packed_lanes(d, window)
+    if not lanes:
+        return PackedPlan("slot", 1, False, 0, 4, 0, False)
+    if splits is None:
+        splits = packed_decode_splits(b, h, t, sm_count)
+    if not 1 <= splits <= _PACKED_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside [1, {_PACKED_MAX_SPLITS}]")
+    if warp_head is None:
+        warp_head = packed_decode_warp_head(b, h, splits, int4, sm_count)
+    if warp_head and splits != 1:
+        raise ValueError("the warp-per-(row, head) layout takes one split")
+    return PackedPlan("tiled", splits, bool(warp_head), lanes, _packed_load_bytes(d, window),
+                      packed_decode_tile(d, int4, window), window)
 
 
 def _launch_packed(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, int4: bool,
                    splits=None, warp_head=None) -> torch.Tensor:
-    """Launch ``csrc/packed_chunked_attention.cu`` (kernels #1, #3 and #4)
-    with ``splits`` blocks per (row, head); None lets
-    :func:`packed_decode_splits` choose, and ``warp_head`` None lets
-    :func:`packed_decode_warp_head` choose the warp-per-(row, head) layout. A
-    head dim whose slot does not fit a warp's lanes (no multiple of 8 above
-    128) goes to the slot-by-slot kernel instead."""
+    """Launch the kernel :func:`packed_decode_plan` picks for the shapes:
+    ``csrc/packed_chunked_attention.cu`` (kernels #1-#4) with ``splits``
+    blocks per (row, head) and the ``warp_head`` layout (None lets the
+    planner choose either), or, at a head dim whose slot does not fit a
+    warp's lanes (no multiple of 8 above 128), the slot-by-slot kernel."""
     kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4)
     b, h, _, d = q.shape
     t = kv_all.shape[2]
-    if not packed_decode_tile(d):
+    plan = packed_decode_plan(b, h, t, d, int4, _sm_count(q.device.index), splits, warp_head)
+    if plan.kernel == "slot":
         return _launch_packed_stream(q, kv_all, scale_all, layer, valid_len, start, key_mask, int4)
-    if kv_layer.data_ptr() % _packed_load_bytes(d):
-        raise ValueError(f"the cache payload must be {_packed_load_bytes(d)}-byte aligned: a lane loads that many "
-                         f"bytes of a slot of {d} values")
-    if splits is None:
-        splits = packed_decode_splits(b, h, t, _sm_count(q.device.index))
-    if not 1 <= splits <= _PACKED_MAX_SPLITS:
-        raise ValueError(f"splits {splits} outside [1, {_PACKED_MAX_SPLITS}]")
-    if warp_head is None:
-        warp_head = packed_decode_warp_head(b, h, splits, _sm_count(q.device.index))
-    if warp_head and splits != 1:
-        raise ValueError("the warp-per-(row, head) layout takes one split")
+    if kv_layer.data_ptr() % plan.load_bytes:
+        raise ValueError(f"the cache payload must be {plan.load_bytes}-byte aligned: a lane loads that many bytes of "
+                         f"a slot of {d} values")
     lens = _device_lens(valid_len, q.device)
     start, key_mask, start_ptr, mask_ptr = _device_masks(q, t, start, key_mask)
     partial_ptr = counters_ptr = None
-    if splits > 1:
-        partial, counters = _flash_workspace(q.device, b * h, b * h * splits * (d + 2))
+    if plan.splits > 1:
+        partial, counters = _flash_workspace(q.device, b * h, b * h * plan.splits * (d + 2))
         partial_ptr, counters_ptr = partial.data_ptr(), counters.data_ptr()
     from wmar_tpu_torch.ops import build
 
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     rc = build.load().wmar_packed_chunked_attention(
         q.data_ptr(), kv_layer.data_ptr(), scale_layer.data_ptr(), lens.data_ptr(), start_ptr, mask_ptr,
-        out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, splits, int(warp_head), int(int4),
+        out.data_ptr(), partial_ptr, counters_ptr, b, h, t, d, plan.splits, int(plan.warp_head), int(int4),
         int(q.dtype == torch.bfloat16), d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"packed chunked attention kernel failed to launch: cudaError {rc}")
     return out
+
+
+def packed_blocks_per_sm(d: int, int4: bool, warp_head: bool, q_dtype=torch.bfloat16, probe: bool = False) -> int:
+    """How many blocks of the tiled kernel's instantiation for head dim ``d``
+    share one SM of the current card (CUDA's occupancy calculator, for its
+    registers, ring and launch bounds); ``probe``: the DMA probe #7's (int8).
+    For the measuring tools."""
+    from wmar_tpu_torch.ops import build
+
+    n = ctypes.c_int(0)
+    rc = build.load().wmar_packed_blocks_per_sm(d, int(int4), int(warp_head), int(q_dtype == torch.bfloat16),
+                                                 int(probe), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return n.value
 
 
 def packed4_decode_attention_chunked(q, kv_all, scale_all, layer: int, valid_len, start=None,
@@ -361,14 +451,18 @@ def packed_decode_attention_q8(q, kv_all, scale_all, layer: int, valid_len, star
 
     Below 1024 slots kernel #2 (no masks: ``start``/``key_mask`` raise
     ``ValueError``), from 1024 on :func:`packed_decode_attention_q8_chunked`.
-    ``valid_len`` is best a device int32 tensor of one element.
+    Kernel #2 is the tiled kernel of kernels #3 and #4 launched without
+    masks (:func:`packed_decode_plan`), counted here; a head dim that is no
+    multiple of 8 above 128 takes the slot-by-slot kernel, and a payload off
+    the alignment of its loads raises. ``valid_len`` is best a device int32
+    tensor of one element.
     """
     layer = int(layer)
     if _chunked_route(kv_all, start, key_mask):
         return packed_decode_attention_q8_chunked(q, kv_all, scale_all, layer, valid_len, start, key_mask)
     if q.device.type == "cpu":
         return packed_decode_attention_q8_plain(q, kv_all, scale_all, layer, valid_len)
-    out = _launch_packed_stream(q, kv_all, scale_all, layer, valid_len, None, None, int4=False)
+    out = _launch_packed(q, kv_all, scale_all, layer, valid_len, None, None, int4=False)
     packed_decode_attention_q8.launches += 1
     return out
 
@@ -587,10 +681,11 @@ def flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, spli
 
 def packed_decode_attention_split_plain(q, kv_all, scale_all, layer: int, valid_len, start, key_mask, splits: int,
                                         int4: bool) -> torch.Tensor:
-    """Plain torch version of the arithmetic of kernels #3 (``int4`` False)
-    and #4 as the card does it: the layer unpacked to integer-valued ``k, v
-    [B, H, T, D]``, then :func:`flash_decode_attention_split_plain` with
-    tiles of :func:`packed_decode_tile` slots. For tests."""
+    """Plain torch version of the arithmetic of the tiled kernel (#1-#4;
+    ``int4`` False: the int8 payload) as the card does it: the layer
+    unpacked to integer-valued ``k, v [B, H, T, D]``, then
+    :func:`flash_decode_attention_split_plain` with tiles of
+    :func:`packed_decode_tile` slots. For tests."""
     b, h, _, d = q.shape
     t = kv_all.shape[2]
     sc = scale_all[layer].to(torch.float32)
@@ -600,8 +695,9 @@ def packed_decode_attention_split_plain(q, kv_all, scale_all, layer: int, valid_
     else:
         kv = kv_all[layer].to(torch.float32).reshape(b, t, 2, h, d)
         k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    tile = packed_decode_tile(d, int4, _packed_window(d, h, int4))
     return flash_decode_attention_split_plain(q, k, v, valid_len, start, key_mask, splits, sc[:, :h], sc[:, h:],
-                                              tile=packed_decode_tile(d))
+                                              tile=tile)
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, valid_len, start=None, key_mask=None) -> torch.Tensor:
@@ -670,22 +766,33 @@ def _packed_dma_probe_plain(q, kv_all, scale_all, layer: int) -> torch.Tensor:
 def _packed_dma_probe(q, kv_all, scale_all, layer: int) -> torch.Tensor:
     """Kernel #7: the bandwidth probe of the int8 packed decode kernels.
 
-    Same grid, block and loads as kernel #2 over all ``T`` slots of
-    ``kv_all int8 [L, B, T, 2*H*D]`` and ``scale_all bf16 [L, B, 2H, T]``,
-    with no attention math; only ``q``'s shape and dtype are used. Its time
-    is what those loads alone cost. Returns ``kv[b, 0, :H*D] + scale[b, 0,
-    0]`` as ``[B, H, 1, D]``.
+    Kernel #2's instantiation at these shapes (:func:`packed_decode_plan`:
+    the same grid, warp layout, ring and cp.async loads, and where those go
+    through L1 as many blocks an SM) with its math compiled out, over all
+    ``T`` slots of ``kv_all int8 [L, B, T, 2*H*D]``
+    and ``scale_all bf16 [L, B, 2H, T]``; only ``q``'s shape and dtype are
+    used. Its time is what those loads alone cost. ``T`` below 2^20, a head
+    dim the tiled kernel takes. Returns ``kv[b, 0, :H*D] + scale[b, 0, 0]``
+    as ``[B, H, 1, D]``.
     """
     layer = int(layer)
     if q.device.type == "cpu":
         return _packed_dma_probe_plain(q, kv_all, scale_all, layer)
     kv_layer, scale_layer = _check_packed(q, kv_all, scale_all, layer, int4=False)
     b, h, _, d = q.shape
+    t = kv_all.shape[2]
+    plan = packed_decode_plan(b, h, t, d, False, _sm_count(q.device.index))
+    if plan.kernel != "tiled":
+        raise ValueError(f"head dim {d}: the probe follows the tiled kernel, and a slot of {d} values fits no warp")
+    if t >= _PROBE_MAX_T:
+        raise ValueError(f"{t} slots: the probe takes fewer than {_PROBE_MAX_T}")
+    if kv_layer.data_ptr() % plan.load_bytes:
+        raise ValueError(f"the cache payload must be {plan.load_bytes}-byte aligned")
     from wmar_tpu_torch.ops import build
 
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
-    rc = build.load().wmar_dma_probe(kv_layer.data_ptr(), scale_layer.data_ptr(), out.data_ptr(), b, h,
-                                     kv_all.shape[2], d, int(q.dtype == torch.bfloat16),
+    rc = build.load().wmar_dma_probe(kv_layer.data_ptr(), scale_layer.data_ptr(), out.data_ptr(), b, h, t, d,
+                                     plan.splits, int(plan.warp_head), int(q.dtype == torch.bfloat16),
                                      torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dma probe kernel failed to launch: cudaError {rc}")
