@@ -101,7 +101,23 @@ phases:
    packed cache (kernel #2), a timed one on the packed4 cache (kernel #1);
    checks codes, images, p-values, the green fraction and the exact launch
    counts of every batch (256 forwards x 289 products for #8, 256 x 48
-   attention calls), and prints imgs/s and peak memory.
+   attention calls), and prints imgs/s and peak memory;
+9. attack sweep: the entry point ``generate.main`` without ``--no_augs``,
+   one batch each, so the reference's default run: sample, decode, one round
+   trip, the 62 (attack, param) cells of the classic grid on the card,
+   re-tokenize, detect, write. (a) RAR-XL, int8 weights, packed4 cache
+   (kernel #1), 16 classes, the device JPEG; (b) Taming-1.4B, grouped-int4
+   weights (kernel #8), packed4 cache (kernel #1), 8 classes, ``--exact_jpeg
+   true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
+   from a table). Checks n x 64 records and as many json, png and npy
+   files, images finite in [-1, 1], codes in range, p-values in [0, 1], the
+   identity cells (blur 0, noise 0, brightness 1, rotation 0, flip 0, crop
+   1.0) within 1e-6 of the original with codes equal to the first round
+   trip's on >= 99% of the tokens, the exact launch counts, in (b) the
+   green fraction under the table and the table's bits against the lazily
+   built rows of 64 keys, and the port's analyzer on each tree; prints the
+   robustness table and the seconds of the grid a batch beside the
+   sampling seconds.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -111,7 +127,10 @@ a CUDA card it fails at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import sys
 import tempfile
 import time
@@ -1197,6 +1216,185 @@ def phase_taming(device, wrapper, classes: int = TAMING_CLASSES) -> dict:
     return out
 
 
+# The attack sweep: (attack, identity param) cells, whose images must be the original's
+SWEEP_IDENTITY = {"gaussian-blur": 0, "gaussian-noise": 0, "brightness": 1, "rotation": 0, "flip-h": 0,
+                  "upperleft-crop": 1.0}
+SWEEP_ATTACKS = ("gaussian-blur", "gaussian-noise", "jpeg", "brightness", "rotation", "flip-h", "upperleft-crop")
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and passes it on to ``stream``."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+
+def _sweep_argv(tiny: bool, n_rar: int, n_taming: int) -> list:
+    """(label, generate argv, checks the torch-compat table) of the two runs."""
+    size = ["--tiny", "--device", "cpu"] if tiny else []
+    return [
+        ("RAR-XL", ["--model", "rar", *size, "--weight_dtype", "int8", "--cache_dtype", "packed4",
+                    "--conditioning", ",".join(str(c) for c in range(n_rar)), "--batch_size", str(n_rar),
+                    "--max_roundtrips", "1", "--seed", str(SEED)], False),
+        ("Taming-1.4B", ["--model", "taming", *size, "--weight_dtype", "int4", "--cache_dtype", "packed4",
+                         "--conditioning", ",".join(str(c) for c in range(n_taming)), "--batch_size", str(n_taming),
+                         "--top_k", str(TAMING_GEN["top_k"]), "--top_p", str(TAMING_GEN["top_p"]),
+                         "--exact_jpeg", "true", "--wm_torch_compat", "true", "--seed", str(SEED)], True),
+    ]
+
+
+def _sweep_checks(label, wrapper, log, records, outdir, n) -> dict:
+    """The gates of one sweep run on its log, records and tree."""
+    import os
+
+    from wmar_tpu_torch.core import green_fraction
+
+    n_aug = sum(len(rows) for transform, rows in log.items() if transform != "roundtrips")
+    want = n * (len(log["roundtrips"]) + n_aug)
+    if n_aug != 62 or set(log) != {"roundtrips", *SWEEP_ATTACKS} or len(records) != want:
+        raise AssertionError(f"{label}: {len(records)} records, {n_aug} attack cells, transforms {sorted(log)}")
+    files = [f for _, _, fs in os.walk(outdir) for f in fs]
+    counts = {ext: sum(f.endswith(ext) for f in files) for ext in (".json", ".png", ".npy")}
+    if set(counts.values()) != {want}:
+        raise AssertionError(f"{label}: files {counts}, {want} records")
+    v = wrapper.get_total_vocab_size()
+    for transform, rows in log.items():
+        for param, codes, imgs in rows:
+            if not (np.isfinite(imgs).all() and imgs.min() >= -1 and imgs.max() <= 1):
+                raise AssertionError(f"{label}: {transform} {param}: images in [{imgs.min()}, {imgs.max()}]")
+            if codes.shape != (n, wrapper.codes_size**2) or codes.min() < 0 or codes.max() >= v:
+                raise AssertionError(f"{label}: {transform} {param}: codes {codes.shape} in "
+                                     f"[{codes.min()}, {codes.max()}]")
+    pvals = np.array([r["pvalue"] for r in records])
+    if not (np.isfinite(pvals).all() and (pvals >= 0).all() and (pvals <= 1).all()):
+        raise AssertionError(f"{label}: p-values in [{pvals.min()}, {pvals.max()}]")
+    orig, first_trip = log["roundtrips"][0][2], log["roundtrips"][1][1]
+    agree = {}
+    for name, param in SWEEP_IDENTITY.items():
+        (codes, imgs), = [(c, i) for p, c, i in log[name] if p == param]
+        err = float(np.abs(imgs - orig).max())
+        agree[name] = float((codes == first_trip).mean())
+        if not err <= 1e-6 or not agree[name] >= 0.99:
+            raise AssertionError(f"{label}: identity cell {name} {param}: image err {err}, codes equal to the first "
+                                 f"round trip's on {agree[name]:.4f}")
+    raw = torch.as_tensor(log["roundtrips"][0][1], device=wrapper.device)
+    frac = green_fraction(wrapper.watermark_spec, wrapper.greenlist, raw).float().mean().item()
+    return {"records": len(records), "files": counts, "identity_agreement": agree, "green_fraction": frac}
+
+
+def _check_table_rows(label, wrapper, n_keys: int = 64) -> None:
+    """The torch-compat table the sampler used against the lazily built
+    rows of the reference's split, for ``n_keys`` keys drawn from the seed."""
+    from wmar_tpu_torch.core import LazyTorchCompatGreenlist, TableGreenlist
+
+    table = wrapper.greenlist
+    if not isinstance(table, TableGreenlist):
+        raise AssertionError(f"{label}: --wm_torch_compat gave a {type(table).__name__}")
+    keys = np.random.default_rng(SEED).integers(0, table.n_keys, n_keys)
+    lazy = LazyTorchCompatGreenlist(wrapper.watermark_spec, alive_ids=wrapper.alive_ids)
+    got = table.green_mask(torch.as_tensor(keys, device=wrapper.device)).cpu().numpy()
+    if not (got == np.stack([lazy._row(int(k)) for k in keys])).all():
+        raise AssertionError(f"{label}: table rows differ from the reference's split")
+
+
+def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: int = 8) -> dict:
+    """The main path with the attack grid, through the entry point
+    ``generate.main`` without ``--no_augs``, one batch each: (a) RAR-XL,
+    int8 weights, packed4 cache (kernel #1), ``n_rar`` classes, the device
+    JPEG; (b) Taming-1.4B, grouped-int4 weights (kernel #8), packed4 cache
+    (kernel #1), ``n_taming`` classes, ``--exact_jpeg true
+    --wm_torch_compat true``. Gates: records and files (n x 64), values,
+    the identity cells, the torch-compat table (b), the exact launch
+    counts, and the port's analyzer on each tree. ``tiny`` runs the CLI's
+    tiny models on the CPU."""
+    import os
+
+    from wmar_tpu_torch import generate as tgen
+    from wmar_tpu_torch.eval import analyzer, pipeline
+
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "runs": {}}
+    fill, load = pipeline.fill_batch_log, tgen.load_wrapper
+    for label, argv, compat in _sweep_argv(tiny, n_rar, n_taming):
+        seen = {"logs": []}
+
+        def load_kept(args, dev):
+            seen["wrapper"] = load(args, dev)
+            return seen["wrapper"]
+
+        def fill_kept(*a, **k):
+            seen["logs"].append(fill(*a, **k))
+            return seen["logs"][-1]
+
+        with tempfile.TemporaryDirectory() as tmp:
+            outdir = os.path.join(tmp, "out")
+            tgen.load_wrapper, pipeline.fill_batch_log = load_kept, fill_kept
+            printed = _Tee(sys.stdout)
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    records = tgen.main([*argv, "--outdir", outdir])
+                seconds = time.perf_counter() - t0
+                counts = launches()
+            finally:
+                tgen.load_wrapper, pipeline.fill_batch_log = load, fill
+            # the seconds of each batch, as generate_and_evaluate logs them
+            sample_s = [float(x) for x in re.findall(r"sampling took ([\d.]+)s", printed.getvalue())]
+            fill_save = re.findall(r"round trips and attacks took ([\d.]+)s, detection and files ([\d.]+)s",
+                                   printed.getvalue())
+            fill_s, save_s = [float(a) for a, _ in fill_save], [float(b) for _, b in fill_save]
+            wrapper = seen.pop("wrapper")
+            n = n_rar if label == "RAR-XL" else n_taming
+            if hasattr(wrapper, "rar_cfg"):
+                want = {"packed4_decode_attention": (wrapper.rar_cfg.image_seq_len - 1) * wrapper.rar_cfg.depth}
+            else:
+                steps = wrapper.codes_size**2
+                want = {"packed4_decode_attention": steps * wrapper.gpt_cfg.n_layer,
+                        "matmul_w4": steps * _w4_products_per_forward(wrapper.gpt)}
+            _check_launches(device, counts, want, f"attack sweep, {label}")
+            gates = _sweep_checks(label, wrapper, seen["logs"][0], records, outdir, n)
+            if compat:
+                _check_table_rows(label, wrapper)
+                if not gates["green_fraction"] > wrapper.watermark_spec.gamma + 0.15:
+                    raise AssertionError(f"attack sweep, {label}: green fraction {gates['green_fraction']} under the "
+                                         f"torch-compat table not above gamma + 0.15")
+            table = analyzer.robustness_table(analyzer.load_records(outdir, cache=False))
+            missing = set(SWEEP_ATTACKS) - set(table["per_attack"])
+            if missing:
+                raise AssertionError(f"attack sweep, {label}: the analyzer's table lacks {sorted(missing)}")
+            if not compat:  # the hash greenlist: its re-score on the device equals the stored p-values
+                rescored = analyzer.rescore(outdir, wrapper.get_total_vocab_size(), device=str(device))
+                dev = 0.0
+                for rel, p in rescored.items():
+                    with open(os.path.join(outdir, rel[:-4] + ".json")) as f:
+                        dev = max(dev, abs(p - json.load(f)["pvalue"]))
+                if len(rescored) != len(records) or not dev <= 1e-12:
+                    raise AssertionError(f"attack sweep, {label}: re-scored {len(rescored)} of {len(records)} "
+                                         f"records, max |dp| {dev}")
+                gates["rescore_max_dp"] = dev
+        for name, c in counts.items():
+            out["launches"][name] += c
+        if not len(sample_s) == len(fill_s) == 1:
+            raise AssertionError(f"attack sweep, {label}: batch timings {sample_s} {fill_save} for one batch")
+        grid_s = [a + b for a, b in zip(fill_s, save_s)]
+        out["runs"][label] = {"seconds": seconds, "sample_s": sample_s, "grid_s": grid_s,
+                              "fill_s": fill_s, "save_s": save_s, "table": table, **gates}
+        print(f"attack sweep [{label}]: generate {' '.join(argv)}: {gates['records']} records, files "
+              f"{gates['files']}; a batch: sampling {sample_s[0]:.2f} s, then the grid {grid_s[0]:.2f} s = "
+              f"decode, round trip, 62 attacks and re-encodes {fill_s[0]:.2f} s + detection, metrics and "
+              f"files {save_s[0]:.2f} s; whole run {seconds:.2f} s (model build included); launches {dict((k, v) for k, v in counts.items() if v)}, expected {want}; green fraction "
+              f"{gates['green_fraction']:.3f}; identity cells' codes equal to the first round trip's on "
+              f"{min(gates['identity_agreement'].values()):.4f} or more of the tokens")
+        print(f"attack sweep [{label}]: TPR@1%FPR per attack {json.dumps(table['per_attack'])}")
+        print(analyzer.markdown_table(table))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1239,6 +1437,8 @@ def main() -> int:
     del chameleon
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
+    torch.cuda.empty_cache()
+    paths.append(timed("attack sweep", phase_attack_sweep, device))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:

@@ -79,13 +79,23 @@ def test_hash_greenlist_bit_identical(vocab, split, seeding):
             assert got[0, 0].sum() == js.greenlist_size
 
 
-def test_make_greenlist_refuses_unported_sources():
-    ts = TSpec.from_string("fixed-clustering-h=0-d=2.0-g=0.25", vocab_size=64)
-    full = tgl.VQInfo(64, alive_ids=np.arange(40), embedding=np.zeros((64, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgl.make_greenlist(ts, full)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgl.make_greenlist(TSpec.from_string("linear-rand-h=1-d=2.0-g=0.25", vocab_size=64), torch_compat=True)
+def test_make_greenlist_refuses_unported_sources(monkeypatch):
+    """The two sources this test once saw refused are ported: the
+    clustering split and the torch-compat table now come out of
+    ``make_greenlist`` with the JAX package's greenlists, bit for bit
+    (the clustering on its numpy branch: sklearn's import made to fail)."""
+    monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
+    alive, emb = np.arange(40), np.random.default_rng(3).standard_normal((64, 4)).astype(np.float32)
+    js, ts = _specs("fixed-clustering-h=0-d=2.0-g=0.25", 64)
+    jg = jgl.make_greenlist(js, jgl.VQInfo(64, alive_ids=alive, embedding=emb))
+    tg = tgl.make_greenlist(ts, tgl.VQInfo(64, alive_ids=alive, embedding=emb))
+    keys = np.zeros((2,), np.int64)
+    np.testing.assert_array_equal(tg.green_mask(torch.as_tensor(keys)).numpy(),
+                                  np.asarray(jg.green_mask(jnp.asarray(keys, jnp.int32))))
+    js, ts = _specs("linear-rand-h=1-d=2.0-g=0.25", 64)
+    jt, tt = jgl.make_greenlist(js, torch_compat=True), tgl.make_greenlist(ts, torch_compat=True)
+    assert isinstance(tt, tgl.TableGreenlist) and tt.n_keys == jt.n_keys == 64
+    np.testing.assert_array_equal(tt._table.numpy().view(np.uint32), np.asarray(jt._table))
 
 
 @pytest.mark.parametrize("lacking", ["vq", "embedding", "alive_ids"])
@@ -105,11 +115,12 @@ def test_make_greenlist_clustering_needs_embedding_and_alive_ids(lacking):
 
 def test_make_greenlist_calls_the_sources_as_jax_does(monkeypatch):
     """The clustering source gets ``(spec, embedding, alive_ids)`` and the
-    torch-compat tables ``(spec, alive_ids)``, as in the JAX package."""
+    torch-compat tables ``(spec, alive_ids)``, as in the JAX package; the
+    port's also get the device, by keyword."""
     calls = {}
     for mod in (jgl, tgl):
-        monkeypatch.setattr(mod, "clustering_greenlist", lambda *a, m=mod: calls.setdefault((m, "c"), a))
-        monkeypatch.setattr(mod, "build_table_torch_compat", lambda *a, m=mod: calls.setdefault((m, "t"), a))
+        monkeypatch.setattr(mod, "clustering_greenlist", lambda *a, m=mod, **k: calls.setdefault((m, "c"), a))
+        monkeypatch.setattr(mod, "build_table_torch_compat", lambda *a, m=mod, **k: calls.setdefault((m, "t"), a))
     alive, emb = np.arange(40), np.ones((64, 4), np.float32)
     for mod, spec_cls in ((jgl, JSpec), (tgl, TSpec)):
         vq = mod.VQInfo(64, alive_ids=alive, embedding=emb)

@@ -113,6 +113,18 @@ def test_sample_greedy_packed4_agreement():
     assert agree >= 0.95, f"greedy agreement {agree}"
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch intra-op thread for a test that runs the attack grid: the
+    fast tier runs six workers on the machine's cores, where torch's default
+    of a thread per core oversubscribes them and the grid's many tiny ops
+    wait on each other (96 s against 3 s with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(root):
     return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
 
@@ -158,18 +170,52 @@ def test_chip_smoke_phases_on_cpu():
     assert out["green_fraction"] > 0.4 and 0 <= out["median_raw_pvalue"] <= 1
 
 
-def test_generate_refuses_what_is_not_ported(tmp_path):
+def _grid_tree_ok(root, n_samples, per_sample):
+    """The tree holds ``n_samples x per_sample`` records, each a png, npy and json."""
+    files = _tree(root)
+    stems = {f.rsplit(".", 1)[0] for f in files}
+    assert len(stems) == n_samples * per_sample and len(files) == 3 * len(stems)
+    return files
+
+
+def test_chip_smoke_attack_sweep_on_cpu(one_torch_thread):
+    """``chip_smoke.py``'s attack-sweep phase with the CLI's tiny RAR and
+    Taming on the CPU: both entry-point runs pass every gate of theirs
+    (records and files, values, identity cells, the torch-compat table, the
+    analyzer and its re-score) with no kernel launch."""
+    import chip_smoke
+
+    out = chip_smoke.phase_attack_sweep("cpu", tiny=True, n_rar=2, n_taming=2)
+    assert set(out["runs"]) == {"RAR-XL", "Taming-1.4B"} and set(out["launches"].values()) == {0}
+    for run in out["runs"].values():
+        assert run["records"] == 2 * 64 and set(run["files"].values()) == {2 * 64}
+        assert len(run["sample_s"]) == len(run["grid_s"]) == 1
+        assert set(chip_smoke.SWEEP_ATTACKS) <= set(run["table"]["per_attack"])
+    assert out["runs"]["Taming-1.4B"]["green_fraction"] > 0.4
+    assert out["runs"]["RAR-XL"]["rescore_max_dp"] <= 1e-12
+
+
+def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
+    """What is still unported exits with its ROADMAP item; the clustering
+    split and a run with the attack grid (no ``--no_augs``), which this test
+    once saw refused, now write their trees."""
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--wm_split_strategy", "clustering"],
-                  ["--include_diffpure", "true"]):
+    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--include_diffpure", "true"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
     with pytest.raises(SystemExit, match="chameleon7b"):  # ported, but a Chameleon path, as in generate.py
         tgen.main(base + ["--device", "cpu", "--interleaved", "prompts.txt"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tgen.main(["--model", "rar", "--tiny", "--outdir", str(tmp_path), "--device", "cpu"])
+    clus = tmp_path / "clustering"
+    records = tgen.main(["--model", "rar", "--tiny", "--no_augs", "--device", "cpu", "--outdir", str(clus),
+                         "--wm_seed_strategy", "fixed", "--wm_split_strategy", "clustering"])
+    assert len(records) == 2 and all(0 <= r["pvalue"] <= 1 for r in records)
+    assert all("fixed-clustering-h=1" in f for f in _grid_tree_ok(clus, 1, 2))
+    grid = tmp_path / "grid"
+    records = tgen.main(["--model", "rar", "--tiny", "--outdir", str(grid), "--device", "cpu"])
+    assert len(records) == 64 and {r["transform"] for r in records} >= {"roundtrips", "jpeg", "rotation"}
+    _grid_tree_ok(grid, 1, 64)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA"):
             tgen.main(base)
@@ -194,10 +240,11 @@ def test_parser_takes_every_flag_of_generate_py():
         assert {f: getattr(port, f) for f in flags} == {f: getattr(ref, f) for f in flags}
 
 
-def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path):
+def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path, one_torch_thread):
     """``--syncpath none --sync false`` (what the sweep configs pass) runs;
     each of the new flags with a value that needs unported code exits through
-    ``_refuse_unported`` with its ROADMAP item."""
+    ``_refuse_unported`` with its ROADMAP item. ``--exact_jpeg true``, which
+    this test once saw refused, runs the grid with PIL's JPEG."""
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "taming", "--tiny", "--device", "cpu", "--no_augs", "--conditioning", "0,1",
@@ -205,17 +252,23 @@ def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path):
     records = tgen.main(base + ["--syncpath", "none", "--sync", "false", "--exact_jpeg", "false",
                                 "--nc_allow_random", "false"])
     assert len(records) == 4
-    for extra in (["--syncpath", "sync.ckpt"], ["--exact_jpeg", "true"], ["--nc_weights_dir", "w"],
+    for extra in (["--syncpath", "sync.ckpt"], ["--nc_weights_dir", "w"],
                   ["--nc_allow_random", "true"], ["--diffpure_weights", "adm.msgpack"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + extra)
+    out = tmp_path / "exact_jpeg"
+    records = tgen.main([a for a in base if a != "--no_augs"][:-1] + [str(out), "--exact_jpeg", "true"])
+    assert len(records) == 2 * 64 and sum(r["transform"] == "jpeg" for r in records) == 2 * 11
+    _grid_tree_ok(out, 2, 64)
 
 
 @pytest.mark.parametrize("model,asset,cls", [("taming", "assets/vqgan_alive_ids.txt", "TamingARMM"),
                                              ("rar", "assets/rar_all_ids.txt", "RarARMM")])
 def test_full_size_loaders_pass_the_alive_ids(monkeypatch, model, asset, cls):
     """At full size the loaders hand the wrapper the alive ids of the
-    model's asset file, as ``generate.py`` does; never for ``--tiny``. The
+    model's asset file, as ``generate.py`` does; for ``--tiny``, which has no
+    such file, every code of its codebook (128: enough for the clustering
+    split's 100 clusters). The
     full-size networks are not built here: their constructors are stubbed."""
     import wmar_tpu_torch.models as tmodels
     from wmar_tpu_torch import generate as tgen
@@ -231,7 +284,7 @@ def test_full_size_loaders_pass_the_alive_ids(monkeypatch, model, asset, cls):
     args.tiny = True
     seen.clear()
     tgen.load_wrapper(args, torch.device("cpu"))
-    assert seen["alive_ids"] is None
+    np.testing.assert_array_equal(seen["alive_ids"], np.arange(128))
 
 
 def test_set_watermarker_none_keeps_the_greenlist():

@@ -885,3 +885,53 @@ def test_tiny_interleaved_runs_through_the_flash_kernels(device):
     a, b_ = out[("cuda", torch.float32)][0], out[("cpu", torch.float32)][0]
     n = min(len(a), len(b_))
     assert n >= 20 and sum(x == y for x, y in zip(a[:n], b_[:n])) >= 0.9 * n
+
+
+def test_attack_grid_on_the_card_matches_the_cpu(device, monkeypatch):
+    """Every cell of the attack grid runs on the card (its output stays
+    there) and agrees with the same cell on the CPU: within 1e-5 (float32
+    summation order), noise fed the same draws; PIL's JPEG exactly. The
+    device JPEG: on >= 99.9% of the pixels within 1e-5; its quantized DCT
+    coefficients within 1e-3 of the CPU's, so one rounds the other way only
+    near a rounding boundary, and each such flip moves a pixel by at most
+    one quantization step (``0.25 * table / 255`` a channel, times 1.772
+    through YCbCr -> RGB): the largest error is held to 1e-5 plus that many
+    steps."""
+    from wmar_tpu_torch.augmentations import AugmentationManager
+    from wmar_tpu_torch.augmentations import valuemetric
+
+    seen = []
+    st_round = valuemetric._st_round
+
+    def recording(c):
+        seen.append(c.detach().double().cpu().ravel())
+        return st_round(c)
+
+    monkeypatch.setattr(valuemetric, "_st_round", recording)
+    x = torch.rand((4, 40, 40, 3), generator=torch.Generator().manual_seed(0))
+    for exact in (False, True):
+        for name, fn, params in AugmentationManager(exact_jpeg=exact).augs:
+            if exact and name != "jpeg":
+                continue
+            for p in params:
+                if name == "gaussian-noise":
+                    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+                    want = valuemetric.gaussian_noise(x, float(p), noise=noise)
+                    got = valuemetric.gaussian_noise(x.to(device), float(p), noise=noise.to(device))
+                else:
+                    seen.clear()
+                    want, got = fn(x, p, None), fn(x.to(device), p, None)
+                assert got.device.type == "cuda" and got.shape == x.shape, (name, p)
+                err = (got.cpu() - want).abs()
+                if name == "jpeg" and not exact:
+                    assert len(seen) == 6, (name, p)
+                    flips = 0
+                    for cpu_c, card_c in zip(seen[:3], seen[3:]):
+                        torch.testing.assert_close(card_c, cpu_c, atol=1e-3, rtol=1e-5)
+                        flips += int((torch.round(cpu_c) != torch.round(card_c)).sum())
+                    table = max(float(t.max()) for t in valuemetric._quality_tables(p))
+                    bound = 1e-5 + flips * 0.25 * 1.772 * table / 255.0
+                    assert float(err.max()) <= bound, (name, p, float(err.max()), flips)
+                    assert float((err > 1e-5).float().mean()) <= 1e-3, (name, p)
+                else:
+                    assert float(err.max()) <= (0 if exact else 1e-5), (name, p, float(err.max()))

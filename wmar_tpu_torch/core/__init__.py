@@ -1,7 +1,16 @@
 """Watermark core: specs, greenlists, n-gram scoring, detection, sampling."""
 
 from wmar_tpu_torch.core.detect import detect, green_fraction, pvalue_from_counts, score_codes
-from wmar_tpu_torch.core.greenlist import HashGreenlist, VQInfo, make_greenlist
+from wmar_tpu_torch.core.greenlist import (
+    HashGreenlist,
+    LazyTorchCompatGreenlist,
+    TableGreenlist,
+    VQInfo,
+    build_table_torch_compat,
+    clustering_greenlist,
+    fixed_greenlist_from_ids,
+    make_greenlist,
+)
 from wmar_tpu_torch.core.sampling import (
     apply_watermark_bias,
     cfg_combine,
@@ -13,14 +22,19 @@ from wmar_tpu_torch.core.spec import SeedStrategy, SplitStrategy, WatermarkSpec
 
 __all__ = [
     "HashGreenlist",
+    "LazyTorchCompatGreenlist",
     "SeedStrategy",
     "SplitStrategy",
+    "TableGreenlist",
     "VQInfo",
     "WatermarkSpec",
     "apply_watermark_bias",
+    "build_table_torch_compat",
     "cfg_combine",
+    "clustering_greenlist",
     "context_keys_at_step",
     "detect",
+    "fixed_greenlist_from_ids",
     "green_fraction",
     "make_greenlist",
     "pvalue_from_counts",

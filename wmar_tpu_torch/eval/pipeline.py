@@ -1,13 +1,16 @@
-"""Generation -> round trip -> detect evaluation pipeline (PyTorch).
+"""Generation -> attack -> detect evaluation pipeline (PyTorch).
 
-Port of ``wmar_tpu.eval.pipeline`` without the attack grid and sync
-(ROADMAP queue 1, items 8, 11 and 12): sample a batch of watermarked codes,
-decode to images, round-trip them through the tokenizer, re-tokenize, and
-compute p-value / L0 token mismatch / PSNR per (transform, param, sample).
+Port of ``wmar_tpu.eval.pipeline`` without sync (ROADMAP queue 1, item 11):
+sample a batch of watermarked codes, decode to images, round-trip them
+through the tokenizer, sweep the attack grid, re-tokenize, and compute
+p-value / L0 token mismatch / PSNR per (transform, param, sample). The
+attacks run eagerly on the wrapper's device (PIL's JPEG under
+``exact_jpeg`` on the host), each (attack, param) cell with a generator
+of its own.
 
 Conditionings are class ids (RAR) or prompt strings (Chameleon); either
 names its result directory. Results go to the same on-disk tree as the JAX
-package's, so ``wmar_tpu/eval/analyzer.py`` reads them as they are:
+package's, so either package's ``eval/analyzer.py`` reads them:
 
     outdir/c={cond},idx={k}/{k:04}_{method}_{transform}_{param}.{png,npy,json}
 """
@@ -18,7 +21,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +29,6 @@ import torch
 from wmar_tpu_torch.core.detect import detect
 from wmar_tpu_torch.utils.metrics import l0_token_mismatch, psnr_pm1
 
-_NO_AUGS = "the attack grid is not ported yet (ROADMAP queue 1, items 8 and 12): pass aug_manager=None"
 _NO_SYNC = "sync is not ported yet (ROADMAP queue 1, item 11): pass sync_manager=None"
 
 Log = Dict[str, List[Tuple[Any, np.ndarray, np.ndarray]]]
@@ -53,12 +55,18 @@ def to_pillow(img_pm1: np.ndarray):
     return Image.fromarray(arr)
 
 
-def fill_batch_log(wrapper, codes: torch.Tensor, aug_manager, eval_params: EvalParams, sync_manager=None) -> Log:
+def cell_seed(seed: int, attack_index: int, param_index: int) -> int:
+    """The generator seed of one (attack, param) cell of a batch: JAX folds
+    ``ai * 1000 + pi`` into the batch key after folding in 999."""
+    return int(np.random.SeedSequence([seed, 999, attack_index * 1000 + param_index]).generate_state(1)[0])
+
+
+def fill_batch_log(wrapper, codes: torch.Tensor, aug_manager, eval_params: EvalParams, seed: int = 0,
+                   sync_manager=None) -> Log:
     """The ``{transform: [(param, codes, imgs)]}`` log of one batch: entry 0
     of "roundtrips" is the original (codes, image), entry t its t-th trip
-    through the tokenizer."""
-    if aug_manager is not None:
-        raise NotImplementedError(_NO_AUGS)
+    through the tokenizer; each attack of ``aug_manager`` re-tokenizes the
+    attacked original. ``seed`` (the batch's) seeds every cell's generator."""
     if sync_manager is not None:
         raise NotImplementedError(_NO_SYNC)
     imgs = wrapper.codes_to_images(codes)  # [-1, 1] NHWC
@@ -68,6 +76,16 @@ def fill_batch_log(wrapper, codes: torch.Tensor, aug_manager, eval_params: EvalP
         cur_codes = wrapper.images_to_codes(cur)
         cur = wrapper.codes_to_images(cur_codes)
         log["roundtrips"].append((t, _host(cur_codes), _host(cur)))
+    if aug_manager is None:
+        return log
+    imgs01 = imgs.float() / 2.0 + 0.5  # the attacks run in float32
+    for ai, (name, fn, params) in enumerate(aug_manager.augs):
+        rows = []
+        for pi, param in enumerate(params):
+            gen = torch.Generator(device=imgs01.device).manual_seed(cell_seed(seed, ai, pi))
+            a = torch.clamp(fn(imgs01, param, gen), 0.0, 1.0) * 2.0 - 1.0
+            rows.append((param, _host(wrapper.images_to_codes(a)), _host(a)))
+        log[name] = rows
     return log
 
 
@@ -80,9 +98,11 @@ def compute_and_save_batch(
     spec,
     greenlist,
     eval_params: EvalParams,
+    row_tags: Optional[Dict] = None,
 ) -> List[dict]:
     """Metrics for every (transform, param, sample), saved in the reference's
-    result tree. Returns the flat list of metric records."""
+    result tree. ``row_tags`` maps (transform, param) to extra fields of
+    those records. Returns the flat list of metric records."""
     orig_codes = log["roundtrips"][0][1]
     orig_imgs = log["roundtrips"][0][2]
     device = greenlist.device if greenlist is not None else torch.device("cpu")
@@ -93,8 +113,9 @@ def compute_and_save_batch(
             if spec is not None and "pvalue" in eval_params.metric_names:
                 pvals = detect(spec, greenlist, torch.as_tensor(codes, device=device))
             l0 = l0_token_mismatch(codes, orig_codes).numpy()
+            extra = (row_tags or {}).get((transform, param), {})
             for i in range(codes.shape[0]):
-                metrics = {}
+                metrics = dict(extra)
                 if pvals is not None:
                     metrics["pvalue"] = float(pvals[i])
                 if "l0" in eval_params.metric_names:
@@ -150,10 +171,8 @@ def generate_and_evaluate(
     log_fn=print,
 ) -> List[dict]:
     """The reference's ``generate()`` driver: batch striping for chunk
-    parallelism, a seed per batch, and per batch sample -> log -> metrics ->
-    save."""
-    if aug_manager is not None:
-        raise NotImplementedError(_NO_AUGS)
+    parallelism, a seed per batch, and per batch sample -> log (round trips
+    and attacks) -> metrics -> save."""
     if sync_manager is not None:
         raise NotImplementedError(_NO_SYNC)
     batches = [all_conditionings[i: i + batch_size] for i in range(0, len(all_conditionings), batch_size)]
@@ -168,15 +187,21 @@ def generate_and_evaluate(
             cond_indices.append(counts[c])
         if bi % num_chunks != chunk_id:
             continue
-        gen = torch.Generator(device=wrapper.device).manual_seed(batch_seed(seed, chunk_id, bi))
+        bseed = batch_seed(seed, chunk_id, bi)
+        gen = torch.Generator(device=wrapper.device).manual_seed(bseed)
         t0 = time.perf_counter()
         codes = wrapper.sample(list(batch), gen_params, apply_watermark=apply_watermark, generator=gen)
         if codes.is_cuda:
             torch.cuda.synchronize(codes.device)
-        log_fn(f"batch {bi}: sampling took {time.perf_counter() - t0:.2f}s")
-        log = fill_batch_log(wrapper, codes, None, eval_params)
+        t1 = time.perf_counter()
+        log_fn(f"batch {bi}: sampling took {t1 - t0:.2f}s")
+        log = fill_batch_log(wrapper, codes, aug_manager, eval_params, bseed)  # host copies: waits for the card
+        t2 = time.perf_counter()
         records += compute_and_save_batch(
             log, outdir, method, list(batch), cond_indices,
             wrapper.watermark_spec, wrapper.greenlist, eval_params,
+            row_tags=getattr(aug_manager, "row_tags", None),
         )
+        log_fn(f"batch {bi}: round trips and attacks took {t2 - t1:.2f}s, "
+               f"detection and files {time.perf_counter() - t2:.2f}s")
     return records

@@ -2,19 +2,28 @@
 ``generate.py`` for ``--model taming``, ``--model rar`` and ``--model
 chameleon7b``).
 
-    python -m wmar_tpu_torch.generate --model taming --no_augs \\
+    python -m wmar_tpu_torch.generate --model taming \\
         --weight_dtype int4 --cache_dtype packed4 --conditioning 0,1,2 \\
         --top_k 250 --top_p 0.92 --batch_size 3 --outdir out/
-    python -m wmar_tpu_torch.generate --model rar --tiny --no_augs \\
+    python -m wmar_tpu_torch.generate --model rar --tiny --device cpu \\
         --conditioning 0,1 --num_samples_per_conditioning 2 --batch_size 4 \\
-        --cache_dtype packed4 --outdir out/
+        --cache_dtype packed4 --exact_jpeg true --outdir out/
     python -m wmar_tpu_torch.generate --model chameleon7b --no_augs \\
         --weight_dtype int8 --cache_dtype packed4 --conditioning prompts.txt \\
         --batch_size 8 --outdir out/
 
-    python -m wmar_tpu_torch.generate --model chameleon7b --no_augs \\
+    python -m wmar_tpu_torch.generate --model chameleon7b \\
         --weight_dtype int8 --interleaved assets/interleaved_prompts.txt \\
         --outdir out/
+
+Each sample is decoded, round-tripped through the tokenizer and attacked
+with the reference's 62 classic (attack, param) cells, and every version
+is re-tokenized and scored, as ``generate.py`` does; ``--no_augs`` keeps
+the round trips only, ``--exact_jpeg true`` takes PIL's JPEG instead of the
+device one. ``--wm_torch_compat true`` draws the reference's greenlists bit
+for bit from a table; ``--wm_seed_strategy fixed --wm_split_strategy
+clustering`` takes the clustering split. ``--tiny`` models have 128 codes
+(the JAX CLI's have 64), all alive, so both of these run on them too.
 
 ``--conditioning`` is a comma-separated list of class ids, or the path of a
 file with one prompt per line (Chameleon). ``--interleaved <prompts file>``
@@ -60,8 +69,6 @@ _NOT_PORTED = {
     "nc_allow_random": "the neural attacks (ROADMAP queue 1, item 12)",
     "include_diffpure": "the neural attacks (ROADMAP queue 1, item 12)",
     "diffpure_weights": "the neural attacks (ROADMAP queue 1, item 12)",
-    "exact_jpeg": "the attack grid (ROADMAP queue 1, item 8)",
-    "wm_torch_compat": "torch-compat greenlist tables (ROADMAP queue 1, item 1)",
 }
 
 
@@ -190,10 +197,6 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"--{name}: {what} is not ported yet")
     if any(getattr(args, f) != 1 for f in ("dp", "tp", "sp", "pp")):
         raise SystemExit("--dp/--tp/--sp/--pp: multi-GPU runs are not ported yet (ROADMAP queue 1, item 14)")
-    if not (args.no_augs or args.orig_only or args.interleaved):
-        raise SystemExit("the attack grid is not ported yet (ROADMAP queue 1, items 8 and 12): pass --no_augs")
-    if args.wm_split_strategy == "clustering":
-        raise SystemExit("--wm_split_strategy clustering is not ported yet (ROADMAP queue 1, item 1)")
 
 
 def synthetic_tokenizer(n_chars: int):
@@ -247,6 +250,11 @@ def load_chameleon(args, device: torch.device):
                          cache_dtype=cache_dtype, device=device)
 
 
+# A random tiny model has no alive-ids file: all its codes count as alive,
+# and there are enough of them for the clustering split's 100 clusters.
+_TINY_CODES = 128
+
+
 def load_taming(args, device: torch.device):
     from wmar_tpu_torch.models import (
         TAMING_GPT_1_4B,
@@ -259,10 +267,10 @@ def load_taming(args, device: torch.device):
     )
 
     if args.tiny:
-        gpt_cfg = GPTConfig(vocab_size=64, block_size=300, n_layer=2, n_head=2, n_embd=32)
+        gpt_cfg = GPTConfig(vocab_size=_TINY_CODES, block_size=300, n_layer=2, n_head=2, n_embd=32)
         vq_cfg = VQGANConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
-                             z_channels=32, n_embed=64, embed_dim=16)
-        dtype, cache_dtype, alive = torch.float32, torch.float32, None
+                             z_channels=32, n_embed=_TINY_CODES, embed_dim=16)
+        dtype, cache_dtype, alive = torch.float32, torch.float32, np.arange(_TINY_CODES)
     else:
         gpt_cfg, vq_cfg = TAMING_GPT_1_4B, TAMING_IMAGENET_F16
         dtype, cache_dtype, alive = torch.bfloat16, torch.bfloat16, _load_alive_ids("assets/vqgan_alive_ids.txt")
@@ -289,10 +297,10 @@ def load_wrapper(args, device: torch.device):
 
     if args.tiny:
         rar_cfg = RARConfig(embed_dim=64, depth=2, num_heads=2, intermediate_size=128,
-                            image_seq_len=16, codebook_size=64, num_classes=10)
+                            image_seq_len=16, codebook_size=_TINY_CODES, num_classes=10)
         vq_cfg = MaskGitVQConfig(resolution=8, hidden_channels=32, channel_mult=(1, 2),
-                                 num_res_blocks=1, z_channels=16, n_embed=64, embed_dim=16)
-        dtype, cache_dtype, alive = torch.float32, torch.float32, None
+                                 num_res_blocks=1, z_channels=16, n_embed=_TINY_CODES, embed_dim=16)
+        dtype, cache_dtype, alive = torch.float32, torch.float32, np.arange(_TINY_CODES)
     else:
         rar_cfg, vq_cfg = rar_config(args.rar_size), MASKGIT_IMAGENET_F16
         dtype, cache_dtype, alive = torch.bfloat16, torch.bfloat16, _load_alive_ids("assets/rar_all_ids.txt")
@@ -312,6 +320,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA card is visible; pass --device cpu to run on the CPU")
 
+    from wmar_tpu_torch.augmentations import AugmentationManager
     from wmar_tpu_torch.core import WatermarkSpec
     from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
     from wmar_tpu_torch.models import (
@@ -341,7 +350,7 @@ def main(argv=None):
                   f"h={args.wm_context_size}-d={args.wm_delta:.1f}-g={args.wm_gamma:.2f}")
         spec = WatermarkSpec.from_string(method, vocab_size=wrapper.get_total_vocab_size(),
                                          spatial_dim=wrapper.codes_size)
-        wrapper.set_watermarker(spec)
+        wrapper.set_watermarker(spec, torch_compat=args.wm_torch_compat)
 
     if args.interleaved:
         return run_interleaved(args, wrapper, apply_wm)
@@ -355,8 +364,9 @@ def main(argv=None):
     gen = GenParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
                     guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)
     eval_params = EvalParams(max_roundtrips=args.max_roundtrips, orig_only=args.orig_only)
+    aug_manager = None if (args.orig_only or args.no_augs) else AugmentationManager(exact_jpeg=args.exact_jpeg)
     records = generate_and_evaluate(
-        args.outdir, wrapper, all_inputs, gen, eval_params, None,
+        args.outdir, wrapper, all_inputs, gen, eval_params, aug_manager,
         batch_size=args.batch_size, seed=args.seed, chunk_id=args.chunk_id,
         num_chunks=args.num_chunks, apply_watermark=apply_wm,
     )
