@@ -9,7 +9,8 @@ phases:
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
    one nvcc per source, in parallel), print the build time, the card's
    name and power limit, and the TF32 switches (both off, so float32
-   matmuls and convolutions are exact);
+   matmuls and convolutions are exact; phase 9 alone runs at the finetune's
+   own precision);
 2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
    slots the tiled kernel of #3/#4 without masks) at the decode shapes of
    RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88),
@@ -102,15 +103,34 @@ phases:
    checks codes, images, p-values, the green fraction and the exact launch
    counts of every batch (256 forwards x 289 products for #8, 256 x 48
    attention calls), and prints imgs/s and peak memory;
-9. attack sweep: the entry point ``generate.main`` without ``--no_augs``,
+9. RCC finetune: the entry point ``python -m wmar_tpu_torch.finetune``
+   (``finetune.cli.main``) on the tokenizers that ``generate.load_wrapper``
+   builds at full size from seed 0 (Taming-1.4B's f16 VQGAN, then RAR-XL's
+   MaskGit-VQGAN), each written in float32 as ``vqgan.msgpack`` /
+   ``maskgit_vqgan.msgpack`` and read back through ``--modelpath``: 72
+   synthetic code rows, batch 8, lr 1e-4, idem weight 1.0, four epochs
+   (``--augs_schedule 1,1,1,1``: warmup, weak, medium, strong; every
+   validation cell), Taming with a random discriminator (the GAN branch),
+   MaskGit without; at the entry point's precision
+   (``finetune.cli.set_precision``: cuDNN may use TF32, matmuls not).
+   Checks every logged number finite, the final Identity idem loss below
+   epoch 0's, and epoch 3's deltas re-applied to the base equal to
+   ``epoch3_trainable.msgpack`` within 4 float32 ulps; prints seconds a
+   train step, images per second per level, Identity idem and L0 before and
+   after, peak memory; then ``tools/bench_rcc.py``'s train step at the
+   Taming geometry, level strong, batch 4 and 8;
+10. attack sweep: the entry point ``generate.main`` without ``--no_augs``,
    one batch each, so the reference's default run: sample, decode, one round
    trip, the 62 (attack, param) cells of the classic grid on the card,
    re-tokenize, detect, write. (a) RAR-XL, int8 weights, packed4 cache
    (kernel #1), 16 classes, the device JPEG; (b) Taming-1.4B, grouped-int4
    weights (kernel #8), packed4 cache (kernel #1), 8 classes, ``--exact_jpeg
    true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
-   from a table). Checks n x 64 records and as many json, png and npy
-   files, images finite in [-1, 1], codes in range, p-values in [0, 1], the
+   from a table) and phase 9's epoch-3 RCC deltas
+   (``--encoder_ft_ckpt/--decoder_ft_ckpt``), its tokenizer checked to be
+   the base plus the deltas within bf16 rounding. Checks n x 64 records and
+   as many json, png and npy files, images finite in [-1, 1], codes in
+   range, p-values in [0, 1], the
    identity cells (blur 0, noise 0, brightness 1, rotation 0, flip 0, crop
    1.0) within 1e-6 of the original with codes equal to the first round
    trip's on >= 99% of the tokens, the exact launch counts, in (b) the
@@ -1302,7 +1322,8 @@ def _check_table_rows(label, wrapper, n_keys: int = 64) -> None:
         raise AssertionError(f"{label}: table rows differ from the reference's split")
 
 
-def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: int = 8) -> dict:
+def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: int = 8, taming_extra=(),
+                       inspect=None) -> dict:
     """The main path with the attack grid, through the entry point
     ``generate.main`` without ``--no_augs``, one batch each: (a) RAR-XL,
     int8 weights, packed4 cache (kernel #1), ``n_rar`` classes, the device
@@ -1311,7 +1332,8 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
     --wm_torch_compat true``. Gates: records and files (n x 64), values,
     the identity cells, the torch-compat table (b), the exact launch
     counts, and the port's analyzer on each tree. ``tiny`` runs the CLI's
-    tiny models on the CPU."""
+    tiny models on the CPU. ``taming_extra`` adds flags to run (b) (the RCC
+    deltas), ``inspect(label, wrapper)`` checks each run's wrapper."""
     import os
 
     from wmar_tpu_torch import generate as tgen
@@ -1320,6 +1342,8 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
     out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "runs": {}}
     fill, load = pipeline.fill_batch_log, tgen.load_wrapper
     for label, argv, compat in _sweep_argv(tiny, n_rar, n_taming):
+        if label == "Taming-1.4B":
+            argv = [*argv, *taming_extra]
         seen = {"logs": []}
 
         def load_kept(args, dev):
@@ -1349,6 +1373,8 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
                                    printed.getvalue())
             fill_s, save_s = [float(a) for a, _ in fill_save], [float(b) for _, b in fill_save]
             wrapper = seen.pop("wrapper")
+            if inspect is not None:
+                inspect(label, wrapper)
             n = n_rar if label == "RAR-XL" else n_taming
             if hasattr(wrapper, "rar_cfg"):
                 want = {"packed4_decode_attention": (wrapper.rar_cfg.image_seq_len - 1) * wrapper.rar_cfg.depth}
@@ -1395,6 +1421,180 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
     return out
 
 
+# RCC finetune: (label, --model, tokenizer file, flags of the run)
+RCC_RUNS = (("Taming", "taming", "vqgan.msgpack", ("--disc_init", "random")),
+            ("MaskGit", "rar", "maskgit_vqgan.msgpack", ("--disable_gan",)))
+RCC_FLAGS = ("--lr", "1e-4", "--idempotence_loss_weight", "1.0", "--nb_epochs", "4", "--augs_schedule", "1,1,1,1",
+             "--log_every", "2")  # configs/taming_ft.json's rates; every level and validation cell in four epochs
+
+
+def _leaves_close(label, got, want, tol_of) -> float:
+    """Max |got - want| over the leaves of two Flax trees, each within
+    ``tol_of(want leaf)``."""
+    from wmar_tpu_torch import bridge
+
+    worst = 0.0
+    g, w = dict(bridge.flatten(got)), dict(bridge.flatten(want))
+    if set(g) != set(w):
+        raise AssertionError(f"{label}: trees differ: {sorted(set(g) ^ set(w))[:5]}")
+    for k, want_t in w.items():
+        err = float((g[k].float().cpu() - want_t.float().cpu()).abs().max()) if want_t.numel() else 0.0
+        if not err <= tol_of(want_t):
+            raise AssertionError(f"{label}: {k} off by {err} (tolerance {tol_of(want_t)})")
+        worst = max(worst, err)
+    return worst
+
+
+def _f32_ulps(n: int):
+    return lambda w: n * torch.finfo(torch.float32).eps * max(float(w.float().abs().max()), 1e-30)
+
+
+def phase_rcc_finetune(device, workdir: str, tiny: bool = False, rows: int = 72, batch: int = 8,
+                       bench_batches=(4, 8), bench_iters: int = 10) -> dict:
+    """RCC finetuning through the entry point ``python -m
+    wmar_tpu_torch.finetune`` (``finetune.cli.main``), for each of
+    ``RCC_RUNS``: the tokenizer of the wrapper ``generate.load_wrapper``
+    builds (seed ``SEED``, full size: Taming-1.4B's f16 VQGAN, RAR-XL's
+    MaskGit-VQGAN, bf16) written in float32 as ``<modelpath>/<file>``, then
+    four epochs (warmup, weak, medium, strong) on ``rows`` synthetic code
+    rows at batch ``batch``, validation first in each epoch and a final one;
+    Taming with a random discriminator (the GAN branch), MaskGit without.
+    Gates: every logged loss and validation number finite; the final
+    Identity idem loss below epoch 0's; epoch 3's delta files re-applied to
+    the base equal ``epoch3_trainable.msgpack`` within 4 float32 ulps of a
+    leaf's largest weight. Then ``tools/bench_rcc.py``'s train step at the
+    Taming geometry, level ``strong``, each of ``bench_batches``. Returns
+    the numbers, and for the attack sweep the Taming base tree and epoch 3's
+    delta paths. ``tiny`` runs the CLI's tiny models on the CPU. The phase
+    runs at the entry point's precision (``finetune.cli.set_precision``:
+    cuDNN convolutions may use TF32, matmuls not) and then puts back the
+    script's (TF32 off) for the phases after it."""
+    from wmar_tpu_torch.finetune.cli import set_precision
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)  # the context exists before the peak-memory resets
+    saved = set_precision()
+    try:
+        return _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda) -> dict:
+    import math
+    import os
+    from argparse import Namespace
+
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch import generate as tgen
+    from wmar_tpu_torch.finetune import cli as ft
+    from wmar_tpu_torch.tools import bench_rcc
+    from wmar_tpu_torch.utils import checkpoint as ckpt
+
+    print(f"RCC finetune: tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "runs": {},
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}}
+    for label, model, fname, flags in RCC_RUNS:
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        gargs = tgen.get_parser().parse_args(["--model", model, "--seed", str(SEED), "--outdir", workdir,
+                                              *(["--tiny"] if tiny else [])])
+        wrapper = tgen.load_wrapper(gargs, torch.device(device))
+        vq_cls, vq_cfg = type(wrapper.vq), wrapper.vq.cfg
+        base = _as_f32_cpu(bridge.flax_tree(wrapper.vq))  # bf16 -> float32 is exact
+        del wrapper
+        modelpath = os.path.join(workdir, model)
+        ckpt.save_pytree(os.path.join(modelpath, fname), base)
+        outdir = os.path.join(workdir, f"finetune_{model}")
+        argv = ["--model", model, "--device", str(device), "--synthetic", str(rows), "--batch_size_per_device",
+                str(batch), *RCC_FLAGS, *flags, "--outdir", outdir]
+        if cuda:
+            torch.cuda.empty_cache()
+        if tiny:  # the CLI's --tiny draws its own tokenizer: hand it the one written above
+            adapter_cls = ft.tokenizer_spec(model, False)[2]
+            state = ft.main(argv, adapter=adapter_cls(bridge.load_flax_file(vq_cls, vq_cfg, os.path.join(modelpath, fname),
+                                                                             device)))
+        else:
+            state = ft.main([*argv, "--modelpath", modelpath])
+        steps = state.step
+        del state
+        with open(os.path.join(outdir, "history.json")) as f:
+            hist = json.load(f)["epochs"]
+        numbers = [v for e in hist for m in e["metrics"] for v in m.values()]
+        numbers += [v for e in hist for cell in e["validation"].values() for v in cell.values()]
+        if not numbers or not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"RCC finetune [{label}]: a logged number is not finite")
+        ident = [e["validation"]["Identity_0"] for e in (hist[0], hist[-1])]
+        if not ident[1]["idem_loss"] < ident[0]["idem_loss"]:
+            raise AssertionError(f"RCC finetune [{label}]: Identity idem loss {ident[0]['idem_loss']} at epoch 0, "
+                                 f"{ident[1]['idem_loss']} at the end")
+        trained = ckpt.load_pytree(os.path.join(outdir, "epoch3_trainable.msgpack"))
+        deltas = {part: os.path.join(outdir, f"epoch3_{part}_delta.msgpack") for part in ("encoder", "decoder")}
+        delta_err = max(_leaves_close(f"RCC finetune [{label}] epoch 3 {part}",
+                                      ckpt.load_and_apply_delta(deltas[part], base[part]),
+                                      trained["watermark_encoder" if part == "encoder" else "decoder"], _f32_ulps(4))
+                        for part in ("encoder", "decoder"))
+        epochs = [e for e in hist if "train_s" in e]
+        step_s = sum(e["train_s"] for e in epochs) / sum(e["train_steps"] for e in epochs)
+        per_level = {e["level"]: e["train_steps"] * batch / e["train_s"] for e in epochs}
+        peak = _peak_gib(device)
+        run = {"seconds": time.perf_counter() - t0, "steps": steps, "step_s": step_s, "imgs_per_s": per_level,
+               "identity_idem": [ident[0]["idem_loss"], ident[1]["idem_loss"]],
+               "identity_l0": [ident[0]["l0"], ident[1]["l0"]], "delta_max_err": delta_err, "peak_gib": peak,
+               "gan": "vqgan_gan_loss" in hist[0]["metrics"][0], "deltas": deltas, "base": base}
+        out["runs"][label] = run
+        print(f"RCC finetune [{label}]: {vq_cfg.resolution} px tokenizer, {rows} synthetic rows, batch {batch}, "
+              f"{steps} steps over warmup/weak/medium/strong, GAN {'on' if run['gan'] else 'off'}: "
+              f"{step_s:.4f} s a train step; imgs/s per level {json.dumps({k: round(v, 3) for k, v in per_level.items()})}; "
+              f"Identity idem {ident[0]['idem_loss']:.5f} -> {ident[1]['idem_loss']:.5f}, L0 {ident[0]['l0']:.4f} -> "
+              f"{ident[1]['l0']:.4f}; epoch-3 deltas re-applied within {delta_err:.3e} of the trainable; peak "
+              f"{peak:.2f} GiB; {run['seconds']:.1f} s with the tokenizer file")
+        if cuda:
+            torch.cuda.empty_cache()
+    adapter = ft.build_adapter(Namespace(model="taming", tiny=False, modelpath=os.path.join(workdir, "taming")),
+                               torch.device(device)) if not tiny else bench_rcc.taming_adapter(device, tiny=True)
+    out["bench"] = []
+    for b in bench_batches:
+        r = bench_rcc.bench(adapter, b, "strong", bench_iters)
+        out["bench"].append(r)
+        print(f"RCC finetune [bench_rcc]: Taming {'tiny' if tiny else 'f16 256 px'}, level strong, batch {b}: "
+              f"{r['imgs_per_s']:.3f} imgs/s, {r['step_ms']:.2f} ms a step, peak "
+              f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)} GiB")
+    del adapter
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _as_f32_cpu(tree):
+    return {k: _as_f32_cpu(v) if isinstance(v, dict) else v.float().cpu() for k, v in tree.items()}
+
+
+def check_tuned_tokenizer(rcc: dict):
+    """``inspect`` for the sweep: the Taming wrapper's tokenizer is the base
+    plus epoch 3's deltas, within bf16 rounding of each weight."""
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.utils import checkpoint as ckpt
+
+    run = rcc["runs"]["Taming"]
+
+    def inspect(label, wrapper):
+        if label != "Taming-1.4B":
+            return
+        for part, mod in (("encoder", wrapper.vq.encoder), ("decoder", wrapper.vq.decoder)):
+            want = ckpt.apply_delta(run["base"][part], ckpt.load_pytree(run["deltas"][part]))
+            want = {k: v.to(mod.conv_in.weight.dtype) for k, v in bridge.flatten(want)}
+            bf16 = lambda w: 2.0**-8 * max(float(w.float().abs().max()), 1e-30)  # noqa: E731
+            run[f"generate_{part}_err"] = _leaves_close(f"generate with the RCC deltas, {part}",
+                                                        dict(bridge.flatten(bridge.flax_tree(mod))), want, bf16)
+        print(f"attack sweep [{label}]: tokenizer = base + epoch-3 RCC deltas within "
+              f"{max(run['generate_encoder_err'], run['generate_decoder_err']):.3e} (bf16 rounding)")
+
+    return inspect
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1438,7 +1638,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
     torch.cuda.empty_cache()
-    paths.append(timed("attack sweep", phase_attack_sweep, device))
+    with tempfile.TemporaryDirectory() as workdir:
+        rcc = timed("RCC finetune", phase_rcc_finetune, device, workdir)
+        paths.append(rcc)
+        tuned = [f"--{part}_ft_ckpt={rcc['runs']['Taming']['deltas'][part]}" for part in ("encoder", "decoder")]
+        paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, taming_extra=tuned,
+                                                                      inspect=check_tuned_tokenizer(rcc))))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:

@@ -202,9 +202,12 @@ def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    for extra in (["--modelpath", "ckpt"], ["--dp", "2"], ["--sync", "true"], ["--include_diffpure", "true"]):
+    for extra in (["--include_neural_compress", "true"], ["--dp", "2"], ["--sync", "true"],
+                  ["--include_diffpure", "true"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
+    with pytest.raises(SystemExit, match="ROADMAP"):  # --modelpath is ported for rar and taming only
+        tgen.main(["--model", "chameleon7b", "--modelpath", "ckpt", "--device", "cpu", "--outdir", str(tmp_path)])
     with pytest.raises(SystemExit, match="chameleon7b"):  # ported, but a Chameleon path, as in generate.py
         tgen.main(base + ["--device", "cpu", "--interleaved", "prompts.txt"])
     clus = tmp_path / "clustering"

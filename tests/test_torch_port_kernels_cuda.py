@@ -5,6 +5,9 @@ imports no JAX, so it also runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_kernels_cuda.py
 """
 
+import copy
+import os
+
 import pytest
 import torch
 
@@ -935,3 +938,96 @@ def test_attack_grid_on_the_card_matches_the_cpu(device, monkeypatch):
                     assert float((err > 1e-5).float().mean()) <= 1e-3, (name, p)
                 else:
                     assert float(err.max()) <= (0 if exact else 1e-5), (name, p, float(err.max()))
+
+
+# ---------------------------------------------------------------------------
+# RCC finetuning and the checkpoint format on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["taming", "maskgit"])
+@pytest.mark.parametrize("level,index", [("warmup", None), ("strong", 18)], ids=["warmup", "croppad_0.5"])
+def test_rcc_train_step_on_the_card_matches_the_cpu(device, kind, level, index):
+    """One RCC loss and backward at the JAX tests' tiny sizes on the card
+    against the same on the CPU, TF32 off: losses within 1e-5 relative,
+    every gradient within 1e-3 of its leaf's largest magnitude (or of 1e-3
+    of the step's largest gradient, for leaves that are zero in exact
+    arithmetic); then one Adam step moves both alike."""
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.finetune import cli, rcc
+    from wmar_tpu_torch.models import MaskGitVQConfig, VQGANConfig, init_maskgit, init_taming_vqgan
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "taming":
+        model, adapter_cls = init_taming_vqgan(VQGANConfig(**cli.TINY_TAMING), gen), rcc.TamingRCCAdapter
+    else:
+        model, adapter_cls = init_maskgit(MaskGitVQConfig(**cli.TINY_MASKGIT), gen), rcc.MaskGitRCCAdapter
+    with torch.no_grad():  # a codebook spread to N(0, 1)
+        for name, p in model.named_parameters():
+            if name.endswith("embedding"):
+                p.copy_(torch.randn(p.shape, generator=gen))
+    codes = torch.randint(0, 64, (4, model.cfg.codes_per_side**2), generator=gen)
+    draws = {} if index is None else dict(gate=0.0, index=index)
+    out = []
+    for dev in (torch.device("cpu"), device):
+        adapter = adapter_cls(copy.deepcopy(model).to(dev))
+        state = rcc.init_state(adapter, rcc.RCCConfig(lr=1e-4))
+        loss, metrics = rcc.make_loss_fn(adapter, rcc.RCCConfig(), level)(state.trainable, codes.to(dev), **draws)
+        loss.backward()
+        grads = {n: bridge.flax_tree([(k, p.grad) for k, p in state.trainable[n].named_parameters()])
+                 for n in ("decoder", "watermark_encoder")}
+        state.optimizer.step()
+        out.append(({k: float(v) for k, v in metrics.items()}, grads,
+                    {k: v.detach().cpu() for k, v in state.trainable.state_dict().items()}))
+    (cm, cg, cw), (gm, gg, gw) = out
+    for k in cm:
+        assert gm[k] == pytest.approx(cm[k], rel=1e-5, abs=1e-7), k
+    flat_c = dict(bridge.flatten(cg))
+    flat_g = dict(bridge.flatten(gg))
+    floor = 1e-3 * max(float(v.abs().max()) for v in flat_c.values())
+    for k, want in flat_c.items():
+        scale = max(float(want.abs().max()), floor)
+        torch.testing.assert_close(flat_g[k].cpu(), want, rtol=0, atol=1e-3 * scale, msg=k)
+    for k, want in cw.items():  # Adam's first step: +-lr where the gradients agree in sign
+        assert float((gw[k] - want).abs().max()) <= 2 * 1e-4 + 1e-6, k
+
+
+def test_codec_chunked_leaf_round_trip(device):
+    """A float32 leaf of 2**28 + 1024 elements (just over 1 GiB) goes as
+    flax's chunked map of two flat chunks and reads back equal."""
+    from wmar_tpu_torch.utils import msgpack_codec as codec
+
+    x = torch.randn((2**28 + 1024,), device=device)
+    data = codec.serialize({"big": x, "small": torch.arange(3, device=device)})
+    back = codec.restore(data)
+    assert torch.equal(back["big"], x.cpu()) and torch.equal(back["small"], torch.arange(3))
+    head = codec.restore(codec.serialize({"big": x[:1]}))  # unchunked form of one element
+    assert head["big"].shape == (1,)
+    del data, back
+
+
+def test_full_size_tokenizer_msgpack_round_trip(device, tmp_path):
+    """The f16 Taming VQGAN at full size (random weights on the card) saved
+    in the Flax layout and loaded into a fresh module on the card: every
+    tensor equal; the deltas of a perturbed copy re-applied equal it within
+    4 float32 ulps of the largest weight."""
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.models import TAMING_IMAGENET_F16, TamingVQGAN, init_taming_vqgan
+    from wmar_tpu_torch.utils import checkpoint as ckpt
+
+    model = init_taming_vqgan(TAMING_IMAGENET_F16, torch.Generator(device=device).manual_seed(0), device=device)
+    ckpt.save_pytree(str(tmp_path / "vqgan.msgpack"), bridge.flax_tree(model))
+    assert os.path.getsize(tmp_path / "vqgan.msgpack") > 250e6
+    fresh = bridge.load_flax_file(TamingVQGAN, TAMING_IMAGENET_F16, str(tmp_path / "vqgan.msgpack"), device)
+    for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert torch.equal(a, b), k
+    base = bridge.flax_tree(model.decoder)
+
+    def plus(tree):
+        return {k: plus(v) if isinstance(v, dict) else v + 1e-3 for k, v in tree.items()}
+
+    new = plus(base)
+    ckpt.save_delta(str(tmp_path / "d.msgpack"), new, base)
+    got = ckpt.load_and_apply_delta(str(tmp_path / "d.msgpack"), base)
+    for (k, g), (_, w) in zip(bridge.flatten(got), bridge.flatten(new)):
+        assert float((g - w).abs().max()) <= 4 * torch.finfo(torch.float32).eps * max(float(w.abs().max()), 1.0), k

@@ -8,7 +8,10 @@ Ported so far: the RAR, Taming and Chameleon-7B (text-to-image and
 interleaved) watermarked generate -> decode -> attack -> detect paths
 (``core`` with every greenlist source, ``engine``, ``ops``, ``models``,
 ``augmentations`` with the classic attack grid, ``eval.pipeline`` without
-sync, ``eval.analyzer``), the weight bridge (``bridge``) and the entry
-point ``python -m wmar_tpu_torch.generate``. Hand-written CUDA kernels live
-in ``csrc/``.
+sync, ``eval.analyzer``), RCC tokenizer finetuning (``finetune``, ``python
+-m wmar_tpu_torch.finetune``), the flax checkpoint and delta format
+(``utils.checkpoint`` over the port's own msgpack codec), the weight bridge
+(``bridge``) and the entry points ``python -m wmar_tpu_torch.generate`` and
+``python -m wmar_tpu_torch.precompute_imagenet_codes``. Hand-written CUDA
+kernels live in ``csrc/``.
 """

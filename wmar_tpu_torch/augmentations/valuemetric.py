@@ -13,6 +13,9 @@ but one: JPEG comes in two kinds.
 
 Padding is by index (``_pad``), with numpy's ``reflect`` and ``edge``
 rules, so a pad wider than the image reflects again as ``jnp.pad`` does.
+The attacks that RCC finetuning trains through (noise, brightness, blur,
+``jpeg_diff``) clip with :func:`clip01`, whose gradient at a bound is
+JAX's.
 """
 
 from __future__ import annotations
@@ -45,6 +48,13 @@ def _pad(imgs: torch.Tensor, pad_h, pad_w, mode: str) -> torch.Tensor:
     iy = _pad_index(h, *pad_h, mode, imgs.device)
     ix = _pad_index(w, *pad_w, mode, imgs.device)
     return imgs[:, iy[:, None], ix[None, :], :]
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)``: ``torch.clamp``'s values, and half the
+    gradient at a value exactly on a bound, as JAX's clip (a clamp passes
+    all of it; a brightness factor of 1.0 leaves saturated pixels there)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
 def _luma(imgs: torch.Tensor) -> torch.Tensor:
@@ -119,11 +129,11 @@ def gaussian_noise(imgs: torch.Tensor, std: float, generator: torch.Generator = 
     images' device."""
     if noise is None:
         noise = torch.randn(imgs.shape, generator=generator, dtype=imgs.dtype, device=imgs.device)
-    return torch.clamp(imgs + noise.to(imgs.device, imgs.dtype) * std, 0.0, 1.0)
+    return clip01(imgs + noise.to(imgs.device, imgs.dtype) * std)
 
 
 def brightness(imgs: torch.Tensor, factor: float) -> torch.Tensor:
-    return torch.clamp(imgs * factor, 0.0, 1.0)
+    return clip01(imgs * factor)
 
 
 def _gaussian_kernel1d(kernel_size: int, device=None) -> torch.Tensor:
@@ -146,7 +156,7 @@ def gaussian_blur(imgs: torch.Tensor, kernel_size: int) -> torch.Tensor:
     x = _pad(imgs, (pad, pad), (pad, pad), "reflect").permute(0, 3, 1, 2)
     x = F.conv2d(x, k.reshape(1, 1, kernel_size, 1).repeat(c, 1, 1, 1), groups=c)
     x = F.conv2d(x, k.reshape(1, 1, 1, kernel_size).repeat(c, 1, 1, 1), groups=c)
-    return torch.clamp(x.permute(0, 2, 3, 1), 0.0, 1.0)
+    return clip01(x.permute(0, 2, 3, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +275,7 @@ def jpeg_diff(imgs: torch.Tensor, quality: int, subsample: bool = True) -> torch
     g = y - 0.344136 * cb - 0.714136 * cr
     b_ = y + 1.772 * cb
     out = torch.stack([r, g, b_], dim=-1) / 255.0
-    return torch.clamp(out[:, :h0, :w0, :], 0.0, 1.0)
+    return clip01(out[:, :h0, :w0, :])
 
 
 def jpeg_pil(imgs: torch.Tensor, quality: int) -> torch.Tensor:

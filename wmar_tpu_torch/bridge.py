@@ -11,9 +11,12 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
   quantized matrix; payloads keep their bytes.
 * Llama trees (the Chameleon backbone) stay dict trees: every leaf,
   ``{"q", "s"}`` int8 matrices included, becomes a tensor in place.
-* MaskGit and Taming-VQGAN Flax trees: conv ``kernel`` goes from HWIO to
-  OIHW as ``weight``; GroupNorm ``scale``/``bias`` become
-  ``weight``/``bias``.
+* Flax conv trees (MaskGit and Taming VQGAN, the LPIPS VGG, the PatchGAN
+  discriminator): conv ``kernel`` goes from HWIO to OIHW as ``weight``;
+  GroupNorm and BatchNorm ``scale``/``bias`` become ``weight``/``bias``,
+  BatchNorm ``mean``/``var`` the ``running_*`` buffers. :func:`flax_tree`
+  is the inverse: a module's ``state_dict`` as the Flax tree, so files the
+  port writes (RCC deltas, trainables) have the JAX package's layout.
 * A JAX ``KVCache`` (``k``, ``v``), ``QuantKVCache`` (``k``, ``v``,
   ``k_scale``, ``v_scale``), ``PackedQuantKVCache`` or
   ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
@@ -34,7 +37,10 @@ from wmar_tpu_torch.models.vqgan import TamingVQGAN
 
 
 def to_tensor(x, dtype=None, device=None) -> torch.Tensor:
-    """numpy (including ml_dtypes bfloat16) -> a torch tensor of its own."""
+    """numpy (including ml_dtypes bfloat16) -> a torch tensor of its own; a
+    tensor (as the msgpack reader returns them) is moved and cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
     a = np.array(x)  # a writable copy: JAX hands out read-only buffers
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -111,31 +117,45 @@ def load_llama(params: Any, dtype=None, device=None) -> Any:
 @torch.no_grad()
 def load_maskgit(model: MaskGitVQGAN, variables: Dict) -> MaskGitVQGAN:
     """Load Flax MaskGit variables (``{"params": ...}`` or the inner dict)."""
-    return _load_flax(model, variables)
+    return load_flax(model, variables)
 
 
 @torch.no_grad()
 def load_taming_vqgan(model: TamingVQGAN, variables: Dict) -> TamingVQGAN:
     """Load Flax Taming-VQGAN variables (``{"params": ...}`` or the inner dict)."""
-    return _load_flax(model, variables)
+    return load_flax(model, variables)
 
 
-def _load_flax(model, variables: Dict):
+# Flax leaf names that are not the torch names (conv ``kernel`` is handled apart)
+_FLAX_TO_TORCH = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_TORCH_TO_FLAX = {"running_mean": "mean", "running_var": "var"}
+
+
+def _flax_state(model) -> Dict[str, torch.Tensor]:
+    """Parameters and persistent buffers (BatchNorm statistics), by
+    ``state_dict`` name."""
+    return {k: v for k, v in model.state_dict(keep_vars=True).items() if not k.endswith("num_batches_tracked")}
+
+
+@torch.no_grad()
+def load_flax(model, variables: Dict):
+    """Copy a Flax tree (``{"params": ...}`` or the inner dict; numpy or
+    tensor leaves) into ``model``'s parameters and BatchNorm statistics,
+    casting to their dtype. Every tensor of the model needs a leaf."""
     params = variables.get("params", variables)
-    own = dict(model.named_parameters())
+    own = _flax_state(model)
     seen = set()
     for path, leaf in flatten(params):
         mod, name = path.rsplit(".", 1) if "." in path else ("", path)
-        a = np.asarray(leaf)
+        t = to_tensor(leaf)
         if name == "kernel":
-            key, a = f"{mod}.weight", a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        elif name == "scale":
-            key = f"{mod}.weight"
+            key, t = f"{mod}.weight", t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        elif name in _FLAX_TO_TORCH:
+            key = f"{mod}.{_FLAX_TO_TORCH[name]}"
         else:
             key = path
         if key not in own:
             raise KeyError(f"Flax leaf {path} has no counterpart {key}")
-        t = to_tensor(a)
         if own[key].shape != t.shape:
             raise ValueError(f"{key}: shape {tuple(t.shape)} != {tuple(own[key].shape)}")
         own[key].copy_(t)
@@ -143,6 +163,41 @@ def _load_flax(model, variables: Dict):
     if seen != set(own):
         raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - seen)[:5]}")
     return model
+
+
+
+def load_flax_file(cls, cfg, path: str, device="cpu"):
+    """``cls(cfg)`` on ``device`` with the weights of a Flax-layout msgpack
+    file (the port's own reader; shapes checked, float32), built without
+    drawing random weights first."""
+    from wmar_tpu_torch.utils.checkpoint import load_pytree
+
+    with torch.device("meta"):
+        model = cls(cfg)
+    return load_flax(model.to_empty(device=device), load_pytree(path))
+
+
+def flax_tree(named) -> Dict:
+    """The Flax tree of a module (or of ``(state_dict name, tensor)`` pairs,
+    such as its gradients): 4-d ``weight`` OIHW -> ``kernel`` HWIO, 1-d
+    ``weight`` -> ``scale``, ``running_mean``/``running_var`` ->
+    ``mean``/``var``; a ``ModuleList`` index becomes a key ``"0"``, ``"1"``,
+    as flax writes a list. Leaves are contiguous tensors on their device."""
+    items = _flax_state(named).items() if isinstance(named, torch.nn.Module) else named
+    tree: Dict = {}
+    for key, t in items:
+        mod, name = key.rsplit(".", 1) if "." in key else ("", key)
+        t = t.detach()
+        if name == "weight" and t.dim() == 4:
+            name, t = "kernel", t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        elif name == "weight" and t.dim() == 1:
+            name = "scale"
+        name = _TORCH_TO_FLAX.get(name, name)
+        node = tree
+        for part in mod.split(".") if mod else ():
+            node = node.setdefault(part, {})
+        node[name] = t.contiguous()
+    return tree
 
 
 def kv_cache(k, v, device=None) -> KVCache:

@@ -38,13 +38,24 @@ The flags keep ``generate.py``'s names. ``--device`` (default ``cuda``)
 names the device outright: without a CUDA card the default fails rather
 than moving to the CPU, and the tests pass ``--device cpu``. Flags whose
 paths are not ported yet exit with the ROADMAP item that ports them.
-Without ``--tiny`` the model runs at its published widths with random
-weights drawn from ``--seed``: loading checkpoints is not ported yet. For
-Taming that means the 1.4B cin_transformer (48 layers, width 1664) and the
-f16 ImageNet VQGAN; for Chameleon CHAMELEON_7B with the synthetic full-size
-vocabulary (8192 image codes in a 65536-entry table) and a synthetic
-tokenizer, as the JAX bench runs it. ``--weight_dtype int8|int4`` quantizes
-the generator's linears for every model; int4 linears run the w4a16 kernel.
+Without ``--tiny`` or ``--modelpath`` the model runs at its published widths
+with random weights drawn from ``--seed``. For Taming that means the 1.4B
+cin_transformer (48 layers, width 1664) and the f16 ImageNet VQGAN; for
+Chameleon CHAMELEON_7B with the synthetic full-size vocabulary (8192 image
+codes in a 65536-entry table) and a synthetic tokenizer, as the JAX bench
+runs it. ``--weight_dtype int8|int4`` quantizes the generator's linears for
+every model; int4 linears run the w4a16 kernel.
+
+``--modelpath`` (``rar``, ``taming``) reads the JAX package's files, flax
+msgpack, through the port's own reader: ``config.json``'s meta (``gpt``
+geometry, ``alive_ids``), ``maskgit_vqgan.msgpack`` and
+``<rar_size>.msgpack``, or ``vqgan.msgpack`` and ``gpt.msgpack``. The
+generator keeps the files' dtype, the tokenizer is float32.
+``--encoder_ft_ckpt`` / ``--decoder_ft_ckpt`` add RCC deltas (as
+``python -m wmar_tpu_torch.finetune`` writes them) to the tokenizer's
+encoder / decoder, in float32, cast back to its dtype, whatever built the
+wrapper (``--tiny``, random or ``--modelpath``); the JAX CLI's ``--tiny``
+branch returns before its delta block and ignores them.
 """
 
 from __future__ import annotations
@@ -56,12 +67,11 @@ import sys
 import numpy as np
 import torch
 
+from wmar_tpu_torch import bridge
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NOT_PORTED = {
-    "modelpath": "checkpoint loading (ROADMAP queue 1, item 14: state-dict loads)",
-    "encoder_ft_ckpt": "RCC deltas (ROADMAP queue 1, item 10)",
-    "decoder_ft_ckpt": "RCC deltas (ROADMAP queue 1, item 10)",
     "sync": "sync (ROADMAP queue 1, item 11)",
     "syncpath": "sync (ROADMAP queue 1, item 11)",
     "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
@@ -221,6 +231,9 @@ def _load_alive_ids(path):
 
 
 def load_chameleon(args, device: torch.device):
+    if getattr(args, "modelpath", None) and not args.tiny:
+        raise SystemExit("--modelpath for chameleon7b: the tokenizer JSON, the 7B tree and "
+                         "assets/chameleon_all_ids.txt (ROADMAP queue 1, item 14a) are not ported yet")
     from wmar_tpu_torch.models import (
         CHAMELEON_7B,
         CHAMELEON_F16,
@@ -250,6 +263,33 @@ def load_chameleon(args, device: torch.device):
                          cache_dtype=cache_dtype, device=device)
 
 
+def _read_meta(modelpath: str) -> dict:
+    import json
+
+    path = os.path.join(modelpath, "config.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _read(modelpath: str, name: str):
+    from wmar_tpu_torch.utils.checkpoint import load_pytree
+
+    return load_pytree(os.path.join(modelpath, name))
+
+
+def apply_ft_deltas(args, wrapper) -> None:
+    """Add the RCC deltas of ``--encoder_ft_ckpt`` / ``--decoder_ft_ckpt``
+    to the wrapper's tokenizer, whatever built it."""
+    from wmar_tpu_torch.utils import checkpoint as ckpt
+
+    for path, part in ((args.encoder_ft_ckpt, wrapper.vq.encoder), (args.decoder_ft_ckpt, wrapper.vq.decoder)):
+        if path:
+            bridge.load_flax(part, ckpt.load_and_apply_delta(path, bridge.flax_tree(part)))
+            print(f"applied the RCC delta {path}")
+
+
 # A random tiny model has no alive-ids file: all its codes count as alive,
 # and there are enough of them for the clustering split's 100 clusters.
 _TINY_CODES = 128
@@ -266,6 +306,18 @@ def load_taming(args, device: torch.device):
         init_taming_vqgan,
     )
 
+    if getattr(args, "modelpath", None) and not args.tiny:
+        from wmar_tpu_torch.models import GPT, TamingVQGAN
+
+        meta = _read_meta(args.modelpath)
+        # the published cin_transformer geometry; taming's net2net GPTs use 16 heads
+        gpt_cfg = GPTConfig(**meta.get("gpt", dict(vocab_size=16384, block_size=512, n_layer=48, n_head=16,
+                                                   n_embd=1664)))
+        gpt = bridge.load_gpt(GPT(gpt_cfg, device=device), _read(args.modelpath, "gpt.msgpack"))
+        vq = bridge.load_flax_file(TamingVQGAN, TAMING_IMAGENET_F16, os.path.join(args.modelpath, "vqgan.msgpack"),
+                                   device)
+        alive = _load_alive_ids(meta.get("alive_ids", "assets/vqgan_alive_ids.txt"))
+        return TamingARMM(gpt, vq, alive_ids=alive, cache_dtype=gpt.tok_emb.dtype, device=device)
     if args.tiny:
         gpt_cfg = GPTConfig(vocab_size=_TINY_CODES, block_size=300, n_layer=2, n_head=2, n_embd=32)
         vq_cfg = VQGANConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
@@ -281,10 +333,16 @@ def load_taming(args, device: torch.device):
 
 
 def load_wrapper(args, device: torch.device):
-    if args.model == "chameleon7b":
-        return load_chameleon(args, device)
-    if args.model == "taming":
-        return load_taming(args, device)
+    """The model of ``--model`` (tiny, random or from ``--modelpath``) with
+    the RCC deltas applied to its tokenizer."""
+    loader = {"chameleon7b": load_chameleon, "taming": load_taming}.get(args.model, load_rar)
+    wrapper = loader(args, device)
+    if getattr(args, "encoder_ft_ckpt", None) or getattr(args, "decoder_ft_ckpt", None):
+        apply_ft_deltas(args, wrapper)
+    return wrapper
+
+
+def load_rar(args, device: torch.device):
     from wmar_tpu_torch.models import (
         MASKGIT_IMAGENET_F16,
         MaskGitVQConfig,
@@ -295,6 +353,16 @@ def load_wrapper(args, device: torch.device):
         rar_config,
     )
 
+    if getattr(args, "modelpath", None) and not args.tiny:
+        from wmar_tpu_torch.models import RAR, MaskGitVQGAN
+
+        meta = _read_meta(args.modelpath)
+        rar_cfg = rar_config(args.rar_size)
+        rar = bridge.load_rar(RAR(rar_cfg, device=device), _read(args.modelpath, f"{args.rar_size}.msgpack"))
+        vq = bridge.load_flax_file(MaskGitVQGAN, MASKGIT_IMAGENET_F16,
+                                   os.path.join(args.modelpath, "maskgit_vqgan.msgpack"), device)
+        alive = _load_alive_ids(meta.get("alive_ids", "assets/rar_all_ids.txt"))
+        return RarARMM(rar, vq, alive_ids=alive, cache_dtype=rar.embeddings.dtype, device=device)
     if args.tiny:
         rar_cfg = RARConfig(embed_dim=64, depth=2, num_heads=2, intermediate_size=128,
                             image_seq_len=16, codebook_size=_TINY_CODES, num_classes=10)

@@ -15,7 +15,7 @@ As in the JAX package, a ResnetBlock that changes width applies its 1x1
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -152,11 +152,26 @@ class MaskGitVQGAN(nn.Module):
         d = (emb**2).sum(-1)[None, :] - 2.0 * flat @ emb.T
         return torch.argmin(d, dim=-1).reshape(z.shape[:-1])
 
+    def encode_latent(self, images_01: torch.Tensor, encoder: Optional[nn.Module] = None) -> torch.Tensor:
+        """images NHWC in [0, 1] -> latents NHWC ``[B, h, w, C]``, through
+        ``encoder`` in place of the model's own where given."""
+        x = images_01.permute(0, 3, 1, 2).to(self.embedding.dtype)
+        return (self.encoder if encoder is None else encoder)(x).permute(0, 2, 3, 1)
+
     def encode_codes(self, images: torch.Tensor) -> torch.Tensor:
         """images NHWC in [-1, 1] -> codes ``[B, tokens]``."""
-        x = ((images + 1.0) / 2.0).permute(0, 3, 1, 2).to(self.embedding.dtype)
-        z = self.encoder(x).permute(0, 2, 3, 1)  # NHWC, as nearest's raster order expects
+        z = self.encode_latent((images + 1.0) / 2.0)  # NHWC, as nearest's raster order expects
         return self.nearest(z).reshape(images.shape[0], -1)
+
+    def quantize_st(self, z: torch.Tensor):
+        """Straight-through quantization for finetuning: ``(z_q, indices,
+        (codebook loss, 0.25 * commitment loss))``, ``z_q`` carrying ``z``'s
+        gradient."""
+        idx = self.nearest(z)
+        z_q = self.embedding[idx]
+        codebook_loss = torch.mean((z.detach() - z_q) ** 2)
+        commit_loss = 0.25 * torch.mean((z - z_q.detach()) ** 2)
+        return z + (z_q - z).detach(), idx, (codebook_loss, commit_loss)
 
     def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes ``[B, tokens]`` -> images NHWC in [-1, 1]."""

@@ -7,16 +7,18 @@ upsampling, a nearest-codebook quantizer. The public methods keep the JAX
 package's layout: images NHWC in [-1, 1], codes ``[B, h*w]`` in raster
 order; inside, the convolutions run NCHW. Submodules carry the Flax module
 names, so the bridge maps ``kernel`` (HWIO) to ``weight`` (OIHW) and
-GroupNorm ``scale`` to ``weight`` name for name.
-
-Not ported yet: ``quantize_st`` and the straight-through quantizer of
-finetuning (ROADMAP queue 1, item 10).
+GroupNorm ``scale`` to ``weight`` name for name. ``encode_latent`` and
+``decode_latent`` (each optionally through a substitute encoder or decoder)
+serve RCC finetuning (``wmar_tpu_torch.finetune``). The straight-through
+``VectorQuantizer.forward`` is JAX's training-time quantizer with its
+codebook and commitment losses, for a training forward pass; the RCC loop
+itself quantizes with ``nearest``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -201,11 +203,12 @@ class Decoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """Nearest-neighbour codebook (VectorQuantizer2 semantics, inference)."""
+    """Nearest-neighbour codebook (VectorQuantizer2 semantics)."""
 
-    def __init__(self, n_embed: int, embed_dim: int):
+    def __init__(self, n_embed: int, embed_dim: int, beta: float = 0.25):
         super().__init__()
         self.embed_dim = embed_dim
+        self.beta = beta
         self.embedding = nn.Parameter(torch.zeros((n_embed, embed_dim)))
 
     def nearest(self, z: torch.Tensor) -> torch.Tensor:
@@ -218,6 +221,16 @@ class VectorQuantizer(nn.Module):
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
         return self.embedding[indices]
+
+    def forward(self, z: torch.Tensor):
+        """Straight-through quantization of ``z [..., embed_dim]``: returns
+        ``(z_q, indices, (codebook loss, beta * commitment loss))``, where
+        ``z_q`` has ``z``'s values' gradient (``z + (z_q - z).detach()``)."""
+        idx = self.nearest(z)
+        z_q = self.lookup(idx)
+        codebook_loss = torch.mean((z.detach() - z_q) ** 2)
+        commit_loss = torch.mean((z - z_q.detach()) ** 2)
+        return z + (z_q - z).detach(), idx, (codebook_loss, self.beta * commit_loss)
 
 
 class TamingVQGAN(nn.Module):
@@ -233,18 +246,26 @@ class TamingVQGAN(nn.Module):
         self.quant_conv = _conv(2 * cfg.z_channels if cfg.double_z else cfg.z_channels, cfg.embed_dim, 1)
         self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1)
 
+    def encode_latent(self, images: torch.Tensor, encoder: Optional[nn.Module] = None) -> torch.Tensor:
+        """images NHWC in [-1, 1] -> pre-quantization latents NHWC ``[B, h, w, e]``,
+        through ``encoder`` in place of the model's own where given (RCC's trainable clone)."""
+        x = images.permute(0, 3, 1, 2).to(self.quantize.embedding.dtype)
+        return self.quant_conv((self.encoder if encoder is None else encoder)(x)).permute(0, 2, 3, 1)
+
     def encode_codes(self, images: torch.Tensor) -> torch.Tensor:
         """images NHWC in [-1, 1] -> token grid ``[B, h*w]`` (row-major)."""
-        x = images.permute(0, 3, 1, 2).to(self.quantize.embedding.dtype)
-        z = self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)  # NHWC: nearest's raster order
-        return self.quantize.nearest(z).reshape(images.shape[0], -1)
+        return self.quantize.nearest(self.encode_latent(images)).reshape(images.shape[0], -1)
+
+    def decode_latent(self, z_q: torch.Tensor, decoder: Optional[Callable] = None) -> torch.Tensor:
+        """Latents NHWC ``[B, h, w, e]`` -> images NHWC (unclamped), through
+        ``decoder`` in place of the model's own where given."""
+        h = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
+        return (self.decoder if decoder is None else decoder)(h).permute(0, 2, 3, 1)
 
     def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes ``[B, h*w]`` -> images NHWC (unclamped)."""
         side = self.cfg.codes_per_side
-        z_q = self.quantize.lookup(codes.reshape(codes.shape[0], side, side))  # NHWC
-        rec = self.decoder(self.post_quant_conv(z_q.permute(0, 3, 1, 2)))
-        return rec.permute(0, 2, 3, 1)
+        return self.decode_latent(self.quantize.lookup(codes.reshape(codes.shape[0], side, side)))
 
 
 @torch.no_grad()

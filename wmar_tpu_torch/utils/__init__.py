@@ -1,1 +1,2 @@
-"""Utilities: evaluation metrics."""
+"""Utilities: evaluation metrics, training monitors, parameter-tree files
+(flax msgpack) and RCC deltas."""
