@@ -137,7 +137,27 @@ phases:
    green fraction under the table and the table's bits against the lazily
    built rows of 64 keys, and the port's analyzer on each tree; prints the
    robustness table and the seconds of the grid a batch beside the
-   sampling seconds.
+   sampling seconds; in (b) the torch-compat tree's re-score goes through
+   the C++ ngram scorer (``wmar_tpu_torch.native``, built by g++ at first
+   use; the gates: it built, it was called, the stored p-values), then the
+   scorer and the numpy branch re-score the same 2-class subtree, timed,
+   with equal p-values;
+11. sync, on random weights written in the released layouts: (a) the
+   entry point ``generate.main --sync true --syncpath syncseal_random.pt``
+   (the released SyncSeal: UNet + ConvNeXt-tiny, its corner head well
+   posed) with RAR-XL, int8 weights, 8 classes, a warm-up batch on the
+   packed cache (kernel #2, ``--no_augs``) and a batch on the packed4 cache
+   (kernel #1) through the 62-cell grid: records, sync calls (one add, a
+   remove before each re-tokenize), launch counts, finite images,
+   p-values in [0, 1], ``add_sync`` moving the images by at most the
+   SyncSeal scale, add and remove timed a batch and held against the CPU;
+   (b) the Flax ``SyncSealModel`` from a port-written
+   ``syncseal_random.msgpack`` through ``SyncManager.from_path``; (c) WAM
+   (SAM-base + vae_small, 256 px) from ``wam_random.pth``: add_sync and the
+   per-image remove_sync loop timed, embed and detect held against the CPU
+   on 2 images (TF32 off), and ``WamSync`` over a mock pixel watermark after
+   a flip, a rotation and a crop, its estimates equal on the card and the
+   CPU.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -1322,6 +1342,53 @@ def _check_table_rows(label, wrapper, n_keys: int = 64) -> None:
         raise AssertionError(f"{label}: table rows differ from the reference's split")
 
 
+def _native_rescore(label, outdir, wrapper, records, device, classes: int = 2) -> dict:
+    """The torch-compat tree's re-score through the C++ scorer (it must be
+    built, and called) with the wrapper's alive ids: the stored p-values;
+    then the scorer against the numpy branch on the same subtree of
+    ``classes`` classes, their seconds and equal p-values."""
+    import os
+    import shutil
+
+    from wmar_tpu_torch import native
+    from wmar_tpu_torch.eval import analyzer
+
+    if not native.available():
+        raise AssertionError(f"attack sweep, {label}: the native scorer did not build")
+    vocab = wrapper.get_total_vocab_size()
+    before = native.calls
+    t0 = time.perf_counter()
+    rescored = analyzer.rescore(outdir, vocab, torch_compat=True, device=device, alive_ids=wrapper.alive_ids)
+    full_s = time.perf_counter() - t0
+    stored = {os.path.join(f"c={r['conditioning']},idx={r['idx']}",
+                           f"{r['idx']:04}_{r['method']}_{r['transform']}_{r['param']}.npy"): r["pvalue"] for r in records}
+    dev = max(abs(rescored[k] - p) for k, p in stored.items())
+    if native.calls == before or len(rescored) != len(records) or not dev <= 1e-12:
+        raise AssertionError(f"attack sweep, {label}: native re-score: {native.calls - before} calls, "
+                             f"{len(rescored)} of {len(records)} records, max |dp| against the stored {dev}")
+    sub = outdir + "_sub"
+    for d in sorted(os.listdir(outdir))[:classes]:
+        shutil.copytree(os.path.join(outdir, d), os.path.join(sub, d))
+    t0 = time.perf_counter()
+    with_native = analyzer.rescore(sub, vocab, torch_compat=True, device=device, alive_ids=wrapper.alive_ids)
+    sub_native_s = time.perf_counter() - t0
+    available, native.available = native.available, lambda: False
+    try:
+        t0 = time.perf_counter()
+        with_numpy = analyzer.rescore(sub, vocab, torch_compat=True, device=device, alive_ids=wrapper.alive_ids)
+        sub_numpy_s = time.perf_counter() - t0
+    finally:
+        native.available = available
+    if with_numpy != with_native:
+        raise AssertionError(f"attack sweep, {label}: native and numpy re-scores differ")
+    out = {"native_calls": native.calls - before, "full_native_s": full_s, "files": len(rescored),
+           "sub_files": len(with_native), "sub_native_s": sub_native_s, "sub_numpy_s": sub_numpy_s}
+    print(f"attack sweep [{label}]: torch-compat re-score through the C++ scorer: {len(rescored)} files in "
+          f"{full_s:.2f} s, the stored p-values within {dev:.1e}; on {len(with_native)} files of {classes} classes native "
+          f"{sub_native_s:.2f} s against the numpy branch {sub_numpy_s:.2f} s, equal p-values")
+    return out
+
+
 def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: int = 8, taming_extra=(),
                        inspect=None) -> dict:
     """The main path with the attack grid, through the entry point
@@ -1386,6 +1453,7 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
             gates = _sweep_checks(label, wrapper, seen["logs"][0], records, outdir, n)
             if compat:
                 _check_table_rows(label, wrapper)
+                gates["rescore"] = _native_rescore(label, outdir, wrapper, records, str(device))
                 if not gates["green_fraction"] > wrapper.watermark_spec.gamma + 0.15:
                     raise AssertionError(f"attack sweep, {label}: green fraction {gates['green_fraction']} under the "
                                          f"torch-compat table not above gamma + 0.15")
@@ -1418,6 +1486,245 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
               f"{min(gates['identity_agreement'].values()):.4f} or more of the tokens")
         print(f"attack sweep [{label}]: TPR@1%FPR per attack {json.dumps(table['per_attack'])}")
         print(analyzer.markdown_table(table))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sync: SyncSealRef through the entry point, the Flax SyncSealModel, WAM
+# ---------------------------------------------------------------------------
+
+SYNC_CLASSES = 8
+SYNC_CPU_TOL = 1e-3  # card against CPU, float32 with TF32 off: summation order over 12 SAM layers
+
+
+class MockWamEmbedder:
+    """A stand-in pixel watermark for ``WamSync`` (the twin of the tests'
+    mock): the message id as a quantized blue level, detected exactly and
+    locally, so a geometric attack moves the quadrant ids with the pixels.
+    Random WAM weights never reach the fit; this does, on the card."""
+
+    LEVELS = (0.15, 0.38, 0.62, 0.85)
+
+    def embed(self, img01, msg):
+        from wmar_tpu_torch.sync.wam_logic import quadrant_messages
+
+        row = msg[0].cpu().numpy()
+        mid = int(np.flatnonzero((quadrant_messages() == row).all(axis=1))[0])
+        out = img01.clone()
+        out[..., 2] = self.LEVELS[mid]
+        return out
+
+    def detect(self, img01):
+        from wmar_tpu_torch.sync.wam_logic import quadrant_messages
+
+        d = (img01[..., 2, None] - torch.tensor(self.LEVELS, device=img01.device)).abs()  # [B, H, W, 4]
+        msgs = torch.as_tensor(quadrant_messages(), device=img01.device)
+        bits = msgs[d.argmin(-1)].permute(0, 3, 1, 2).float() * 2 - 1
+        mask = torch.where(d.min(-1).values < 0.05, 8.0, -8.0)[:, None]
+        return torch.cat([mask, bits], dim=1)
+
+
+def _timed_cuda(fn, *args, reps: int = 3):
+    """(output, seconds a call) over ``reps`` calls after one warm-up, the
+    card synchronized around them."""
+    out = fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps
+
+
+def _sync_bound(label, before, after, bound=None) -> float:
+    """``add_sync``'s images are finite, in [-1, 1] and moved, by at most
+    ``bound`` where one is given."""
+    err = float((after.float() - before.float()).abs().max())
+    if not (torch.isfinite(after).all() and after.min() >= -1 and after.max() <= 1 and 0 < err
+            and (bound is None or err <= bound)):
+        raise AssertionError(f"sync, {label}: add_sync moved the images by {err} (bound {bound})")
+    return err
+
+
+def _card_vs_cpu(label, card, cpu, tol) -> float:
+    err = float((card.float().cpu() - cpu.float()).abs().max())
+    scale = max(1.0, float(cpu.abs().max()))
+    if not err <= tol * scale:
+        raise AssertionError(f"sync, {label}: the card and the CPU differ by {err} (bound {tol * scale})")
+    return err
+
+
+def phase_sync(device, workdir: str) -> dict:
+    """Geometric sync at full width on random weights written in the
+    released layouts. (a) ``generate.main --sync true --syncpath
+    syncseal_random.pt`` (the released SyncSeal: UNet + ConvNeXt-tiny, its
+    corner head well posed) with RAR-XL as ``load_wrapper`` builds it, int8
+    weights, 8 classes: a warm-up batch on the packed cache (kernel #2,
+    ``--no_augs``), then a batch on the packed4 cache (kernel #1) through the
+    62-cell grid, every re-tokenize after ``remove_sync``; (b) the Flax
+    ``SyncSealModel`` from a port-written ``syncseal_random.msgpack``; (c)
+    WAM (SAM-base + vae_small, 256 px) from ``wam_random.pth``, held against
+    the CPU on 2 images, and ``WamSync`` over a mock pixel watermark after a
+    flip, a rotation and a crop, its estimates equal to the CPU's."""
+    import os
+
+    from wmar_tpu_torch import generate as tgen
+    from wmar_tpu_torch.eval import pipeline
+    from wmar_tpu_torch.sync import manager as sman
+    from wmar_tpu_torch.sync import syncseal as tss
+    from wmar_tpu_torch.sync import wam_exact as twx
+    from wmar_tpu_torch.sync import wam_logic as twl
+    from wmar_tpu_torch.augmentations import geometric as G
+
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}}
+    # (a) the released SyncSeal through the entry point
+    ref = tss.init_syncseal_ref(SEED)  # on the CPU: also the reference of the card's numbers
+    pt = os.path.join(workdir, "syncseal_random.pt")
+    torch.save(ref.state_dict(), pt)
+    argv = ["--model", "rar", "--weight_dtype", "int8", "--conditioning", ",".join(map(str, range(SYNC_CLASSES))),
+            "--batch_size", str(SYNC_CLASSES), "--seed", str(SEED), "--sync", "true", "--syncpath", pt]
+    seen = {"logs": [], "calls": {"add_sync": 0, "remove_sync": 0}}
+    load, fill = tgen.load_wrapper, pipeline.fill_batch_log
+    add, remove = sman.SyncManager.add_sync, sman.SyncManager.remove_sync
+
+    def load_kept(args, dev):
+        seen["wrapper"] = load(args, dev)
+        return seen["wrapper"]
+
+    def fill_kept(*a, **k):
+        seen["logs"].append(fill(*a, **k))
+        return seen["logs"][-1]
+
+    def counted(name, fn):
+        def call(self, imgs):
+            seen["calls"][name] += 1
+            return fn(self, imgs)
+        return call
+
+    per_batch = None
+    runs = {}
+    tgen.load_wrapper, pipeline.fill_batch_log = load_kept, fill_kept
+    sman.SyncManager.add_sync, sman.SyncManager.remove_sync = counted("add_sync", add), counted("remove_sync", remove)
+    try:
+        for cache, extra in (("packed", ["--no_augs"]), ("packed4", [])):
+            with tempfile.TemporaryDirectory() as tmp:
+                seen["calls"] = {"add_sync": 0, "remove_sync": 0}
+                reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(_Tee(sys.stdout)):
+                    records = tgen.main([*argv, "--cache_dtype", cache, *extra, "--outdir", os.path.join(tmp, "o")])
+                seconds = time.perf_counter() - t0
+                counts = launches()
+                cfg = seen["wrapper"].rar_cfg
+                per_batch = (cfg.image_seq_len - 1) * cfg.depth
+                kernel = "packed_decode_attention_q8" if cache == "packed" else "packed4_decode_attention"
+                _check_launches(device, counts, {kernel: per_batch}, f"sync, SyncSealRef, {cache} cache")
+                cells = 2 if extra else 64
+                calls = dict(seen["calls"])
+                if len(records) != SYNC_CLASSES * cells or calls != {"add_sync": 1, "remove_sync": cells - 1}:
+                    raise AssertionError(f"sync, SyncSealRef, {cache}: {len(records)} records, sync calls {calls}")
+                pvals = np.array([r["pvalue"] for r in records])
+                if not (np.isfinite(pvals).all() and (pvals >= 0).all() and (pvals <= 1).all()):
+                    raise AssertionError(f"sync, SyncSealRef: p-values in [{pvals.min()}, {pvals.max()}]")
+                for transform, rows in seen["logs"][-1].items():
+                    for param, codes, imgs in rows:
+                        if not (np.isfinite(imgs).all() and imgs.min() >= -1 and imgs.max() <= 1):
+                            raise AssertionError(f"sync, SyncSealRef: {transform} {param}: images out of range")
+                for name, c in counts.items():
+                    out["launches"][name] += c
+                runs[cache] = {"seconds": seconds, "records": len(records), "launches": counts, "sync_calls": calls}
+    finally:
+        tgen.load_wrapper, pipeline.fill_batch_log = load, fill
+        sman.SyncManager.add_sync, sman.SyncManager.remove_sync = add, remove
+    wrapper, log = seen.pop("wrapper"), seen["logs"][-1]
+    codes = torch.as_tensor(log["roundtrips"][0][1], device=device)
+    with torch.no_grad():
+        plain = wrapper.codes_to_images(codes).float()
+    synced = torch.as_tensor(log["roundtrips"][0][2], device=device)
+    # the released design's delta is a tanh times a heatmap of at most 1: the SyncSeal scale bounds the
+    # move, in [-1, 1] twice scaling_w, plus the 8-bit rounding
+    moved = _sync_bound("SyncSealRef", plain, synced, 2 * ref.cfg.scaling_w + 2 / 255)
+    mgr = sman.SyncManager.from_path(pt, device=device)
+    again, add_s = _timed_cuda(mgr.add_sync, plain)
+    unsynced, remove_s = _timed_cuda(mgr.remove_sync, synced)
+    with torch.no_grad():
+        cpu_add = ref.add_sync(plain[:2].cpu())
+        cpu_remove = ref.remove_sync(synced[:2].cpu())
+    # the 8-bit rounding may flip at a float32 tie: count, don't bound, those pixels
+    flips = int(((again[:2].cpu() - cpu_add).abs() > 1e-4).sum())
+    if flips > 1e-3 * cpu_add.numel() or float((again[:2].cpu() - cpu_add).abs().max()) > 2 / 255 + 1e-4:
+        raise AssertionError(f"sync, SyncSealRef: add_sync on the card and the CPU differ at {flips} values")
+    err_remove = _card_vs_cpu("SyncSealRef remove_sync", unsynced[:2], cpu_remove, SYNC_CPU_TOL)
+    out["syncseal_ref"] = {"runs": runs, "add_s": add_s, "remove_s": remove_s, "max_move": moved,
+                           "add_flips_vs_cpu": flips, "remove_err_vs_cpu": err_remove}
+    print(f"sync (a) SyncSealRef: generate --sync true --syncpath syncseal_random.pt, RAR-XL int8, {SYNC_CLASSES} "
+          f"classes: warm-up (packed, no grid) {runs['packed']['seconds']:.2f} s, grid (packed4) "
+          f"{runs['packed4']['seconds']:.2f} s, {runs['packed4']['records']} records, sync calls "
+          f"{runs['packed4']['sync_calls']}, launches {per_batch} per batch on #2 then #1; add_sync moves <= "
+          f"{moved:.4f}; a batch of {SYNC_CLASSES}: add_sync {add_s * 1e3:.2f} ms, remove_sync {remove_s * 1e3:.2f} ms; "
+          f"card vs CPU: add_sync {flips} rounding flips, remove_sync {err_remove:.2e}")
+
+    # (b) the Flax design from a port-written msgpack
+    flax = tss.SyncSealModel.init(SEED)
+    with torch.no_grad():  # Flax zero-inits the output conv: give the signal a random one
+        flax.embedder.out.weight.normal_(0, 0.02, generator=torch.Generator().manual_seed(SEED))
+    mp = os.path.join(workdir, "syncseal_random.msgpack")
+    flax.save(mp)
+    mgr_b = sman.SyncManager.from_path(mp, device=device)
+    if not isinstance(mgr_b.impl, tss.SyncSealModel):
+        raise AssertionError(f"sync, {mp}: dispatched to {type(mgr_b.impl).__name__}")
+    synced_b, add_b = _timed_cuda(mgr_b.add_sync, plain)
+    moved_b = _sync_bound("SyncSealModel", plain, synced_b)  # the Flax design's delta has no tanh: no bound
+    unsynced_b, remove_b = _timed_cuda(mgr_b.remove_sync, synced_b)
+    with torch.no_grad():
+        err_b = _card_vs_cpu("SyncSealModel remove_sync", unsynced_b[:2], flax.remove_sync(synced_b[:2].cpu()),
+                             SYNC_CPU_TOL)
+    if not torch.isfinite(unsynced_b).all() or unsynced_b.shape != plain.shape:
+        raise AssertionError("sync, SyncSealModel: remove_sync output")
+    out["syncseal_model"] = {"add_s": add_b, "remove_s": remove_b, "max_move": moved_b, "remove_err_vs_cpu": err_b}
+    print(f"sync (b) SyncSealModel (syncseal_random.msgpack): add_sync {add_b * 1e3:.2f} ms, remove_sync "
+          f"{remove_b * 1e3:.2f} ms a batch of {SYNC_CLASSES}; moves <= {moved_b:.4f}; remove_sync card vs CPU "
+          f"{err_b:.2e}")
+
+    # (c) WAM at full width
+    wam = twx.init_wam(SEED)
+    wp = os.path.join(workdir, "wam_random.pth")
+    torch.save(twx.to_wam_state_dict(wam), wp)
+    mgr_c = sman.SyncManager.from_path(wp, image_size=wrapper.image_size, device=device)
+    synced_c, add_c = _timed_cuda(mgr_c.add_sync, plain, reps=1)
+    unsynced_c, remove_c = _timed_cuda(mgr_c.remove_sync, synced_c, reps=1)
+    if not (torch.isfinite(synced_c).all() and torch.isfinite(unsynced_c).all()):
+        raise AssertionError("sync, WAM: non-finite images")
+    x01 = (plain[:2] + 1) / 2
+    msgs = torch.as_tensor(np.random.default_rng(SEED).integers(0, 2, (2, twx.NBITS)), device=device)
+    emb = mgr_c.impl.embedder
+    err_embed = _card_vs_cpu("WAM embed", emb.embed(x01, msgs), wam.embed(x01.cpu(), msgs.cpu()), SYNC_CPU_TOL)
+    err_detect = _card_vs_cpu("WAM detect", emb.detect(x01), wam.detect(x01.cpu()), SYNC_CPU_TOL)
+    # WamSync over the mock: the fit runs (coverage ~0.86 at 256 px), card and CPU agree
+    gen = np.random.default_rng(SEED)
+    img = gen.uniform(-1, 1, (1, wrapper.image_size, wrapper.image_size, 3)).astype(np.float32)
+    img[..., 2] = 0.0
+    mock = {d: twl.WamSync(MockWamEmbedder(), image_size=wrapper.image_size) for d in ("cuda", "cpu")}
+    estimates = {}
+    for name, attack in (("identity", lambda x: x), ("flip", G.hflip), ("rotation", lambda x: G.rotate(x, 10.0)),
+                         ("crop", lambda x: G.upper_left_crop_resize_back(x, 0.75))):
+        got = {}
+        for d, sync in mock.items():
+            s01 = (sync.add_sync(torch.as_tensor(img, device=d)) + 1) / 2
+            attacked = attack(s01)
+            got[d] = tuple(int(v) for v in sync.estimate(attacked[0])[0])
+            sync.remove_sync(attacked * 2 - 1)
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"sync, mock WamSync, {name}: the card estimates {got['cuda']}, the CPU {got['cpu']}")
+        estimates[name] = got["cuda"]
+    if not estimates["flip"][3]:
+        raise AssertionError(f"sync, mock WamSync: the flip was not found: {estimates}")
+    out["wam"] = {"add_s": add_c, "remove_s": remove_c, "remove_per_image_s": remove_c / plain.shape[0],
+                  "embed_err_vs_cpu": err_embed, "detect_err_vs_cpu": err_detect, "mock_estimates": estimates}
+    print(f"sync (c) WAM (wam_random.pth, SAM-base + vae_small, {wrapper.image_size} px): add_sync {add_c:.3f} s, "
+          f"remove_sync {remove_c:.3f} s for {plain.shape[0]} images = {remove_c / plain.shape[0] * 1e3:.1f} ms an "
+          f"image (host loop, one copy each); card vs CPU (TF32 off): embed {err_embed:.2e}, detect {err_detect:.2e}; "
+          f"mock WamSync estimates (angle, cut_i, cut_j, flipped) {estimates}, equal on the CPU")
     return out
 
 
@@ -1644,6 +1951,8 @@ def main() -> int:
         tuned = [f"--{part}_ft_ckpt={rcc['runs']['Taming']['deltas'][part]}" for part in ("encoder", "decoder")]
         paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, taming_extra=tuned,
                                                                       inspect=check_tuned_tokenizer(rcc))))
+        torch.cuda.empty_cache()
+        paths.append(timed("sync", phase_sync, device, workdir))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:

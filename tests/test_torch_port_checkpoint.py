@@ -438,3 +438,64 @@ def test_precompute_and_finetune_need_a_card_by_default(tmp_path):
         tpre.main(["--tiny", "--datapath", str(tmp_path), "--outdir", str(tmp_path / "o")])
     with pytest.raises(SystemExit, match="no CUDA"):
         cli.main(["--tiny", "--synthetic", "8", "--outdir", str(tmp_path / "o")])
+
+
+@pytest.fixture(scope="module")
+def _vq_files(tmp_path_factory):
+    """Full-size tokenizer files (random values) as the JAX package saves
+    them: MaskGit for RAR, the f16 VQGAN for Taming."""
+    root = tmp_path_factory.mktemp("vq")
+    rng = np.random.default_rng(8)
+    for name, like in (("maskgit_vqgan.msgpack", jax.eval_shape(lambda: jmg.MaskGitVQGAN(jmg.MASKGIT_IMAGENET_F16)
+                                                                  .init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 256, 3))))),
+                       ("vqgan.msgpack", jax.eval_shape(lambda: jvq.TamingVQGAN(jvq.TAMING_IMAGENET_F16)
+                                                          .init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 256, 3)))))):
+        jckpt.save_pytree(str(root / name), jax.tree.map(lambda s: rng.standard_normal(s.shape, np.float32) * 0.02,
+                                                         like))
+    return root
+
+
+@pytest.mark.parametrize("model", ["rar", "taming"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_modelpath_cache_dtype_is_jax_default(model, dtype, _vq_files, tmp_path, monkeypatch):
+    """``--modelpath`` takes the wrapper's default KV-cache dtype, as JAX's
+    ``load_wrapper`` does (bf16 for RAR, float32 for Taming), whatever dtype
+    the generator's file holds: f32 and bf16 files of a small RAR (its
+    config patched into both packages' ``rar_config``) and a small Taming
+    GPT, saved by the JAX package."""
+    import json
+
+    import wmar_tpu.models as jmodels
+    import wmar_tpu_torch.models as tmodels
+    from wmar_tpu.models import rar as jrar
+    from wmar_tpu.models import taming_gpt as jgpt
+    from wmar_tpu_torch import generate as tgen
+
+    jgen = _root_module("generate")
+    small = dict(embed_dim=32, depth=2, num_heads=2, intermediate_size=64)
+    monkeypatch.setattr(jmodels, "rar_config", lambda size, **kw: jrar.RARConfig(**small, **kw))
+    monkeypatch.setattr(tmodels, "rar_config", lambda size, **kw: tmodels.RARConfig(**small, **kw))
+    cast = (lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))) if dtype == "bfloat16" else np.asarray
+    gpt_cfg = dict(vocab_size=16384, block_size=300, n_layer=2, n_head=2, n_embd=32)
+    if model == "rar":
+        vq_name, name = "maskgit_vqgan.msgpack", "rar_xl.msgpack"
+        params = jrar.init_rar_params(jax.random.PRNGKey(1), jrar.RARConfig(**small))
+        meta = {"alive_ids": str(tmp_path / "alive.txt")}
+    else:
+        vq_name, name = "vqgan.msgpack", "gpt.msgpack"
+        params = jgpt.init_gpt_params(jax.random.PRNGKey(1), jgpt.GPTConfig(**gpt_cfg))
+        meta = {"gpt": gpt_cfg, "alive_ids": str(tmp_path / "alive.txt")}
+    os.symlink(_vq_files / vq_name, tmp_path / vq_name)
+    jckpt.save_pytree(str(tmp_path / name), jax.tree.map(cast, params))
+    (tmp_path / "alive.txt").write_text(",".join(str(i) for i in range(0, 1024, 2)) + "\n")
+    (tmp_path / "config.json").write_text(json.dumps(meta))
+    ns = dict(model=model, tiny=False, modelpath=str(tmp_path), rar_size="rar_xl", encoder_ft_ckpt=None,
+              decoder_ft_ckpt=None)
+    jw = jgen.load_wrapper(argparse.Namespace(**ns))
+    args = tgen.get_parser().parse_args(["--model", model, "--modelpath", str(tmp_path), "--device", "cpu",
+                                         "--outdir", str(tmp_path)])
+    tw = tgen.load_wrapper(args, torch.device("cpu"))
+    want = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[jw.cache_dtype]
+    assert tw.cache_dtype == want == (torch.bfloat16 if model == "rar" else torch.float32)
+    leaf = tw.rar.embeddings if model == "rar" else tw.gpt.tok_emb
+    assert leaf.dtype == getattr(torch, dtype)  # the generator keeps the file's dtype

@@ -202,10 +202,12 @@ def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    for extra in (["--include_neural_compress", "true"], ["--dp", "2"], ["--sync", "true"],
-                  ["--include_diffpure", "true"]):
+    for extra in (["--include_neural_compress", "true"], ["--dp", "2"], ["--include_diffpure", "true"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + ["--device", "cpu"] + extra)
+    # sync is ported: without a checkpoint it is refused as JAX's SyncManager refuses it
+    with pytest.raises(ValueError, match="WAM sync needs the wam_mit.pth checkpoint"):
+        tgen.main(base + ["--device", "cpu", "--sync", "true"])
     with pytest.raises(SystemExit, match="ROADMAP"):  # --modelpath is ported for rar and taming only
         tgen.main(["--model", "chameleon7b", "--modelpath", "ckpt", "--device", "cpu", "--outdir", str(tmp_path)])
     with pytest.raises(SystemExit, match="chameleon7b"):  # ported, but a Chameleon path, as in generate.py
@@ -244,10 +246,12 @@ def test_parser_takes_every_flag_of_generate_py():
 
 
 def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path, one_torch_thread):
-    """``--syncpath none --sync false`` (what the sweep configs pass) runs;
-    each of the new flags with a value that needs unported code exits through
-    ``_refuse_unported`` with its ROADMAP item. ``--exact_jpeg true``, which
-    this test once saw refused, runs the grid with PIL's JPEG."""
+    """``--syncpath none --sync false`` (what the sweep configs pass) runs,
+    and so does a ``--syncpath`` without ``--sync true`` (ignored, as in
+    JAX); each of the new flags with a value that needs unported code exits
+    through ``_refuse_unported`` with its ROADMAP item. ``--exact_jpeg
+    true``, which this test once saw refused, runs the grid with PIL's
+    JPEG."""
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "taming", "--tiny", "--device", "cpu", "--no_augs", "--conditioning", "0,1",
@@ -255,8 +259,8 @@ def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path, one_torch_t
     records = tgen.main(base + ["--syncpath", "none", "--sync", "false", "--exact_jpeg", "false",
                                 "--nc_allow_random", "false"])
     assert len(records) == 4
-    for extra in (["--syncpath", "sync.ckpt"], ["--nc_weights_dir", "w"],
-                  ["--nc_allow_random", "true"], ["--diffpure_weights", "adm.msgpack"]):
+    assert len(tgen.main(base + ["--syncpath", "sync.ckpt"])) == 4
+    for extra in (["--nc_weights_dir", "w"], ["--nc_allow_random", "true"], ["--diffpure_weights", "adm.msgpack"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tgen.main(base + extra)
     out = tmp_path / "exact_jpeg"

@@ -218,3 +218,179 @@ def packed_cache(kv, scale, head_dim: int, device=None) -> PackedQuantKVCache:
 def packed4_cache(kv, scale, head_dim: int, device=None) -> Packed4QuantKVCache:
     """A JAX ``Packed4QuantKVCache``'s ``kv`` and ``scale`` as the port's cache."""
     return Packed4QuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Sync models: the JAX package's parameter trees <-> the port's state dicts
+# ---------------------------------------------------------------------------
+#
+# A pair is (path in the JAX tree, state-dict key, kind): "conv" is an HWIO
+# kernel against an OIHW weight, "lin" a [in, out] matrix against a Linear's
+# [out, in] weight, "id" the same array. Integer path parts index lists
+# (which a msgpack file holds as maps {"0": ...}).
+
+_TO_TORCH = {"conv": lambda t: t.permute(3, 2, 0, 1), "lin": lambda t: t.T, "id": lambda t: t}
+_TO_JAX = {"conv": lambda t: t.permute(2, 3, 1, 0), "lin": lambda t: t.T, "id": lambda t: t}
+
+
+def _get(tree, path):
+    for part in path:
+        tree = tree[part] if isinstance(tree, (list, tuple)) else tree[str(part) if str(part) in tree else part]
+    return tree
+
+
+def _set(tree: dict, path, value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def _lists(tree):
+    """Maps whose keys are 0..n-1 (ints) as lists, recursively."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        return [_lists(tree[i]) for i in range(len(tree))]
+    return {k: _lists(v) for k, v in tree.items()}
+
+
+def pairs_to_state_dict(tree, pairs) -> Dict[str, torch.Tensor]:
+    return {key: _TO_TORCH[kind](to_tensor(_get(tree, path))).contiguous() for path, key, kind in pairs}
+
+
+def state_dict_to_tree(sd: Dict[str, torch.Tensor], pairs) -> Dict:
+    tree: Dict = {}
+    for path, key, kind in pairs:
+        _set(tree, path, _TO_JAX[kind](sd[key].detach()).contiguous())
+    return _lists(tree)
+
+
+def _nb(path, key):
+    """A norm's scale and bias."""
+    return [((*path, "scale"), f"{key}.weight", "id"), ((*path, "bias"), f"{key}.bias", "id")]
+
+
+def _cv(path, key, bias=True, kind="conv", w="kernel", b="bias"):
+    return [((*path, w), f"{key}.weight", kind)] + ([((*path, b), f"{key}.bias", "id")] if bias else [])
+
+
+def syncseal_ref_pairs(unet_cfg, convnext_cfg, unet_prefix="embedder.unet.", cn_prefix="extractor."):
+    """Pairs of ``wmar_tpu.sync.syncseal_models``'s ``unet`` / ``convnext``
+    trees (under the roots "unet" and "convnext") and ``SyncSealRef``'s
+    state dict (the released checkpoint's names)."""
+
+    def res(path, key):
+        key = unet_prefix + key
+        return (_cv((*path, "conv1"), f"{key}.double_conv.0", bias=False) + _nb((*path, "norm1"), f"{key}.double_conv.1")
+                + _cv((*path, "conv2"), f"{key}.double_conv.3", bias=False)
+                + _nb((*path, "norm2"), f"{key}.double_conv.4") + _cv((*path, "res"), f"{key}.res_conv"))
+
+    u = ("unet",)
+    nlev = len(unet_cfg.z_channels_mults)
+    pairs = res((*u, "inc"), "inc")
+    for i in range(nlev - 1):
+        pairs += _cv((*u, "downs", i, "down"), f"{unet_prefix}downs.{i}.down") + res((*u, "downs", i, "conv"),
+                                                                                     f"downs.{i}.conv")
+    for j in range(unet_cfg.num_blocks):
+        pairs += res((*u, "bottleneck", j), f"bottleneck.model.{j}")
+    for i in range(nlev - 1):
+        blk = f"{unet_prefix}ups.{i}.up.upsample_block"
+        pairs += (_cv((*u, "ups", i, "up", "conv"), f"{blk}.2", bias=False) + _nb((*u, "ups", i, "up", "ln"), f"{blk}.3")
+                  + res((*u, "ups", i, "conv"), f"ups.{i}.conv"))
+    pairs += _cv((*u, "outc"), f"{unet_prefix}outc")
+    c, cn = ("convnext",), f"{cn_prefix}convnext."
+    for i in range(len(convnext_cfg.depths)):
+        conv, norm = (0, 1) if i == 0 else (1, 0)
+        pairs += (_cv((*c, "downsample", i, "conv"), f"{cn}downsample_layers.{i}.{conv}")
+                  + _nb((*c, "downsample", i, "norm"), f"{cn}downsample_layers.{i}.{norm}"))
+    for i, depth in enumerate(convnext_cfg.depths):
+        for j in range(depth):
+            p, k = (*c, "stages", i, j), f"{cn}stages.{i}.{j}"
+            pairs += (_cv((*p, "dwconv"), f"{k}.dwconv") + _nb((*p, "norm"), f"{k}.norm")
+                      + _cv((*p, "pwconv1"), f"{k}.pwconv1", kind="lin", w="w", b="b")
+                      + [((*p, "grn", "gamma"), f"{k}.grn.gamma", "id"), ((*p, "grn", "beta"), f"{k}.grn.beta", "id")]
+                      + _cv((*p, "pwconv2"), f"{k}.pwconv2", kind="lin", w="w", b="b"))
+    return pairs + _cv((*c, "head"), f"{cn_prefix}head.linear", kind="lin", w="w", b="b")
+
+
+def syncseal_ref_state_dict(unet_params, convnext_params, unet_cfg=None, convnext_cfg=None):
+    """JAX's ``init_unet_params`` / ``init_convnext_params`` trees (or
+    ``SyncSealRef``'s msgpack file's "unet" and "convnext") as the state
+    dict of the port's ``SyncSealRef``."""
+    from wmar_tpu_torch.sync import syncseal_models as sm
+
+    pairs = syncseal_ref_pairs(unet_cfg or sm.UNET_SMALL2_YUV, convnext_cfg or sm.CONVNEXT_TINY)
+    return pairs_to_state_dict({"unet": unet_params, "convnext": convnext_params}, pairs)
+
+
+def wam_pairs(vit_cfg, upscale_stages):
+    """Pairs of the detector half of JAX's ``convert_wam`` tree ("vit",
+    "pixel_decoder") and ``WamExact``'s state dict (``wam_mit.pth``'s names)."""
+    v, k = ("vit",), "detector.image_encoder."
+    pairs = _cv((*v, "patch_embed"), f"{k}patch_embed.proj") + [((*v, "pos_embed"), f"{k}pos_embed", "id")]
+    for i in range(vit_cfg.depth):
+        p, b = (*v, "blocks", i), f"{k}blocks.{i}."
+        pairs += (_nb((*p, "norm1"), b + "norm1") + _nb((*p, "norm2"), b + "norm2")
+                  + _cv((*p, "attn", "qkv"), b + "attn.qkv", kind="lin", w="w", b="b")
+                  + _cv((*p, "attn", "proj"), b + "attn.proj", kind="lin", w="w", b="b")
+                  + [((*p, "attn", "rel_pos_h"), b + "attn.rel_pos_h", "id"),
+                     ((*p, "attn", "rel_pos_w"), b + "attn.rel_pos_w", "id")]
+                  + _cv((*p, "mlp_lin1"), b + "mlp.lin1", kind="lin", w="w", b="b")
+                  + _cv((*p, "mlp_lin2"), b + "mlp.lin2", kind="lin", w="w", b="b"))
+    pairs += (_cv((*v, "neck0"), f"{k}neck.0", bias=False) + _nb((*v, "neck1"), f"{k}neck.1")
+              + _cv((*v, "neck2"), f"{k}neck.2", bias=False) + _nb((*v, "neck3"), f"{k}neck.3"))
+    d = "detector.pixel_decoder."
+    for si in range(len(upscale_stages)):
+        pairs += (_cv(("pixel_decoder", si, "conv"), f"{d}output_upscaling.{si}.upsample_block.2", bias=False)
+                  + _nb(("pixel_decoder", si, "ln"), f"{d}output_upscaling.{si}.upsample_block.3"))
+    return pairs + _cv(("pixel_decoder", len(upscale_stages)), f"{d}last_layer")
+
+
+def wam_state_dict(params, vit_cfg=None, upscale_stages=(4, 2, 2)) -> Dict[str, torch.Tensor]:
+    """JAX's ``convert_wam`` / ``init_wam_params`` tree as the state dict of
+    the port's ``WamExact``: the VAE through the Flax rules of
+    :func:`load_flax` (``models/vqgan.py``'s names), the detector through
+    :func:`wam_pairs`."""
+    from wmar_tpu_torch.sync.wam_exact import SAM_BASE
+
+    sd = pairs_to_state_dict(params, wam_pairs(vit_cfg or SAM_BASE, upscale_stages))
+    sd["embedder.msg_processor.msg_embeddings.weight"] = to_tensor(params["msg_embeddings"])
+    for part, tree in (("encoder", params["vae_encoder"]), ("decoder", params["vae_decoder"])):
+        for path, leaf in flatten(tree):
+            mod, name = path.rsplit(".", 1)
+            t = to_tensor(leaf)
+            if name == "kernel":
+                name, t = "weight", t.permute(3, 2, 0, 1)
+            sd[f"embedder.{part}.{mod}.{_FLAX_TO_TORCH.get(name, name)}"] = t.contiguous()
+    return sd
+
+
+def syncseal_model_state_dict(flax_params) -> Dict[str, torch.Tensor]:
+    """JAX ``SyncSealModel``'s tree (``{"embedder": {"params": ...},
+    "extractor": {"params": ...}}``, as its ``save`` writes it) as the state
+    dict of the port's ``SyncSealModel``: conv kernels HWIO -> OIHW, Dense
+    kernels transposed, the attention's ``[dim, heads, head_dim]`` query /
+    key / value and ``[heads, head_dim, dim]`` out kernels as Linear
+    weights, LayerNorm ``scale`` -> ``weight``."""
+    sd = {}
+    for part in ("embedder", "extractor"):
+        tree = flax_params[part]
+        for path, leaf in flatten(tree.get("params", tree)):
+            mod, name = path.rsplit(".", 1) if "." in path else ("", path)
+            t = to_tensor(leaf)
+            if name == "kernel":
+                name = "weight"
+                if t.dim() == 4:
+                    t = t.permute(3, 2, 0, 1)
+                elif t.dim() == 2:
+                    t = t.T
+                elif mod.endswith(".out"):
+                    t = t.reshape(-1, t.shape[-1]).T
+                else:
+                    t = t.reshape(t.shape[0], -1).T
+            elif name == "bias" and t.dim() == 2:  # query / key / value [heads, head_dim]
+                t = t.reshape(-1)
+            elif name == "scale":
+                name = "weight"
+            sd[f"{part}.{mod + '.' if mod else ''}{name}"] = t.contiguous()
+    return sd

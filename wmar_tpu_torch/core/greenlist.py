@@ -268,14 +268,19 @@ class LazyTorchCompatGreenlist:
 
     def detect_host(self, codes: np.ndarray) -> np.ndarray:
         """Host-side detection (ngram dedup and betainc) with the device
-        path's scoring rules: ``codes [B, T] -> p-values [B]``. The JAX
-        package's C++ scorer gives the same bits; the port has the numpy
-        branch only."""
+        path's scoring rules: ``codes [B, T] -> p-values [B]``. Through the
+        C++ scorer (``wmar_tpu_torch.native``, over rows built for exactly
+        the keys of the batch) where a compiler is found, else numpy; both
+        give the same bits."""
         from scipy.special import betainc
+
+        from wmar_tpu_torch import native
 
         codes = np.asarray(codes)
         if codes.ndim == 1:
             codes = codes[None]
+        if native.available():
+            return native.detect_native(self.spec, self, codes)
         out = np.zeros((codes.shape[0],), np.float64)
         for b in range(codes.shape[0]):
             rows_a, keys_a, tgts_a = (x.numpy() for x in extract_ngrams(self.spec, torch.as_tensor(codes[b])))

@@ -416,19 +416,25 @@ def rescore(
     torch_compat: bool = False,
     update: bool = False,
     device: str = "cuda",
+    alive_ids=None,
 ) -> dict:
     """Bulk re-score every saved ``.npy`` code file in a result tree.
 
     The detection counterpart of the reference's analyzer re-walk: parse
     the watermark spec out of each filename's method string, score the codes
-    (the port's ``detect`` over the hash greenlist on ``device``, or the
-    torch-compat greenlists' detection, which runs on the host as the
-    reference's does) and return ``{relpath: pvalue}``. With ``update=True`` the sidecar ``.json`` records are
-    rewritten in place. Prints the max deviation from the stored p-values,
+    (the hash greenlist through the C++ scorer of ``wmar_tpu_torch.native``
+    where a compiler is found, else the port's ``detect`` on ``device``; the
+    torch-compat greenlists' detection runs on the host as the reference's
+    does) and return ``{relpath: pvalue}``. With ``update=True`` the
+    sidecar ``.json`` records are rewritten in place. ``alive_ids`` (the
+    tokenizer's, as the run used them) lets the torch-compat greenlists
+    re-score a stratified split, which JAX's ``rescore`` cannot: without
+    them its rows raise there. Prints the max deviation from the stored p-values,
     so drift between generation-time and re-scored detection is visible.
     """
     import torch
 
+    from wmar_tpu_torch import native
     from wmar_tpu_torch.core.detect import detect
     from wmar_tpu_torch.core.greenlist import HashGreenlist, LazyTorchCompatGreenlist
     from wmar_tpu_torch.core.spec import WatermarkSpec
@@ -451,7 +457,9 @@ def rescore(
         spec = WatermarkSpec.from_string(method, vocab_size, spatial_dim=spatial_dim)
         codes = np.stack([c for _, c in items]).astype(np.int64)
         if torch_compat:
-            pvals = LazyTorchCompatGreenlist(spec).detect_host(codes)
+            pvals = LazyTorchCompatGreenlist(spec, alive_ids=alive_ids).detect_host(codes)  # native with a compiler
+        elif native.available():
+            pvals = native.detect_native(spec, HashGreenlist(spec), codes)
         else:
             pvals = detect(spec, HashGreenlist(spec, device=device), torch.as_tensor(codes, device=device))
         for (path, _), p in zip(items, pvals):
@@ -468,7 +476,7 @@ def rescore(
                     rec["pvalue"] = float(p)
                     with open(side_json, "w") as f:
                         json.dump(rec, f)
-    print(f"rescored {len(out)} code files (torch_compat={torch_compat}); "
+    print(f"rescored {len(out)} code files (native={native.available()}, torch_compat={torch_compat}); "
           f"max |dp| vs {n_dev} stored records = {max_dev:.3e}")
     return out
 

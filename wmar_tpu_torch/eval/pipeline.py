@@ -1,12 +1,12 @@
 """Generation -> attack -> detect evaluation pipeline (PyTorch).
 
-Port of ``wmar_tpu.eval.pipeline`` without sync (ROADMAP queue 1, item 11):
-sample a batch of watermarked codes, decode to images, round-trip them
-through the tokenizer, sweep the attack grid, re-tokenize, and compute
-p-value / L0 token mismatch / PSNR per (transform, param, sample). The
-attacks run eagerly on the wrapper's device (PIL's JPEG under
-``exact_jpeg`` on the host), each (attack, param) cell with a generator
-of its own.
+Port of ``wmar_tpu.eval.pipeline``: sample a batch of watermarked codes,
+decode to images, add the sync signal (with a ``sync_manager``), round-trip
+them through the tokenizer, sweep the attack grid, re-tokenize (removing
+the sync first), and compute p-value / L0 token mismatch / PSNR per
+(transform, param, sample). The attacks run eagerly on the wrapper's
+device (PIL's JPEG under ``exact_jpeg`` on the host), each (attack, param)
+cell with a generator of its own.
 
 Conditionings are class ids (RAR) or prompt strings (Chameleon); either
 names its result directory. Results go to the same on-disk tree as the JAX
@@ -28,8 +28,6 @@ import torch
 
 from wmar_tpu_torch.core.detect import detect
 from wmar_tpu_torch.utils.metrics import l0_token_mismatch, psnr_pm1
-
-_NO_SYNC = "sync is not ported yet (ROADMAP queue 1, item 11): pass sync_manager=None"
 
 Log = Dict[str, List[Tuple[Any, np.ndarray, np.ndarray]]]
 
@@ -66,14 +64,18 @@ def fill_batch_log(wrapper, codes: torch.Tensor, aug_manager, eval_params: EvalP
     """The ``{transform: [(param, codes, imgs)]}`` log of one batch: entry 0
     of "roundtrips" is the original (codes, image), entry t its t-th trip
     through the tokenizer; each attack of ``aug_manager`` re-tokenizes the
-    attacked original. ``seed`` (the batch's) seeds every cell's generator."""
-    if sync_manager is not None:
-        raise NotImplementedError(_NO_SYNC)
+    attacked original. ``seed`` (the batch's) seeds every cell's generator.
+    With a ``sync_manager`` the decoded images carry the sync signal (the
+    logged and attacked original is the synced one) and every re-tokenize
+    removes it first (``generate.py:111-164``)."""
     imgs = wrapper.codes_to_images(codes)  # [-1, 1] NHWC
+    if sync_manager is not None:
+        imgs = sync_manager.add_sync(imgs)
+    unsync = sync_manager.remove_sync if sync_manager is not None else (lambda x: x)
     log: Log = {"roundtrips": [(0, _host(codes), _host(imgs))]}
     cur = imgs
     for t in range(1, eval_params.max_roundtrips + 1):
-        cur_codes = wrapper.images_to_codes(cur)
+        cur_codes = wrapper.images_to_codes(unsync(cur))
         cur = wrapper.codes_to_images(cur_codes)
         log["roundtrips"].append((t, _host(cur_codes), _host(cur)))
     if aug_manager is None:
@@ -84,7 +86,7 @@ def fill_batch_log(wrapper, codes: torch.Tensor, aug_manager, eval_params: EvalP
         for pi, param in enumerate(params):
             gen = torch.Generator(device=imgs01.device).manual_seed(cell_seed(seed, ai, pi))
             a = torch.clamp(fn(imgs01, param, gen), 0.0, 1.0) * 2.0 - 1.0
-            rows.append((param, _host(wrapper.images_to_codes(a)), _host(a)))
+            rows.append((param, _host(wrapper.images_to_codes(unsync(a))), _host(a)))
         log[name] = rows
     return log
 
@@ -150,8 +152,9 @@ def compute_and_save_batch(
 
 
 def batch_seed(seed: int, chunk_id: int, batch_index: int) -> int:
-    """The generator seed of one batch: a function of (seed, chunk, batch)
-    only, so a batch samples the same codes however the run is chunked."""
+    """The generator seed of one batch, from (seed, chunk, batch): the chunk
+    id enters as ``seed + 1000 * chunk_id``, as in JAX, so one batch draws
+    other codes under another ``--num_chunks``."""
     return int(np.random.SeedSequence([seed + 1000 * chunk_id, batch_index]).generate_state(1)[0])
 
 
@@ -173,8 +176,6 @@ def generate_and_evaluate(
     """The reference's ``generate()`` driver: batch striping for chunk
     parallelism, a seed per batch, and per batch sample -> log (round trips
     and attacks) -> metrics -> save."""
-    if sync_manager is not None:
-        raise NotImplementedError(_NO_SYNC)
     batches = [all_conditionings[i: i + batch_size] for i in range(0, len(all_conditionings), batch_size)]
     method = str(wrapper.watermark_spec) if (apply_watermark and wrapper.watermark_spec) else "none"
 
@@ -195,7 +196,8 @@ def generate_and_evaluate(
             torch.cuda.synchronize(codes.device)
         t1 = time.perf_counter()
         log_fn(f"batch {bi}: sampling took {t1 - t0:.2f}s")
-        log = fill_batch_log(wrapper, codes, aug_manager, eval_params, bseed)  # host copies: waits for the card
+        log = fill_batch_log(wrapper, codes, aug_manager, eval_params, bseed,
+                             sync_manager)  # host copies: waits for the card
         t2 = time.perf_counter()
         records += compute_and_save_batch(
             log, outdir, method, list(batch), cond_indices,

@@ -24,6 +24,11 @@ device one. ``--wm_torch_compat true`` draws the reference's greenlists bit
 for bit from a table; ``--wm_seed_strategy fixed --wm_split_strategy
 clustering`` takes the clustering split. ``--tiny`` models have 128 codes
 (the JAX CLI's have 64), all alive, so both of these run on them too.
+``--sync true --syncpath <file>`` adds a geometric sync signal to the
+decoded images and removes it before every re-tokenize; the file name picks
+the model as in JAX ("wam" -> WAM, a "sync" ``.pt``/``.pth``/``.safetensors``
+-> the released SyncSeal, another "sync" file -> the Flax SyncSeal's
+msgpack), and ``--sync true`` without a file is refused.
 
 ``--conditioning`` is a comma-separated list of class ids, or the path of a
 file with one prompt per line (Chameleon). ``--interleaved <prompts file>``
@@ -50,7 +55,9 @@ every model; int4 linears run the w4a16 kernel.
 msgpack, through the port's own reader: ``config.json``'s meta (``gpt``
 geometry, ``alive_ids``), ``maskgit_vqgan.msgpack`` and
 ``<rar_size>.msgpack``, or ``vqgan.msgpack`` and ``gpt.msgpack``. The
-generator keeps the files' dtype, the tokenizer is float32.
+generator keeps the files' dtype, the tokenizer is float32; the KV cache
+takes the wrapper's default dtype (bf16 for RAR, float32 for Taming), as in
+JAX, whatever the files hold.
 ``--encoder_ft_ckpt`` / ``--decoder_ft_ckpt`` add RCC deltas (as
 ``python -m wmar_tpu_torch.finetune`` writes them) to the tokenizer's
 encoder / decoder, in float32, cast back to its dtype, whatever built the
@@ -72,8 +79,6 @@ from wmar_tpu_torch import bridge
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NOT_PORTED = {
-    "sync": "sync (ROADMAP queue 1, item 11)",
-    "syncpath": "sync (ROADMAP queue 1, item 11)",
     "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
     "nc_weights_dir": "the neural attacks (ROADMAP queue 1, item 12)",
     "nc_allow_random": "the neural attacks (ROADMAP queue 1, item 12)",
@@ -317,7 +322,7 @@ def load_taming(args, device: torch.device):
         vq = bridge.load_flax_file(TamingVQGAN, TAMING_IMAGENET_F16, os.path.join(args.modelpath, "vqgan.msgpack"),
                                    device)
         alive = _load_alive_ids(meta.get("alive_ids", "assets/vqgan_alive_ids.txt"))
-        return TamingARMM(gpt, vq, alive_ids=alive, cache_dtype=gpt.tok_emb.dtype, device=device)
+        return TamingARMM(gpt, vq, alive_ids=alive, device=device)
     if args.tiny:
         gpt_cfg = GPTConfig(vocab_size=_TINY_CODES, block_size=300, n_layer=2, n_head=2, n_embd=32)
         vq_cfg = VQGANConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
@@ -362,7 +367,7 @@ def load_rar(args, device: torch.device):
         vq = bridge.load_flax_file(MaskGitVQGAN, MASKGIT_IMAGENET_F16,
                                    os.path.join(args.modelpath, "maskgit_vqgan.msgpack"), device)
         alive = _load_alive_ids(meta.get("alive_ids", "assets/rar_all_ids.txt"))
-        return RarARMM(rar, vq, alive_ids=alive, cache_dtype=rar.embeddings.dtype, device=device)
+        return RarARMM(rar, vq, alive_ids=alive, device=device)
     if args.tiny:
         rar_cfg = RARConfig(embed_dim=64, depth=2, num_heads=2, intermediate_size=128,
                             image_seq_len=16, codebook_size=_TINY_CODES, num_classes=10)
@@ -433,10 +438,15 @@ def main(argv=None):
                     guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)
     eval_params = EvalParams(max_roundtrips=args.max_roundtrips, orig_only=args.orig_only)
     aug_manager = None if (args.orig_only or args.no_augs) else AugmentationManager(exact_jpeg=args.exact_jpeg)
+    sync_manager = None
+    if args.sync:
+        from wmar_tpu_torch.sync.manager import SyncManager
+
+        sync_manager = SyncManager.from_path(args.syncpath, image_size=wrapper.image_size, device=device)
     records = generate_and_evaluate(
         args.outdir, wrapper, all_inputs, gen, eval_params, aug_manager,
         batch_size=args.batch_size, seed=args.seed, chunk_id=args.chunk_id,
-        num_chunks=args.num_chunks, apply_watermark=apply_wm,
+        num_chunks=args.num_chunks, apply_watermark=apply_wm, sync_manager=sync_manager,
     )
     print(f"wrote {len(records)} records to {args.outdir}")
     return records
