@@ -76,14 +76,15 @@ phases:
    #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
    layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
-6. interleaved path: the same Chameleon wrapper through the entry point
+6. interleaved path: a Chameleon wrapper of CHAMELEON_7B's width and 8 of
+   its 32 layers (the host paces these steps layer by layer) through the entry point
    ``generate --interleaved <prompts file> --max_images 2``
    (``run_interleaved``): one prompt, two images, three text segments of up
    to 64 tokens, 2244 tokens over one cache shared by the three CFG rows
    behind the live ``key_mask``; with two images that cache passes 2048
    slots, so every forward after the prefill takes the flash-decode
    kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
-   (kernel #6), exactly 2243 forwards x 32 layers = 71,776 launches each and
+   (kernel #6), exactly 2243 forwards x 8 layers = 17,944 launches each and
    none of any other attention kernel; checks the tree the run wrote
    (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
    ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
@@ -92,8 +93,9 @@ phases:
 7. interleaved sampler at the reference's 4096-slot cache, which no flag of
    the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
    one prompt, one image, on the bf16, the int8 and the packed4 cache
-   (kernel #4's ``key_mask`` route): exactly 1153 forwards x 32 layers =
-   36,896 launches each, one image segment of 1024 image tokens;
+   (kernel #4's ``key_mask`` route), on phase 6's 8-layer wrapper: exactly
+   1153 forwards x 8 layers = 9,224 launches each, one image segment of 1024
+   image tokens;
 8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
    positional embeddings, the f16 ImageNet VQGAN at 256 px, the same
@@ -157,7 +159,23 @@ phases:
    per-image remove_sync loop timed, embed and detect held against the CPU
    on 2 images (TF32 off), and ``WamSync`` over a mock pixel watermark after
    a flip, a rotation and a crop, its estimates equal on the card and the
-   CPU.
+   CPU;
+12. sync training (``phase_sync_training``): (a) ``train_syncseal.main``
+   at full width (UNet-small2-YUV + ConvNeXt-tiny + the discriminator, 256
+   px, batch 8, lr 1e-4, the pyramid perceptual loss, deterministic
+   kernels, no SIFT: the card has no OpenCV), 1 epoch resumed to a
+   detector-only 2nd and a 3rd, against 3 straight, and one epoch of the
+   quantizable UNet from an embedder.yaml: finite logs, the UNet bit-equal
+   over the detector-only epoch, the resumed run within 4 float32 ulps of
+   the straight one, one model step on the card within 1e-3 of the CPU,
+   ``syncmodel.msgpack`` served through ``SyncSealRef.load``; s a step,
+   images/s, peak memory; (b) WAM from scratch at ``WAMConfig()``'s width
+   (``examples/train_wam_sync``), its quadrant estimate and revert; (c)
+   ``eval_wm``: ``ss`` through (a)'s model over the 21 x 21 grid on 8
+   synthetic 256 px images (441 rows), ``hidden`` through random WAM and
+   ``ss`` without sync (21 rows each): finite numbers, ``ss`` at
+   identity >= 0.99 bit accuracy, three cells equal to the CPU's; the
+   seconds of each run and the per-cell medians of the CSV's timings.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -168,15 +186,20 @@ a CUDA card it fails at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import os
 import re
 import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# a fixed cuBLAS workspace, set before CUDA starts: phase 12's deterministic runs need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Tolerance of the kernel against its plain float32 version, relative to
 # the largest output. Both compute scores, softmax and sums in float32 and
@@ -196,6 +219,7 @@ PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in sno
            "a tall ship", "an old bridge at night"]
 
 
+INTERLEAVED_LAYERS = 8  # of Chameleon-7B's 32, in phases 6 and 7 (the width is the model's)
 TAMING_CLASSES = 32
 TAMING_GEN = dict(temperature=1.0, top_k=250, top_p=0.92)  # configs/taming_generate.json
 # (K, N) of every weight matrix on each model's path
@@ -1728,6 +1752,226 @@ def phase_sync(device, workdir: str) -> dict:
     return out
 
 
+# sync training (phase 12): the trainer's flags at full width; 8 steps an epoch, epoch 1 on detector-only, an eval
+# at epochs 1 and 2, the schedules' horizon 3 epochs, so a run stopped after 2 and resumed ends as one of 3
+SYNC_TRAIN_FLAGS = ("--synthetic", "true", "--img_size", "256", "--batch_size", "8", "--lr", "1e-4",
+                    "--steps_per_epoch", "8", "--finetune_detector_start", "1", "--eval_freq", "2",
+                    "--sift_baseline", "false", "--schedule_epochs", "3", "--seed", str(SEED),
+                    "--deterministic", "true")
+QUANT_EMBEDDER_YAML = ("model: unet_small2_yuv_quantizable\nunet_small2_yuv_quantizable:\n  z_channels: 16\n"
+                       "  num_blocks: 8\n  z_channels_mults: [1, 2, 4, 8]\n  activation: relu\n"
+                       "  normalization: batch\n  last_tanh: True\n")
+EVAL_CELLS = {"identity": [0], "rotate": [10], "crop": [0.5]}  # held against the CPU (no perspective: no draws)
+
+
+def _unet_state(model):
+    return {k: v.detach().clone() for k, v in model.embedder.state_dict().items()}
+
+
+def _timing_medians(rows) -> dict:
+    keys = ("wm_embed_time", "sync_embed_time", "sync_detect_time", "unwrap_time", "wm_detect_time")
+    return {k: float(np.median([r[k] for r in rows])) for k in keys}
+
+
+def phase_sync_training(device, workdir: str) -> dict:
+    """Sync's training half and the watermark-through-sync evaluation.
+    (a) ``python -m wmar_tpu_torch.train_syncseal`` (``train_syncseal.main``)
+    at full width (UNet-small2-YUV + ConvNeXt-tiny, 256 px, batch 8, lr 1e-4,
+    the pyramid perceptual loss, deterministic kernels): 1 epoch, resumed to 2
+    (detector-only), resumed to 3, against 3 epochs straight; one epoch with
+    an embedder.yaml that selects the quantizable UNet; one model step on the
+    card against the CPU; the written ``syncmodel.msgpack`` through
+    ``SyncSealRef.load``. (b) WAM from scratch at ``WAMConfig()``'s width
+    (``examples/train_wam_sync``), its quadrant estimate and revert. (c)
+    ``python -m wmar_tpu_torch.sync.eval_wm``: the 21 x 21 grid through (a)'s
+    model on 8 synthetic 256 px images (``--baseline ss``), HiDDeN through
+    WAM (``--tiny``, valuemetric identity) and ``ss`` without sync; three
+    cells of the grid held against the CPU."""
+    import math
+    import os
+
+    from wmar_tpu_torch import train_syncseal
+    from wmar_tpu_torch.examples import train_wam_sync
+    from wmar_tpu_torch.finetune.perceptual import PerceptualLoss
+    from wmar_tpu_torch.sync import baselines, eval_wm
+    from wmar_tpu_torch.sync import syncseal as tss
+
+    out = {"launches": {name: 0 for name, _, _, _ in _kernels()}}
+    flags = [*SYNC_TRAIN_FLAGS, "--device", str(device)]
+    run_a, run_b = os.path.join(workdir, "sync_train_a"), os.path.join(workdir, "sync_train_b")
+
+    def train(outdir, epochs, *extra):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = train_syncseal.main(["--output_dir", outdir, "--epochs", str(epochs), *flags, *extra])
+        rows = res["log"]
+        numbers = [v for r in rows for v in r.values() if isinstance(v, float)]
+        numbers += [v for e in res["evals"].values() for row in e["grid"] for v in row.values()
+                    if isinstance(v, float)] + [v for e in res["evals"].values() for v in e["quality"].values()]
+        if not numbers or not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"sync training {outdir}: a logged number is not finite")
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_gib"] = _peak_gib(device)
+        return res
+
+    # (a) the trainer: 1 epoch, resumed to 2 (detector-only) and to 3, against 3 straight
+    import warnings
+
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    nondet = set()  # ops the deterministic mode warns of: a reason for the resume gate to fail
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            first = train(run_a, 1)
+        nondet.update(str(w.message).split(",")[0] for w in caught if "deterministic" in str(w.message))
+        unet0 = _unet_state(first["state"].model)
+        second = train(run_a, 2)
+        if not all(torch.equal(v, unet0[k]) for k, v in _unet_state(second["state"].model).items()):
+            raise AssertionError("sync training: the UNet moved in the detector-only epoch")
+        third = train(run_a, 3)
+        straight = train(run_b, 3)
+        quant_yaml = os.path.join(workdir, "embedder_quantizable.yaml")
+        with open(quant_yaml, "w") as f:
+            f.write(QUANT_EMBEDDER_YAML)
+        quant = train(os.path.join(workdir, "sync_train_q"), 1, "--embedder_config", quant_yaml)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+    if quant["state"].model.unet_cfg.normalization != "batch":
+        raise AssertionError("sync training: the quantizable embedder.yaml was not applied")
+    ulps = _f32_ulps(4)
+    resume_err = 0.0
+    for part in ("model", "disc"):
+        got, want = third["state"].state_dict()[part], straight["state"].state_dict()[part]
+        for k, w in want.items():
+            err = float((got[k].float() - w.float()).abs().max()) if w.numel() else 0.0
+            if not err <= ulps(w):
+                raise AssertionError(f"sync training: resumed {part}.{k} off the straight run by {err} (ops without "
+                                     f"a deterministic kernel: {sorted(nondet)})")
+            resume_err = max(resume_err, err)
+    steps = int(flags[flags.index("--steps_per_epoch") + 1])
+    batch = int(flags[flags.index("--batch_size") + 1])
+    # the straight run's first epoch (the first run's carries the warm-up)
+    step_s = straight["log"][0]["secs"] / steps
+    warm_s = first["log"][0]["secs"] / steps
+    det_s = float(np.median([r["secs"] for res in (second, third, straight) for r in res["log"]
+                             if r["detector_only"]])) / steps
+
+    # one model step, the card against the CPU (float32, TF32 off)
+    imgs = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(SEED))
+    draws = tss.sample_ref_draws(imgs.shape, torch.Generator().manual_seed(SEED + 1))
+    grads, terms = {}, {}
+    for dev in ("cpu", device):
+        state = tss.init_ref_train_state(tss.SyncSealRef.init(SEED, device=dev), 1e-4, 24, seed=SEED)
+        state.disc.requires_grad_(False)
+        total, metrics = tss.ref_model_loss(state, imgs.to(dev), draws, 0.2, 1.0, False, tss.RefTrainConfig(),
+                                            PerceptualLoss())
+        total.backward()
+        terms[str(dev)] = {k: float(v.detach()) for k, v in metrics.items()}
+        grads[str(dev)] = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+    cpu_terms, card_terms = terms["cpu"], terms[str(device)]
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    step_err = {"terms": max(abs(card_terms[k] - v) / max(abs(v), 1e-6) for k, v in cpu_terms.items()),
+                "grads": max(float((grads[str(device)][k] - g).abs().max()) for k, g in grads["cpu"].items()) / gmax}
+    if not (step_err["terms"] <= SYNC_CPU_TOL and step_err["grads"] <= SYNC_CPU_TOL):
+        raise AssertionError(f"sync training: one model step, the card against the CPU: {step_err}")
+
+    # the written model serves add_sync / remove_sync
+    syncpath = os.path.join(run_a, "syncmodel.msgpack")
+    served = tss.SyncSealRef.load(syncpath, device=device)
+    x = torch.rand(8, 256, 256, 3, generator=torch.Generator().manual_seed(SEED)).to(device) * 2 - 1
+    synced = served.add_sync(x)
+    moved = _sync_bound("trained SyncSealRef", x, synced, 2 * served.cfg.scaling_w + 2 / 255)
+    unsynced = served.remove_sync(synced)
+    if not (unsynced.shape == x.shape and torch.isfinite(unsynced).all()):
+        raise AssertionError("sync training: remove_sync of the trained model")
+    out["train"] = {"step_s": step_s, "first_epoch_step_s": warm_s, "detector_only_step_s": det_s, "imgs_per_s": batch / step_s,
+                    "peak_gib": max(r["peak_gib"] for r in (first, third, straight)), "quant_peak_gib": quant["peak_gib"],
+                    "seconds": {k: r["seconds"] for k, r in (("1", first), ("2", second), ("3", third),
+                                                               ("straight", straight), ("quantizable", quant))},
+                    "resume_max_err": resume_err, "card_vs_cpu_step": step_err, "max_move": moved,
+                    "nondeterministic_ops": sorted(nondet),
+                    "eval_s": [e["secs"] for e in third["evals"].values()],
+                    "log": third["log"], "eval": third["evals"]}
+    print(f"sync training (a) train_syncseal UNet-small2-YUV + ConvNeXt-tiny, 256 px, "
+          f"batch {batch}: {step_s:.4f} s a step ({batch / step_s:.2f} images/s; {warm_s:.4f} in the first epoch), "
+          f"detector-only {det_s:.4f} s, deterministic mode warned of {sorted(nondet) or 'no op'}, peak "
+          f"{out['train']['peak_gib']} GiB (quantizable {quant['peak_gib']}); epochs 1 / 2 / 3 / 3 straight / "
+          f"quantizable {first['seconds']:.1f} / {second['seconds']:.1f} / {third['seconds']:.1f} / "
+          f"{straight['seconds']:.1f} / {quant['seconds']:.1f} s with evals; UNet bit-equal over the detector-only "
+          f"epoch; resumed epoch 3 within {resume_err:.3e} of 3 straight (4 ulps); one step card vs CPU {step_err}; "
+          f"syncmodel.msgpack serves add_sync (moves <= {moved:.4f}) and remove_sync; epoch-2 eval corner_mae "
+          f"{[round(r['corner_mae'], 4) for r in third['evals'][max(third['evals'])]['grid'][:4]]}")
+
+    # (b) WAM from scratch at WAMConfig()'s width
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    wam = train_wam_sync.main(["--steps", "16", "--size", "256", "--batch", "8", "--hidden", "64", "--latent", "128",
+                               "--device", str(device)])
+    wam_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for row in wam["losses"] for v in row.values()):
+        raise AssertionError("sync training (b): a WAM loss is not finite")
+    if not (torch.isfinite(wam["reverted"]).all() and len(wam["aug_info"]) == 4):
+        raise AssertionError("sync training (b): the quadrant estimate and revert")
+    out["wam"] = {"seconds": wam_s, "train_s": wam["train_s"], "step_s": wam["train_s"] / len(wam["losses"]),
+                  "loss": [wam["losses"][0]["loss"], wam["losses"][-1]["loss"]], "coverage": wam["coverage"],
+                  "aug_info": [float(v) for v in wam["aug_info"]], "peak_gib": _peak_gib(device)}
+    print(f"sync training (b) WAM from scratch (WAMConfig() width, 256 px, batch 8): "
+          f"{len(wam['losses'])} steps, {out['wam']['step_s']:.4f} s a step, loss {out['wam']['loss'][0]:.4f} -> "
+          f"{out['wam']['loss'][1]:.4f}; coverage after the rotation {wam['coverage']:.3f}, estimate "
+          f"{out['wam']['aug_info']}, reverted; {wam_s:.1f} s")
+
+    # (c) eval_wm: the full grid through the trained model, HiDDeN through WAM, ss without sync
+    n_img, size = 8, 256
+    common = ["--num_samples", str(n_img), "--img_size", str(size), "--seed", str(SEED), "--device", str(device)]
+    evals = {}
+    for label, argv, n_rows in (
+            ("ss+syncseal", ["--baseline", "ss", "--sync_model", "syncseal", "--sync_path", syncpath], 441),
+            ("hidden+wam", ["--baseline", "hidden", "--sync_model", "wam", "--tiny", "--only_identity", "true"], 21),
+            ("ss+none", ["--baseline", "ss", "--sync_model", "none", "--only_identity", "true"], 21)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = eval_wm.main([*argv, *common, "--output_dir", os.path.join(workdir, f"eval_{label}")])
+        seconds = time.perf_counter() - t0
+        if len(rows) != n_rows:
+            raise AssertionError(f"eval_wm {label}: {len(rows)} rows, not {n_rows}")
+        for r in rows:
+            vals = [r["bit_accuracy"], r["log_pvalue"]] + ([] if label == "ss+none" else [r["corner_error"]])
+            if not all(math.isfinite(v) for v in vals) or (label == "ss+none" and not math.isnan(r["corner_error"])):
+                raise AssertionError(f"eval_wm {label}: {r}")
+        evals[label] = {"seconds": seconds, "rows": len(rows), "medians": _timing_medians(rows),
+                        "mean_bit_accuracy": float(np.mean([r["bit_accuracy"] for r in rows])), "table": rows}
+    plain = evals["ss+none"]["table"][0]
+    # at 256 px a carrier's correlation is ~7 widths of the image's noise
+    if (plain["geom_aug"], plain["val_aug"]) != ("identity_0", "identity_0") or plain["bit_accuracy"] < 0.99:
+        raise AssertionError(f"eval_wm ss+none: the identity cell decodes at {plain['bit_accuracy']}")
+    # three cells of the card's grid against the CPU
+    cpu_sync = eval_wm.load_sync("syncseal", syncpath, device="cpu")
+    cpu_rows = eval_wm.evaluate_watermark_with_sync(
+        baselines.build_baseline("ss", img_size=size, seed=SEED), cpu_sync, eval_wm._synthetic_images(n_img, size, SEED),
+        os.path.join(workdir, "eval_cpu"), only_identity=True, seed=SEED, geoms=EVAL_CELLS)
+    card = {(r["geom_aug"], r["val_aug"]): r for r in evals["ss+syncseal"]["table"]}
+    cell_err = {"log_pvalue": 0.0, "corner_error": 0.0}
+    for r in cpu_rows:
+        c = card[(r["geom_aug"], r["val_aug"])]
+        if c["bit_accuracy"] != r["bit_accuracy"] or abs(c["log_pvalue"] - r["log_pvalue"]) > 1e-4 or \
+                abs(c["corner_error"] - r["corner_error"]) > 1e-3:
+            raise AssertionError(f"eval_wm: the card's cell {c} is not the CPU's {r}")
+        for k in cell_err:
+            cell_err[k] = max(cell_err[k], abs(c[k] - r[k]))
+    for e in evals.values():
+        del e["table"]
+    out["eval_wm"] = {**evals, "cells_vs_cpu": cell_err}
+    for label, e in evals.items():
+        print(f"sync training (c) eval_wm {label}: {e['rows']} rows in {e['seconds']:.2f} s, mean bit accuracy "
+              f"{e['mean_bit_accuracy']:.4f}, per-cell medians (s) {json.dumps({k: round(v, 6) for k, v in e['medians'].items()})}")
+    print(f"sync training (c): ss without sync decodes identity/identity at {plain['bit_accuracy']:.4f}; cells "
+          f"{list(EVAL_CELLS)} x identity equal to the CPU's (log_pvalue within {cell_err['log_pvalue']:.2e}, corner "
+          f"error within {cell_err['corner_error']:.2e} px)")
+    return out
+
+
 # RCC finetune: (label, --model, tokenizer file, flags of the run)
 RCC_RUNS = (("Taming", "taming", "vqgan.msgpack", ("--disc_init", "random")),
             ("MaskGit", "rar", "maskgit_vqgan.msgpack", ("--disable_gan",)))
@@ -1906,6 +2150,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    from wmar_tpu_torch.models import CHAMELEON_7B
     from wmar_tpu_torch.tools import bench_attention
 
     device = torch.device("cuda", 0)
@@ -1939,6 +2184,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     chameleon = build_chameleon(device)
     paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
+    del chameleon
+    torch.cuda.empty_cache()
+    # the interleaved phases at Chameleon-7B's width and INTERLEAVED_LAYERS of its depth: their steps are paced
+    # by the host, per layer, and at 32 layers they took 506.2 s of a 1080.3 s run (H100 80GB HBM3, 700 W)
+    chameleon = build_chameleon(device, lcfg=dataclasses.replace(CHAMELEON_7B, n_layers=INTERLEAVED_LAYERS))
     paths.append(timed("interleaved path", phase_interleaved, device, chameleon))
     paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, chameleon))
     del chameleon
@@ -1953,6 +2203,8 @@ def main() -> int:
                                                                       inspect=check_tuned_tokenizer(rcc))))
         torch.cuda.empty_cache()
         paths.append(timed("sync", phase_sync, device, workdir))
+        torch.cuda.empty_cache()
+        paths.append(timed("sync training", phase_sync_training, device, workdir))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:

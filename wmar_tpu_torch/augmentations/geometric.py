@@ -10,10 +10,14 @@ function runs on the images' own device.
   rounded half to even, a gather and a zero fill.
 * the crops keep the upper-left ``factor`` of each side, then either resize
   back (bilinear, antialiased) or zero-pad back.
+
+``resize_linear`` and ``resize_cubic`` are ``jax.image.resize``'s
+"linear" and "bicubic".
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -70,12 +74,64 @@ def upper_left_crop(imgs: torch.Tensor, factor: float) -> torch.Tensor:
     return imgs[:, : int(factor * h), : int(factor * w), :]
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 on ``|x|``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def resize_weights(n_in: int, n_out: int, kernel=_triangle, device=None) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of ``jax.image.resize`` along one axis
+    (``_compute_weight_mat``): half-pixel centres, the kernel widened by the
+    scale when it shrinks (antialiasing), each row normalized over the taps
+    inside the image (so an edge repeats its pixel, as an upsampling
+    ``F.interpolate`` clamps)."""
+    inv = n_in / n_out
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    w = kernel((sample[:, None] - torch.arange(n_in, dtype=torch.float32, device=device)[None, :]).abs() / kscale)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps), w / torch.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def _resize(imgs: torch.Tensor, size, kernel, channels_last: bool = True) -> torch.Tensor:
+    """Separable resize of the two spatial axes by weight matrices: two
+    products, whose backward is deterministic on the card (``F.interpolate``'s
+    atomic adds are not)."""
+    h_ax, w_ax = (1, 2) if channels_last else (2, 3)
+    wh = resize_weights(imgs.shape[h_ax], size[0], kernel, imgs.device).to(imgs.dtype)
+    ww = resize_weights(imgs.shape[w_ax], size[1], kernel, imgs.device).to(imgs.dtype)
+    if channels_last:
+        return torch.einsum("yh,bhwc->bywc", wh, torch.einsum("xw,bhwc->bhxc", ww, imgs))
+    return torch.einsum("yh,bchw->bcyw", wh, torch.einsum("xw,bchw->bchx", ww, imgs))
+
+
 def resize_linear(imgs: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(..., method="linear")`` (antialiased when
     shrinking) of NHWC images to ``size = (H, W)``."""
-    x = imgs.permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=True)
-    return x.permute(0, 2, 3, 1)
+    return _resize(imgs, size, _triangle)
+
+
+def bilinear_up_nchw(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=factor, mode="bilinear",
+    align_corners=False)`` of NCHW maps (upsampling: no antialiasing, the
+    edges repeated), with a deterministic backward."""
+    return _resize(x, (x.shape[2] * factor, x.shape[3] * factor), _triangle, channels_last=False)
+
+
+def resize_cubic(imgs: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(..., method="bicubic")`` of NHWC images to
+    ``size = (H, W)``: Keys' a = -0.5 kernel, no edge clamping (the taps
+    that fall outside are dropped and the rest renormalized), unlike
+    ``F.interpolate``'s bicubic."""
+    return _resize(imgs.float(), size, _keys_cubic)
 
 
 def upper_left_crop_resize_back(imgs: torch.Tensor, factor: float) -> torch.Tensor:

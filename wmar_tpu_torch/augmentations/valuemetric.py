@@ -13,9 +13,8 @@ but one: JPEG comes in two kinds.
 
 Padding is by index (``_pad``), with numpy's ``reflect`` and ``edge``
 rules, so a pad wider than the image reflects again as ``jnp.pad`` does.
-The attacks that RCC finetuning trains through (noise, brightness, blur,
-``jpeg_diff``) clip with :func:`clip01`, whose gradient at a bound is
-JAX's.
+The attacks that RCC finetuning and SyncSeal training go through clip
+with :func:`clip01`, whose gradient at a bound is JAX's.
 """
 
 from __future__ import annotations
@@ -69,12 +68,12 @@ def grayscale(imgs: torch.Tensor) -> torch.Tensor:
 def contrast(imgs: torch.Tensor, factor: float) -> torch.Tensor:
     """torchvision ``adjust_contrast``: blend with the per-image grey mean."""
     mean = _luma(imgs).mean(dim=(1, 2, 3), keepdim=True)
-    return torch.clamp(mean + factor * (imgs - mean), 0.0, 1.0)
+    return clip01(mean + factor * (imgs - mean))
 
 
 def saturation(imgs: torch.Tensor, factor: float) -> torch.Tensor:
     """torchvision ``adjust_saturation``: blend with grayscale."""
-    return torch.clamp(grayscale(imgs) + factor * (imgs - grayscale(imgs)), 0.0, 1.0)
+    return clip01(grayscale(imgs) + factor * (imgs - grayscale(imgs)))
 
 
 def hue(imgs: torch.Tensor, shift: float) -> torch.Tensor:
@@ -119,7 +118,8 @@ def median_filter(imgs: torch.Tensor, kernel_size: int) -> torch.Tensor:
     x = _pad(imgs, (pad, pad), (pad, pad), "reflect")
     h, w = imgs.shape[1:3]
     patches = torch.stack([x[:, i: i + h, j: j + w, :] for i in range(k) for j in range(k)], dim=-1)
-    return patches.median(dim=-1).values
+    # the middle of a stable sort: jnp.median's element at ties (and deterministic on the card)
+    return patches.sort(dim=-1, stable=True).values[..., k * k // 2]
 
 
 def gaussian_noise(imgs: torch.Tensor, std: float, generator: torch.Generator = None,

@@ -323,10 +323,11 @@ def syncseal_ref_state_dict(unet_params, convnext_params, unet_cfg=None, convnex
     return pairs_to_state_dict({"unet": unet_params, "convnext": convnext_params}, pairs)
 
 
-def wam_pairs(vit_cfg, upscale_stages):
+def wam_pairs(vit_cfg, upscale_stages, prefix: str = "detector."):
     """Pairs of the detector half of JAX's ``convert_wam`` tree ("vit",
-    "pixel_decoder") and ``WamExact``'s state dict (``wam_mit.pth``'s names)."""
-    v, k = ("vit",), "detector.image_encoder."
+    "pixel_decoder") and ``WamExact``'s state dict (``wam_mit.pth``'s names;
+    ``prefix=""`` gives the zoo's ``SegExtractor``)."""
+    v, k = ("vit",), f"{prefix}image_encoder."
     pairs = _cv((*v, "patch_embed"), f"{k}patch_embed.proj") + [((*v, "pos_embed"), f"{k}pos_embed", "id")]
     for i in range(vit_cfg.depth):
         p, b = (*v, "blocks", i), f"{k}blocks.{i}."
@@ -339,7 +340,7 @@ def wam_pairs(vit_cfg, upscale_stages):
                   + _cv((*p, "mlp_lin2"), b + "mlp.lin2", kind="lin", w="w", b="b"))
     pairs += (_cv((*v, "neck0"), f"{k}neck.0", bias=False) + _nb((*v, "neck1"), f"{k}neck.1")
               + _cv((*v, "neck2"), f"{k}neck.2", bias=False) + _nb((*v, "neck3"), f"{k}neck.3"))
-    d = "detector.pixel_decoder."
+    d = f"{prefix}pixel_decoder."
     for si in range(len(upscale_stages)):
         pairs += (_cv(("pixel_decoder", si, "conv"), f"{d}output_upscaling.{si}.upsample_block.2", bias=False)
                   + _nb(("pixel_decoder", si, "ln"), f"{d}output_upscaling.{si}.upsample_block.3"))
@@ -356,12 +357,38 @@ def wam_state_dict(params, vit_cfg=None, upscale_stages=(4, 2, 2)) -> Dict[str, 
     sd = pairs_to_state_dict(params, wam_pairs(vit_cfg or SAM_BASE, upscale_stages))
     sd["embedder.msg_processor.msg_embeddings.weight"] = to_tensor(params["msg_embeddings"])
     for part, tree in (("encoder", params["vae_encoder"]), ("decoder", params["vae_decoder"])):
-        for path, leaf in flatten(tree):
-            mod, name = path.rsplit(".", 1)
-            t = to_tensor(leaf)
-            if name == "kernel":
-                name, t = "weight", t.permute(3, 2, 0, 1)
-            sd[f"embedder.{part}.{mod}.{_FLAX_TO_TORCH.get(name, name)}"] = t.contiguous()
+        for key, t in flax_state_dict(tree).items():
+            sd[f"embedder.{part}.{key}"] = t
+    return sd
+
+
+def seg_extractor_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX's ``syncseal_zoo`` seg-extractor tree ("vit", "pixel_decoder") as
+    the state dict of the port's ``SegExtractor``."""
+    return pairs_to_state_dict(params, wam_pairs(cfg.vit, cfg.upscale_stages, prefix=""))
+
+
+def vae_embedder_state_dict(params) -> Dict[str, torch.Tensor]:
+    """JAX's ``syncseal_zoo`` VAE-embedder tree (Flax "encoder" and
+    "decoder" params) as the state dict of the port's ``VAEEmbedder``."""
+    sd = {}
+    for part in ("encoder", "decoder"):
+        for key, t in flax_state_dict(params[part]).items():
+            sd[f"{part}.{key}"] = t
+    return sd
+
+
+def flax_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """A Flax conv/norm tree by the torch names :func:`load_flax` reads
+    (conv ``kernel`` HWIO -> ``weight`` OIHW, ``scale`` -> ``weight``,
+    BatchNorm ``mean``/``var`` -> ``running_*``)."""
+    sd = {}
+    for path, leaf in flatten(variables.get("params", variables)):
+        mod, name = path.rsplit(".", 1) if "." in path else ("", path)
+        t = to_tensor(leaf)
+        if name == "kernel":
+            name, t = "weight", t.permute(3, 2, 0, 1)
+        sd[f"{mod + '.' if mod else ''}{_FLAX_TO_TORCH.get(name, name)}"] = t.contiguous()
     return sd
 
 
@@ -394,3 +421,96 @@ def syncseal_model_state_dict(flax_params) -> Dict[str, torch.Tensor]:
                 name = "weight"
             sd[f"{part}.{mod + '.' if mod else ''}{name}"] = t.contiguous()
     return sd
+
+
+def discriminator_state_dict(params, n_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """JAX's SyncSeal discriminator list (``init_discriminator_params`` or
+    ``convert_discriminator``: ``[{"conv"}, {"conv", "norm"} x n_layers,
+    {"conv"}]``) as the state dict of the port's ``SyncSealDiscriminator``."""
+    from wmar_tpu_torch.sync.syncseal_models import discriminator_conv_indices
+
+    pairs = []
+    for i, idx in enumerate(discriminator_conv_indices(n_layers)):
+        pairs += _cv((i, "conv"), f"main.{idx}")
+        if 0 < i <= n_layers:
+            pairs += _nb((i, "norm"), f"main.{idx + 1}")
+    return pairs_to_state_dict(params, pairs)
+
+
+def hidden_state_dicts(enc_params, dec_params):
+    """JAX's HiDDeN trees (``init_hidden_params`` / ``convert_hidden_*``) as
+    the state dicts of the port's ``HiddenEncoder`` and ``HiddenDecoder``
+    (the TorchScript blobs' names)."""
+
+    def conv_bn(path, key):
+        return (_cv((*path, "conv"), f"{key}.layers.0")
+                + [((*path, "bn", "gamma"), f"{key}.layers.1.weight", "id"),
+                   ((*path, "bn", "beta"), f"{key}.layers.1.bias", "id"),
+                   ((*path, "bn", "mean"), f"{key}.layers.1.running_mean", "id"),
+                   ((*path, "bn", "var"), f"{key}.layers.1.running_var", "id")])
+
+    enc = [p for i in range(len(enc_params["conv_bns"])) for p in conv_bn(("conv_bns", i), f"conv_bns.{i}")]
+    enc += conv_bn(("after_concat",), "after_concat_layer") + _cv(("final",), "final_layer")
+    dec = [p for i in range(len(dec_params["layers"])) for p in conv_bn(("layers", i), f"layers.{i}")]
+    dec += _cv(("linear",), "linear", kind="lin", w="w", b="b")
+    return pairs_to_state_dict(enc_params, enc), pairs_to_state_dict(dec_params, dec)
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax chain's
+    state, as a NamedTuple or as the dict a msgpack file holds."""
+    if hasattr(opt_state, "mu") or (isinstance(opt_state, dict) and "mu" in opt_state):
+        return opt_state
+    parts = opt_state.values() if isinstance(opt_state, dict) else opt_state if isinstance(opt_state, tuple) else ()
+    for part in parts:
+        found = _adam_state(part)
+        if found is not None:
+            return found
+    return None
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+@torch.no_grad()
+def load_adam_state(opt: torch.optim.Optimizer, sched, named_params, opt_state, to_state_dict) -> int:
+    """Carry an optax ``adam``/``adamw`` state into a torch Adam/AdamW:
+    ``mu``/``nu`` become each parameter's ``exp_avg``/``exp_avg_sq`` (through
+    ``to_state_dict``, the tree's map to the port's names), ``count`` its
+    ``step`` and the ``LambdaLR``'s position. Returns the count."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    count = int(np.asarray(_field(adam, "count")))
+    mu, nu = to_state_dict(_field(adam, "mu")), to_state_dict(_field(adam, "nu"))
+    for name, p in named_params:
+        opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+                        "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}
+    if sched is not None:
+        sched.last_epoch = count
+        for group, base, fn in zip(opt.param_groups, sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * fn(count)
+    return count
+
+
+@torch.no_grad()
+def load_ref_train_state(state, jax_state) -> None:
+    """JAX's SyncSeal train state ``(params, opt_state, disc_params,
+    disc_opt_state)`` (numpy leaves, or the dicts of its msgpack checkpoint)
+    into the port's ``RefTrainState``: the UNet, the ConvNeXt and the
+    discriminator, and both optimizers' Adam moments and counts."""
+    params, opt_state, disc_params, disc_opt_state = (
+        [jax_state[str(i)] for i in range(4)] if isinstance(jax_state, dict) else jax_state)
+    m = state.model
+
+    def model_sd(tree):
+        return syncseal_ref_state_dict(tree["unet"], tree["convnext"], m.unet_cfg, m.convnext_cfg)
+
+    def disc_sd(tree):
+        return discriminator_state_dict(tree)
+
+    m.load_state_dict(model_sd(params))
+    state.disc.load_state_dict(disc_sd(disc_params))
+    load_adam_state(state.opt, state.sched, m.named_parameters(), opt_state, model_sd)
+    load_adam_state(state.opt_d, state.sched_d, state.disc.named_parameters(), disc_opt_state, disc_sd)

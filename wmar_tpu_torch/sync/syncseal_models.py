@@ -12,22 +12,30 @@ parameter names, so ``load_state_dict(strict=True)`` reads its
 * the ConvNeXtV2 extractor (depths 3/3/9/3, dims 96/192/384/768, GRN
   blocks) and its ``Head``: a spatial mean, then a Linear to 1 + 8 (the
   detection logit and the 8 corner coordinates in [-1, 1])
-  (``syncseal/modules/convnext.py``, ``modules/head.py``).
+  (``syncseal/modules/convnext.py``, ``modules/head.py``);
+* the training discriminator, a PatchGAN with biased convolutions and
+  GroupNorm(4) (ndf 32, 3 layers) for the hinge-GAN term of
+  ``losses/sync_loss.py:43-172``, and ``hinge_d_loss``.
 
 Images enter NHWC, as in JAX; the convolutions run NCHW. GELU is the exact
 one, GroupNorm's eps 1e-5, the LayerNorms' 1e-6, as the reference's. The
-discriminator belongs to training and is not here.
+quantizable UNet (``unet_small2_yuv_quantizable``: ReLU and batch norm)
+normalizes with the statistics of the batch it is given, in training and at
+inference alike, as JAX's does. ``init_*_params`` draw JAX's numpy trees
+from the same seeds, so ``bridge`` turns them into the same weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wmar_tpu_torch.augmentations.geometric import bilinear_up_nchw
 
 RGB2YUV_M = np.array(
     [[0.299, 0.587, 0.114],
@@ -57,6 +65,31 @@ class ChannelsFirstLN(nn.Module):
         return self.weight[:, None, None] * x + self.bias[:, None, None]
 
 
+class BilinearUp(nn.Module):
+    """``nn.Upsample(scale_factor, "bilinear", align_corners=False)`` with a
+    deterministic backward on the card (``geometric.bilinear_up_nchw``)."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x):
+        return bilinear_up_nchw(x, self.factor)
+
+
+def _reflect1(n: int, device) -> torch.Tensor:
+    """Source index of each position of a side of ``n`` padded by 1 (reflect)."""
+    i = torch.arange(-1, n + 1, device=device).abs()
+    return torch.where(i == n, n - 2, i)
+
+
+class ReflectPad1(nn.Module):
+    """``nn.ReflectionPad2d(1)`` by index (deterministic backward on the card)."""
+
+    def forward(self, x):
+        return x[:, :, _reflect1(x.shape[2], x.device)][:, :, :, _reflect1(x.shape[3], x.device)]
+
+
 class UpBlock(nn.Module):
     """``common.py`` Upsample: bilinear x``factor`` (half-pixel centres),
     reflect pad 1, conv3 without bias, channels-first LN, exact GELU."""
@@ -64,8 +97,8 @@ class UpBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int, factor: int = 2):
         super().__init__()
         self.upsample_block = nn.Sequential(
-            nn.Upsample(scale_factor=factor, mode="bilinear", align_corners=False),
-            nn.ReflectionPad2d(1),
+            BilinearUp(factor),
+            ReflectPad1(),
             nn.Conv2d(c_in, c_out, 3, bias=False),
             ChannelsFirstLN(c_out),
             nn.GELU(),
@@ -89,17 +122,34 @@ class UNetConfig:
     z_channels_mults: Tuple[int, ...] = (1, 2, 4, 8)
     norm_groups: int = 8
     last_tanh: bool = True
+    # the quantizable training variant (embedder.yaml's
+    # unet_small2_yuv_quantizable) swaps gelu -> relu and group -> batch norm
+    activation: str = "gelu"
+    normalization: str = "group"
 
 
 UNET_SMALL2_YUV = UNetConfig()
+UNET_SMALL2_YUV_QUANTIZABLE = UNetConfig(activation="relu", normalization="batch")
+
+
+def _unet_norm(cfg: UNetConfig, c: int) -> nn.Module:
+    """GroupNorm, or batch norm over the batch it is given (no running
+    statistics: JAX's ``_bn`` in training and at inference)."""
+    if cfg.normalization == "batch":
+        return nn.BatchNorm2d(c, track_running_stats=False)
+    return nn.GroupNorm(cfg.norm_groups, c)
+
+
+def _unet_act(cfg: UNetConfig) -> nn.Module:
+    return nn.ReLU() if cfg.activation == "relu" else nn.GELU()
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, c_in: int, c_out: int, groups: int):
+    def __init__(self, c_in: int, c_out: int, cfg: UNetConfig):
         super().__init__()
         self.double_conv = nn.Sequential(
-            nn.Conv2d(c_in, c_out, 3, padding=1, bias=False), nn.GroupNorm(groups, c_out), nn.GELU(),
-            nn.Conv2d(c_out, c_out, 3, padding=1, bias=False), nn.GroupNorm(groups, c_out), nn.GELU(),
+            nn.Conv2d(c_in, c_out, 3, padding=1, bias=False), _unet_norm(cfg, c_out), _unet_act(cfg),
+            nn.Conv2d(c_out, c_out, 3, padding=1, bias=False), _unet_norm(cfg, c_out), _unet_act(cfg),
         )
         self.res_conv = nn.Conv2d(c_in, c_out, 1)
 
@@ -108,23 +158,23 @@ class ResnetBlock(nn.Module):
 
 
 class _Down(nn.Module):
-    def __init__(self, c_in: int, c_out: int, groups: int):
+    def __init__(self, c_in: int, c_out: int, cfg: UNetConfig):
         super().__init__()
         self.down = nn.Conv2d(c_in, c_out, 3, stride=2, padding=1)
-        self.conv = ResnetBlock(c_out, c_out, groups)
+        self.conv = ResnetBlock(c_out, c_out, cfg)
 
 
 class _Up(nn.Module):
-    def __init__(self, c_in: int, c_out: int, groups: int):
+    def __init__(self, c_in: int, c_out: int, cfg: UNetConfig):
         super().__init__()
         self.up = UpBlock(c_in, c_out)
-        self.conv = ResnetBlock(c_out, c_out, groups)
+        self.conv = ResnetBlock(c_out, c_out, cfg)
 
 
 class _Bottleneck(nn.Module):
-    def __init__(self, c: int, n: int, groups: int):
+    def __init__(self, c: int, n: int, cfg: UNetConfig):
         super().__init__()
-        self.model = nn.Sequential(*[ResnetBlock(c, c, groups) for _ in range(n)])
+        self.model = nn.Sequential(*[ResnetBlock(c, c, cfg) for _ in range(n)])
 
 
 class UNet(nn.Module):
@@ -133,12 +183,11 @@ class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig = UNET_SMALL2_YUV):
         super().__init__()
         self.cfg = cfg
-        g = cfg.norm_groups
         z = [cfg.z_channels * m for m in cfg.z_channels_mults]
-        self.inc = ResnetBlock(cfg.in_channels, z[0], g)
-        self.downs = nn.ModuleList([_Down(z[i], z[i + 1], g) for i in range(len(z) - 1)])
-        self.bottleneck = _Bottleneck(z[-1], cfg.num_blocks, g)
-        self.ups = nn.ModuleList([_Up(2 * z[i + 1], z[i], g) for i in reversed(range(len(z) - 1))])
+        self.inc = ResnetBlock(cfg.in_channels, z[0], cfg)
+        self.downs = nn.ModuleList([_Down(z[i], z[i + 1], cfg) for i in range(len(z) - 1)])
+        self.bottleneck = _Bottleneck(z[-1], cfg.num_blocks, cfg)
+        self.ups = nn.ModuleList([_Up(2 * z[i + 1], z[i], cfg) for i in reversed(range(len(z) - 1))])
         self.outc = nn.Conv2d(z[0], cfg.out_channels, 1)
 
     def forward(self, x):
@@ -229,3 +278,132 @@ class ConvNeXtExtractor(nn.Module):
         for down, stage in zip(self.convnext.downsample_layers, self.convnext.stages):
             x = stage(down(x))
         return self.head.linear(x.mean(dim=(2, 3)))
+
+
+# ---------------------------------------------------------------------------
+# NLayerDiscriminator (PatchGAN with GroupNorm(4))
+# ---------------------------------------------------------------------------
+
+
+class SyncSealDiscriminator(nn.Module):
+    """The reference's training discriminator: conv(s2) + leaky ReLU, then
+    ``n_layers`` x [conv + GroupNorm(4) + leaky ReLU] (stride 2, the last
+    stride 1), and a 1-channel conv(s1); every conv 4x4, padding 1, with a
+    bias. ``main.*`` carries the reference's names. NHWC in, NHWC patch
+    logits out."""
+
+    def __init__(self, in_ch: int = 3, ndf: int = 32, n_layers: int = 3):
+        super().__init__()
+        layers = [nn.Conv2d(in_ch, ndf, 4, stride=2, padding=1), nn.LeakyReLU(0.2)]
+        nf = 1
+        for n in range(1, n_layers + 1):
+            nf_prev, nf = nf, min(2**n, 8)
+            layers += [nn.Conv2d(ndf * nf_prev, ndf * nf, 4, stride=2 if n < n_layers else 1, padding=1),
+                       nn.GroupNorm(4, ndf * nf), nn.LeakyReLU(0.2)]
+        layers.append(nn.Conv2d(ndf * nf, 1, 4, stride=1, padding=1))
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.main(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def hinge_d_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (F.relu(1.0 - logits_real).mean() + F.relu(1.0 + logits_fake).mean())
+
+
+def discriminator_conv_indices(n_layers: int = 3) -> Tuple[int, ...]:
+    """The ``main.<i>`` index of each conv, in the order of JAX's list."""
+    return (0, *(2 + 3 * n for n in range(n_layers)), 2 + 3 * n_layers)
+
+
+def convert_discriminator(sd, n_layers: int = 3, prefix: str = "main.") -> dict:
+    """A reference discriminator state dict (``main.*`` under ``prefix``)
+    as :class:`SyncSealDiscriminator`'s; every conv and norm must be there."""
+    out = {}
+    for i, idx in enumerate(discriminator_conv_indices(n_layers)):
+        names = [f"{idx}.weight", f"{idx}.bias"]
+        if 0 < i <= n_layers:
+            names += [f"{idx + 1}.weight", f"{idx + 1}.bias"]
+        for name in names:
+            out[f"main.{name}"] = torch.as_tensor(sd[prefix + name])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Random init: JAX's numpy trees, drawn in JAX's order from the same seeds
+# ---------------------------------------------------------------------------
+
+
+def _rngc(rng, k, i, o, bias=True):
+    p = {"kernel": rng.normal(0, (2.0 / (i * k * k)) ** 0.5, (k, k, i, o)).astype(np.float32)}
+    if bias:
+        p["bias"] = np.zeros((o,), np.float32)
+    return p
+
+
+def _rngnb(c):
+    return {"scale": np.ones((c,), np.float32), "bias": np.zeros((c,), np.float32)}
+
+
+def _rngl(rng, i, o):
+    return {"w": rng.normal(0, i**-0.5, (i, o)).astype(np.float32), "b": np.zeros((o,), np.float32)}
+
+
+def _rng_res(rng, i, o):
+    return {"conv1": _rngc(rng, 3, i, o, bias=False), "norm1": _rngnb(o),
+            "conv2": _rngc(rng, 3, o, o, bias=False), "norm2": _rngnb(o), "res": _rngc(rng, 1, i, o)}
+
+
+def init_unet_params(seed: int, cfg: UNetConfig = UNET_SMALL2_YUV) -> dict:
+    """JAX's ``init_unet_params`` tree (numpy), for ``bridge``."""
+    rng = np.random.default_rng(seed)
+    z = [cfg.z_channels * m for m in cfg.z_channels_mults]
+    downs = [{"down": _rngc(rng, 3, z[i], z[i + 1]), "conv": _rng_res(rng, z[i + 1], z[i + 1])}
+             for i in range(len(z) - 1)]
+    ups = [{"up": {"conv": _rngc(rng, 3, 2 * z[i + 1], z[i], bias=False), "ln": _rngnb(z[i])},
+            "conv": _rng_res(rng, z[i], z[i])} for i in reversed(range(len(z) - 1))]
+    return {"inc": _rng_res(rng, cfg.in_channels, z[0]), "downs": downs,
+            "bottleneck": [_rng_res(rng, z[-1], z[-1]) for _ in range(cfg.num_blocks)],
+            "ups": ups, "outc": _rngc(rng, 1, z[0], cfg.out_channels)}
+
+
+def init_convnext_params(seed: int, cfg: ConvNeXtConfig = CONVNEXT_TINY) -> dict:
+    """JAX's ``init_convnext_params`` tree (numpy), for ``bridge``."""
+    rng = np.random.default_rng(seed)
+    dims = cfg.dims
+    downsample = [{"conv": _rngc(rng, 4, 3, dims[0]), "norm": _rngnb(dims[0])}]
+    for i in range(len(dims) - 1):
+        downsample.append({"norm": _rngnb(dims[i]), "conv": _rngc(rng, 2, dims[i], dims[i + 1])})
+    stages = []
+    for i, depth in enumerate(cfg.depths):
+        d = dims[i]
+        stages.append([{"dwconv": {"kernel": rng.normal(0, 0.02, (7, 7, 1, d)).astype(np.float32),
+                                   "bias": np.zeros((d,), np.float32)},
+                        "norm": _rngnb(d), "pwconv1": _rngl(rng, d, 4 * d),
+                        "grn": {"gamma": np.zeros((1, 1, 1, 4 * d), np.float32),
+                                "beta": np.zeros((1, 1, 1, 4 * d), np.float32)},
+                        "pwconv2": _rngl(rng, 4 * d, d)} for _ in range(depth)])
+    return {"downsample": downsample, "stages": stages, "head": _rngl(rng, dims[-1], 1 + cfg.out_dim)}
+
+
+def init_discriminator_params(seed: int, in_ch: int = 3, ndf: int = 32, n_layers: int = 3) -> List[dict]:
+    """JAX's ``init_discriminator_params`` list (numpy), for ``bridge``."""
+    rng = np.random.default_rng(seed)
+    params = [{"conv": _rngc(rng, 4, in_ch, ndf)}]
+    nf = 1
+    for n in range(1, n_layers):
+        nf_prev, nf = nf, min(2**n, 8)
+        params.append({"conv": _rngc(rng, 4, ndf * nf_prev, ndf * nf), "norm": _rngnb(ndf * nf)})
+    nf_prev, nf = nf, min(2**n_layers, 8)
+    params.append({"conv": _rngc(rng, 4, ndf * nf_prev, ndf * nf), "norm": _rngnb(ndf * nf)})
+    params.append({"conv": _rngc(rng, 4, ndf * nf, 1)})
+    return params
+
+
+def init_discriminator(seed: int = 0, n_layers: int = 3, device=None) -> SyncSealDiscriminator:
+    """A discriminator with JAX's ``init_discriminator_params(seed)`` weights."""
+    from wmar_tpu_torch import bridge
+
+    disc = SyncSealDiscriminator(n_layers=n_layers)
+    disc.load_state_dict(bridge.discriminator_state_dict(init_discriminator_params(seed, n_layers=n_layers)))
+    return disc.to(device)
