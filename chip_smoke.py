@@ -76,15 +76,14 @@ phases:
    #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
    layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
-6. interleaved path: a Chameleon wrapper of CHAMELEON_7B's width and 8 of
-   its 32 layers (the host paces these steps layer by layer) through the entry point
+6. interleaved path: the same Chameleon wrapper through the entry point
    ``generate --interleaved <prompts file> --max_images 2``
    (``run_interleaved``): one prompt, two images, three text segments of up
    to 64 tokens, 2244 tokens over one cache shared by the three CFG rows
    behind the live ``key_mask``; with two images that cache passes 2048
    slots, so every forward after the prefill takes the flash-decode
    kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
-   (kernel #6), exactly 2243 forwards x 8 layers = 17,944 launches each and
+   (kernel #6), exactly 2243 forwards x 32 layers = 71,776 launches each and
    none of any other attention kernel; checks the tree the run wrote
    (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
    ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
@@ -93,9 +92,8 @@ phases:
 7. interleaved sampler at the reference's 4096-slot cache, which no flag of
    the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
    one prompt, one image, on the bf16, the int8 and the packed4 cache
-   (kernel #4's ``key_mask`` route), on phase 6's 8-layer wrapper: exactly
-   1153 forwards x 8 layers = 9,224 launches each, one image segment of 1024
-   image tokens;
+   (kernel #4's ``key_mask`` route): exactly 1153 forwards x 32 layers =
+   36,896 launches each, one image segment of 1024 image tokens;
 8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
    positional embeddings, the f16 ImageNet VQGAN at 256 px, the same
@@ -163,10 +161,10 @@ phases:
 12. sync training (``phase_sync_training``): (a) ``train_syncseal.main``
    at full width (UNet-small2-YUV + ConvNeXt-tiny + the discriminator, 256
    px, batch 8, lr 1e-4, the pyramid perceptual loss, deterministic
-   kernels, no SIFT: the card has no OpenCV), 1 epoch resumed to a
-   detector-only 2nd and a 3rd, against 3 straight, and one epoch of the
-   quantizable UNet from an embedder.yaml: finite logs, the UNet bit-equal
-   over the detector-only epoch, the resumed run within 4 float32 ulps of
+   kernels, no SIFT: the card has no OpenCV), one epoch of the quantizable
+   UNet from an embedder.yaml, 3 epochs straight (detector-only from the
+   2nd) and a copy of them after 2 resumed to 3: finite logs, the UNet
+   bit-equal over the detector-only epochs, the resumed run within 4 float32 ulps of
    the straight one, one model step on the card within 1e-3 of the CPU,
    ``syncmodel.msgpack`` served through ``SyncSealRef.load``; s a step,
    images/s, peak memory; (b) WAM from scratch at ``WAMConfig()``'s width
@@ -186,20 +184,15 @@ a CUDA card it fails at once.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import io
 import json
-import os
 import re
 import sys
 import tempfile
 import time
 
-# a fixed cuBLAS workspace, set before CUDA starts: phase 12's deterministic runs need it
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 # Tolerance of the kernel against its plain float32 version, relative to
 # the largest output. Both compute scores, softmax and sums in float32 and
@@ -219,7 +212,6 @@ PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in sno
            "a tall ship", "an old bridge at night"]
 
 
-INTERLEAVED_LAYERS = 8  # of Chameleon-7B's 32, in phases 6 and 7 (the width is the model's)
 TAMING_CLASSES = 32
 TAMING_GEN = dict(temperature=1.0, top_k=250, top_p=0.92)  # configs/taming_generate.json
 # (K, N) of every weight matrix on each model's path
@@ -1752,20 +1744,15 @@ def phase_sync(device, workdir: str) -> dict:
     return out
 
 
-# sync training (phase 12): the trainer's flags at full width; 8 steps an epoch, epoch 1 on detector-only, an eval
-# at epochs 1 and 2, the schedules' horizon 3 epochs, so a run stopped after 2 and resumed ends as one of 3
+# sync training (phase 12): the trainer's flags at full width; 8 steps an epoch, detector-only from epoch 1, an
+# eval at epochs 1 and 2
 SYNC_TRAIN_FLAGS = ("--synthetic", "true", "--img_size", "256", "--batch_size", "8", "--lr", "1e-4",
                     "--steps_per_epoch", "8", "--finetune_detector_start", "1", "--eval_freq", "2",
-                    "--sift_baseline", "false", "--schedule_epochs", "3", "--seed", str(SEED),
-                    "--deterministic", "true")
+                    "--sift_baseline", "false", "--seed", str(SEED), "--deterministic", "true")
 QUANT_EMBEDDER_YAML = ("model: unet_small2_yuv_quantizable\nunet_small2_yuv_quantizable:\n  z_channels: 16\n"
                        "  num_blocks: 8\n  z_channels_mults: [1, 2, 4, 8]\n  activation: relu\n"
                        "  normalization: batch\n  last_tanh: True\n")
 EVAL_CELLS = {"identity": [0], "rotate": [10], "crop": [0.5]}  # held against the CPU (no perspective: no draws)
-
-
-def _unet_state(model):
-    return {k: v.detach().clone() for k, v in model.embedder.state_dict().items()}
 
 
 def _timing_medians(rows) -> dict:
@@ -1777,9 +1764,10 @@ def phase_sync_training(device, workdir: str) -> dict:
     """Sync's training half and the watermark-through-sync evaluation.
     (a) ``python -m wmar_tpu_torch.train_syncseal`` (``train_syncseal.main``)
     at full width (UNet-small2-YUV + ConvNeXt-tiny, 256 px, batch 8, lr 1e-4,
-    the pyramid perceptual loss, deterministic kernels): 1 epoch, resumed to 2
-    (detector-only), resumed to 3, against 3 epochs straight; one epoch with
-    an embedder.yaml that selects the quantizable UNet; one model step on the
+    the pyramid perceptual loss, deterministic kernels): one epoch with an
+    embedder.yaml that selects the quantizable UNet; 3 epochs straight (the
+    2nd and 3rd detector-only), a copy of the run after 2 of them resumed to
+    3 against them; one model step on the
     card against the CPU; the written ``syncmodel.msgpack`` through
     ``SyncSealRef.load``. (b) WAM from scratch at ``WAMConfig()``'s width
     (``examples/train_wam_sync``), its quadrant estimate and revert. (c)
@@ -1793,6 +1781,7 @@ def phase_sync_training(device, workdir: str) -> dict:
     from wmar_tpu_torch import train_syncseal
     from wmar_tpu_torch.examples import train_wam_sync
     from wmar_tpu_torch.finetune.perceptual import PerceptualLoss
+    from wmar_tpu_torch.augmentations.valuemetric import clip01
     from wmar_tpu_torch.sync import baselines, eval_wm
     from wmar_tpu_torch.sync import syncseal as tss
 
@@ -1800,10 +1789,11 @@ def phase_sync_training(device, workdir: str) -> dict:
     flags = [*SYNC_TRAIN_FLAGS, "--device", str(device)]
     run_a, run_b = os.path.join(workdir, "sync_train_a"), os.path.join(workdir, "sync_train_b")
 
-    def train(outdir, epochs, *extra):
+    def train(outdir, epochs, *extra, on_epoch_end=None):
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        res = train_syncseal.main(["--output_dir", outdir, "--epochs", str(epochs), *flags, *extra])
+        res = train_syncseal.main(["--output_dir", outdir, "--epochs", str(epochs), *flags, *extra],
+                                  on_epoch_end=on_epoch_end)
         rows = res["log"]
         numbers = [v for r in rows for v in r.values() if isinstance(v, float)]
         numbers += [v for e in res["evals"].values() for row in e["grid"] for v in row.values()
@@ -1814,30 +1804,41 @@ def phase_sync_training(device, workdir: str) -> dict:
         res["peak_gib"] = _peak_gib(device)
         return res
 
-    # (a) the trainer: 1 epoch, resumed to 2 (detector-only) and to 3, against 3 straight
+    # (a) the trainer: the quantizable UNet (the card's warm-up), 3 epochs straight, a copy of them after 2 resumed
+    import shutil
     import warnings
 
+    # the trainer's --deterministic also fixes cuBLAS's workspace, which slows the host-paced decode loops
     saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
+             torch.backends.cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
     nondet = set()  # ops the deterministic mode warns of: a reason for the resume gate to fail
+    unets = {}  # the UNet after each epoch of the straight run
+
+    def after(epoch):
+        model = torch.load(os.path.join(run_b, "checkpoint.pt"), map_location="cpu", weights_only=True)["model"]
+        unets[epoch] = {k: v for k, v in model.items() if k.startswith("embedder.")}
+        if epoch == 1:  # the run as one stopped after 2 epochs leaves it
+            shutil.copytree(run_b, run_a)
+
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            first = train(run_a, 1)
-        nondet.update(str(w.message).split(",")[0] for w in caught if "deterministic" in str(w.message))
-        unet0 = _unet_state(first["state"].model)
-        second = train(run_a, 2)
-        if not all(torch.equal(v, unet0[k]) for k, v in _unet_state(second["state"].model).items()):
-            raise AssertionError("sync training: the UNet moved in the detector-only epoch")
-        third = train(run_a, 3)
-        straight = train(run_b, 3)
         quant_yaml = os.path.join(workdir, "embedder_quantizable.yaml")
         with open(quant_yaml, "w") as f:
             f.write(QUANT_EMBEDDER_YAML)
-        quant = train(os.path.join(workdir, "sync_train_q"), 1, "--embedder_config", quant_yaml)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            quant = train(os.path.join(workdir, "sync_train_q"), 1, "--embedder_config", quant_yaml)
+            straight = train(run_b, 3, on_epoch_end=after)
+        nondet.update(str(w.message).split(",")[0] for w in caught if "deterministic" in str(w.message))
+        if not all(torch.equal(v, unets[0][k]) for e in (1, 2) for k, v in unets[e].items()):
+            raise AssertionError("sync training: the UNet moved in a detector-only epoch")
+        third = train(run_a, 3)
     finally:
         torch.use_deterministic_algorithms(saved[0])
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:3]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
     if quant["state"].model.unet_cfg.normalization != "batch":
         raise AssertionError("sync training: the quantizable embedder.yaml was not applied")
     ulps = _f32_ulps(4)
@@ -1852,10 +1853,10 @@ def phase_sync_training(device, workdir: str) -> dict:
             resume_err = max(resume_err, err)
     steps = int(flags[flags.index("--steps_per_epoch") + 1])
     batch = int(flags[flags.index("--batch_size") + 1])
-    # the straight run's first epoch (the first run's carries the warm-up)
+    # the straight run's first epoch (the quantizable run's carries the warm-up)
     step_s = straight["log"][0]["secs"] / steps
-    warm_s = first["log"][0]["secs"] / steps
-    det_s = float(np.median([r["secs"] for res in (second, third, straight) for r in res["log"]
+    warm_s = quant["log"][0]["secs"] / steps
+    det_s = float(np.median([r["secs"] for res in (third, straight) for r in res["log"]
                              if r["detector_only"]])) / steps
 
     # one model step, the card against the CPU (float32, TF32 off)
@@ -1887,20 +1888,21 @@ def phase_sync_training(device, workdir: str) -> dict:
     if not (unsynced.shape == x.shape and torch.isfinite(unsynced).all()):
         raise AssertionError("sync training: remove_sync of the trained model")
     out["train"] = {"step_s": step_s, "first_epoch_step_s": warm_s, "detector_only_step_s": det_s, "imgs_per_s": batch / step_s,
-                    "peak_gib": max(r["peak_gib"] for r in (first, third, straight)), "quant_peak_gib": quant["peak_gib"],
-                    "seconds": {k: r["seconds"] for k, r in (("1", first), ("2", second), ("3", third),
-                                                               ("straight", straight), ("quantizable", quant))},
+                    "peak_gib": max(r["peak_gib"] for r in (third, straight)), "quant_peak_gib": quant["peak_gib"],
+                    "seconds": {k: r["seconds"] for k, r in (("quantizable", quant), ("straight", straight),
+                                                               ("resumed", third))},
                     "resume_max_err": resume_err, "card_vs_cpu_step": step_err, "max_move": moved,
                     "nondeterministic_ops": sorted(nondet),
                     "eval_s": [e["secs"] for e in third["evals"].values()],
                     "log": third["log"], "eval": third["evals"]}
     print(f"sync training (a) train_syncseal UNet-small2-YUV + ConvNeXt-tiny, 256 px, "
-          f"batch {batch}: {step_s:.4f} s a step ({batch / step_s:.2f} images/s; {warm_s:.4f} in the first epoch), "
+          f"batch {batch}: {step_s:.4f} s a step ({batch / step_s:.2f} images/s; {warm_s:.4f} in the quantizable "
+          f"UNet's epoch, the first), "
           f"detector-only {det_s:.4f} s, deterministic mode warned of {sorted(nondet) or 'no op'}, peak "
-          f"{out['train']['peak_gib']} GiB (quantizable {quant['peak_gib']}); epochs 1 / 2 / 3 / 3 straight / "
-          f"quantizable {first['seconds']:.1f} / {second['seconds']:.1f} / {third['seconds']:.1f} / "
-          f"{straight['seconds']:.1f} / {quant['seconds']:.1f} s with evals; UNet bit-equal over the detector-only "
-          f"epoch; resumed epoch 3 within {resume_err:.3e} of 3 straight (4 ulps); one step card vs CPU {step_err}; "
+          f"{out['train']['peak_gib']} GiB (quantizable {quant['peak_gib']}); quantizable 1 epoch / 3 straight / "
+          f"resumed from 2 to 3 {quant['seconds']:.1f} / {straight['seconds']:.1f} / {third['seconds']:.1f} s with "
+          f"evals; UNet bit-equal over the detector-only epochs; resumed epoch 3 within {resume_err:.3e} of 3 straight "
+          f"(4 ulps); one step card vs CPU {step_err}; "
           f"syncmodel.msgpack serves add_sync (moves <= {moved:.4f}) and remove_sync; epoch-2 eval corner_mae "
           f"{[round(r['corner_mae'], 4) for r in third['evals'][max(third['evals'])]['grid'][:4]]}")
 
@@ -1946,11 +1948,25 @@ def phase_sync_training(device, workdir: str) -> dict:
     # at 256 px a carrier's correlation is ~7 widths of the image's noise
     if (plain["geom_aug"], plain["val_aug"]) != ("identity_0", "identity_0") or plain["bit_accuracy"] < 0.99:
         raise AssertionError(f"eval_wm ss+none: the identity cell decodes at {plain['bit_accuracy']}")
-    # three cells of the card's grid against the CPU
-    cpu_sync = eval_wm.load_sync("syncseal", syncpath, device="cpu")
-    cpu_rows = eval_wm.evaluate_watermark_with_sync(
-        baselines.build_baseline("ss", img_size=size, seed=SEED), cpu_sync, eval_wm._synthetic_images(n_img, size, SEED),
-        os.path.join(workdir, "eval_cpu"), only_identity=True, seed=SEED, geoms=EVAL_CELLS)
+    # three cells of the card's grid against the CPU. The sync embed ends in an 8-bit rounding whose ties the
+    # card and the CPU break apart; each such pixel moves every ss score a little, and a random bit near zero
+    # then decodes the other way (one bit of 384 did in a run). So that stage is held by its flips, and the
+    # CPU's cells start from the card's synced images.
+    imgs = eval_wm._synthetic_images(n_img, size, SEED)
+    base = {d: baselines.build_baseline("ss", img_size=size, seed=SEED, device=d) for d in ("cpu", device)}
+    msgs = base["cpu"].get_random_msg(torch.Generator().manual_seed(SEED), n_img)  # what the card's run drew
+    syncs = {d: eval_wm.load_sync("syncseal", syncpath, device=d) for d in ("cpu", device)}
+    synced = {}
+    with torch.no_grad():
+        for d in ("cpu", device):
+            synced[d] = clip01(syncs[d].model.embed01(base[d].embed(imgs.to(d), msgs)["imgs_w"])).cpu()
+    embed_gap = (synced[device] - synced["cpu"]).abs()
+    embed_flips = int((embed_gap > 1e-4).sum())
+    if embed_flips > 1e-3 * embed_gap.numel() or float(embed_gap.max()) > 2 / 255 + 1e-4:
+        raise AssertionError(f"eval_wm: the sync embed on the card and the CPU differ at {embed_flips} values")
+    syncs["cpu"].model.embed01 = lambda imgs_wm: synced[device]
+    cpu_rows = eval_wm.evaluate_watermark_with_sync(base["cpu"], syncs["cpu"], imgs, os.path.join(workdir, "eval_cpu"),
+                                                    only_identity=True, seed=SEED, geoms=EVAL_CELLS, msgs=msgs)
     card = {(r["geom_aug"], r["val_aug"]): r for r in evals["ss+syncseal"]["table"]}
     cell_err = {"log_pvalue": 0.0, "corner_error": 0.0}
     for r in cpu_rows:
@@ -1962,12 +1978,13 @@ def phase_sync_training(device, workdir: str) -> dict:
             cell_err[k] = max(cell_err[k], abs(c[k] - r[k]))
     for e in evals.values():
         del e["table"]
-    out["eval_wm"] = {**evals, "cells_vs_cpu": cell_err}
+    out["eval_wm"] = {**evals, "cells_vs_cpu": cell_err, "sync_embed_flips_vs_cpu": embed_flips}
     for label, e in evals.items():
         print(f"sync training (c) eval_wm {label}: {e['rows']} rows in {e['seconds']:.2f} s, mean bit accuracy "
               f"{e['mean_bit_accuracy']:.4f}, per-cell medians (s) {json.dumps({k: round(v, 6) for k, v in e['medians'].items()})}")
-    print(f"sync training (c): ss without sync decodes identity/identity at {plain['bit_accuracy']:.4f}; cells "
-          f"{list(EVAL_CELLS)} x identity equal to the CPU's (log_pvalue within {cell_err['log_pvalue']:.2e}, corner "
+    print(f"sync training (c): ss without sync decodes identity/identity at {plain['bit_accuracy']:.4f}; the sync "
+          f"embed card vs CPU {embed_flips} rounding flips of {embed_gap.numel()}; cells {list(EVAL_CELLS)} x identity "
+          f"from the card's synced images equal to the CPU's (log_pvalue within {cell_err['log_pvalue']:.2e}, corner "
           f"error within {cell_err['corner_error']:.2e} px)")
     return out
 
@@ -2150,7 +2167,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
-    from wmar_tpu_torch.models import CHAMELEON_7B
     from wmar_tpu_torch.tools import bench_attention
 
     device = torch.device("cuda", 0)
@@ -2184,11 +2200,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     chameleon = build_chameleon(device)
     paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
-    del chameleon
-    torch.cuda.empty_cache()
-    # the interleaved phases at Chameleon-7B's width and INTERLEAVED_LAYERS of its depth: their steps are paced
-    # by the host, per layer, and at 32 layers they took 506.2 s of a 1080.3 s run (H100 80GB HBM3, 700 W)
-    chameleon = build_chameleon(device, lcfg=dataclasses.replace(CHAMELEON_7B, n_layers=INTERLEAVED_LAYERS))
     paths.append(timed("interleaved path", phase_interleaved, device, chameleon))
     paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, chameleon))
     del chameleon

@@ -313,6 +313,7 @@ def _tiny_syncseal_pair():
     tmodel = tss.SyncSealRef.init(0, unet_cfg=tu, convnext_cfg=tc)
     tss.well_posed_head_(tmodel, seed=1)
     jmodel = jss.SyncSealRef.init(0, unet_cfg=ju, convnext_cfg=jc)
+    jmodel.embed01 = jax.jit(jmodel.embed01)  # JAX's eager ops compile one by one
     lin = tmodel.extractor.head.linear
     jmodel.convnext_params["head"] = {"w": jnp.asarray(lin.weight.detach().numpy().T),
                                       "b": jnp.asarray(lin.bias.detach().numpy())}
@@ -352,7 +353,7 @@ def test_eval_rows_match_jax(sync_model, only_identity, tmp_path, monkeypatch):
         assert got[0]["val_aug"] == "identity_0" and got[0]["bit_accuracy"] > 0.9
 
 
-def test_sift_and_wam_sync_adapters(tmp_path):
+def test_sift_and_wam_sync_adapters(tmp_path, monkeypatch):
     """SIFT's corners as JAX's on the same images (where OpenCV imports);
     the WAM adapter turns ``WamSync``'s estimate into corners as JAX's over
     the mock pixel watermark of the sync tests."""
@@ -360,6 +361,7 @@ def test_sift_and_wam_sync_adapters(tmp_path):
     from tests.test_torch_port_sync import _mock_syncs
 
     imgs = np.asarray(jev._synthetic_images(2, 64, 2))
+    monkeypatch.setattr(jss, "apply_tv_corner_warp", jax.jit(jss.apply_tv_corner_warp))
     warped = np.asarray(jss.apply_tv_corner_warp(jnp.asarray(imgs), jnp.asarray(
         jev.geom_endpoints("rotate", 10, np.random.default_rng(0), 2))))
     np.testing.assert_allclose(tev.SiftSync().predict_corners(_t(warped), _t(imgs)),

@@ -8,10 +8,11 @@ the files the trainer writes, against the JAX package on the CPU.
 
 Tolerances: the loss terms within 1e-5 relative; gradients within 1e-4 of
 their largest magnitude; parameters after a step within 1e-5 where Adam's
-first update is well conditioned. Adam's first update of an element is
+first update is decided. Adam's first update of an element is
 ``lr * g / (|g| + eps)``: where ``|g|`` sits at the float32 noise of the
-gradient sums (below 1e-4 of the largest gradient), the update follows the
-noise's sign in either package, so those elements are held to the bound of
+gradient sums (under 1e-7, or under ten times the gap between the two
+packages' gradients), the update follows the noise's sign in either
+package, so those elements, at most 1% of a model, are held to the bound of
 two updates (2 lr) instead.
 """
 
@@ -79,23 +80,31 @@ def _capture(inner):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_draws(key, b=B, side=SIDE):
-    """The draws JAX's model step makes from ``key``: the branch ids, the
-    noise of the noise branch's images and the corners."""
+@jax.jit
+def _jax_draw_arrays(key):
     k_aug, k_type, k_geo = jax.random.split(key, 3)
-    ids = np.asarray(jax.random.randint(k_type, (b,), 0, 11))
-    keys = jax.random.split(k_aug, b)
-    noise = [np.asarray(jax.random.normal(keys[i], (1, side, side, 3)))[0] for i in range(b) if ids[i] == 9]
-    corners = np.asarray(jax.vmap(lambda k: jss.sample_geometric_corners(k))(jax.random.split(k_geo, b)))
-    return tss.RefDraws(_t(ids), _t(np.stack(noise) if noise else np.zeros((0, side, side, 3), np.float32)),
-                        _t(corners))
+    keys = jax.random.split(k_aug, B)
+    noise = jax.vmap(lambda k: jax.random.normal(k, (1, SIDE, SIDE, 3))[0])(keys)
+    return (jax.random.randint(k_type, (B,), 0, 11), noise,
+            jax.vmap(lambda k: jss.sample_geometric_corners(k))(jax.random.split(k_geo, B)))
+
+
+def _jax_draws(key):
+    """The draws JAX's model step makes from ``key``: the branch ids, the
+    noise of the noise branch's images and the corners (one jitted call; a
+    vmap over the keys draws what each key draws alone)."""
+    ids, noise, corners = (np.asarray(a) for a in _jax_draw_arrays(key))
+    return tss.RefDraws(_t(ids), _t(noise[ids == tss.NOISE_BRANCH]), _t(corners))
+
+
+_branch_ids = jax.jit(lambda key: jax.random.randint(jax.random.split(key, 3)[1], (B,), 0, 11))
 
 
 def _key_with_noise(b=B):
     """The first key whose draws give each image its own branch, one of
     them the noise."""
     for i in range(200):
-        ids = np.asarray(jax.random.randint(jax.random.split(jax.random.PRNGKey(i), 3)[1], (b,), 0, 11))
+        ids = np.asarray(_branch_ids(jax.random.PRNGKey(i)))
         if tss.NOISE_BRANCH in ids and len(set(ids.tolist())) == b:
             return jax.random.PRNGKey(i)
     raise AssertionError("no key")
@@ -117,17 +126,20 @@ def _maxabs(t):
 
 
 def _params_close(named, want_sd, grads_sd, label):
-    """Each parameter within 1e-5 of JAX's where its gradient is above
-    1e-4 of the largest, within two updates (2 lr) elsewhere."""
-    gmax = max(float(g.abs().max()) for g in grads_sd.values())
-    n_noise = 0
+    """Each parameter within 1e-5 of JAX's where Adam's first update is
+    decided: the gradient above 1e-7 and ten times the gap between the two
+    packages' gradients. Elsewhere the update follows float32 noise (within
+    two updates, 2 lr), and those elements are at most 1% of the model."""
+    n_noise = n_all = 0
     for name, p in named:
         err = (p.detach() - want_sd[name]).abs()
-        noisy = grads_sd[name].abs() <= 1e-4 * gmax
+        g = grads_sd[name].abs()
+        noisy = g <= torch.clamp(10 * (p.grad - grads_sd[name]).abs(), min=1e-7)
         n_noise += int(noisy.sum())
+        n_all += noisy.numel()
         assert _maxabs(err[~noisy]) <= 1e-5, (label, name, _maxabs(err[~noisy]))
         assert _maxabs(err[noisy]) <= 2 * LR + 1e-5, (label, name)
-    return n_noise
+    assert n_noise <= 0.01 * n_all, (label, n_noise, n_all)
 
 
 @pytest.fixture(scope="module", params=["group", "quantizable"])
@@ -268,10 +280,49 @@ def test_valuemetric_branch_matches_jax(branch):
     1e-5 of JAX's; grouped by id, a batch of all branches at once too."""
     imgs = np.random.default_rng(branch).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
     key = jax.random.PRNGKey(branch)
-    want = jss.valuemetric_branches()[branch](jnp.asarray(imgs), key)
+    want = jax.jit(jss.valuemetric_branches()[branch])(jnp.asarray(imgs), key)  # one compile, not op by op
     noise = np.asarray(jax.random.normal(key, imgs.shape))
     got = tss.apply_valuemetric(_t(imgs), torch.full((2,), branch), _t(noise))
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("case", ["shrink", "grow", "up2", "up4", "pad"])
+def test_deterministic_forms_match_the_library_ops(case):
+    """Under ``torch.use_deterministic_algorithms`` (the trainer's
+    ``--deterministic``) the resizes, the UNet's upsampling and its reflect
+    pad take forms whose backward is deterministic on the card: values and
+    gradients within 1e-6 of ``F.interpolate`` / ``F.pad``'s (relative to
+    the largest where that exceeds 1: an input's gradient sums up to 16
+    outputs), and the
+    resizes within 1e-6 of ``jax.image.resize``."""
+    from wmar_tpu_torch.augmentations import geometric as TG
+
+    gen = torch.Generator().manual_seed(0)
+    if case in ("shrink", "grow"):
+        x, size = torch.rand(2, 24, 20, 3, generator=gen), ((13, 9) if case == "shrink" else (40, 31))
+        fn = lambda v: TG.resize_linear(v, size)  # noqa: E731
+        want = jax.image.resize(jnp.asarray(x.numpy()), (2, *size, 3), "linear")
+    elif case == "pad":
+        x, fn, want = torch.rand(2, 3, 7, 5, generator=gen), tsm.ReflectPad1(), None
+    else:
+        x, want = torch.rand(2, 3, 7, 5, generator=gen), None
+        fn = lambda v: TG.bilinear_up_nchw(v, int(case[2:]))  # noqa: E731
+    probe = torch.rand(fn(x).shape, generator=gen)
+    outs = {}
+    saved = torch.are_deterministic_algorithms_enabled()
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        try:
+            v = x.clone().requires_grad_(True)
+            out = fn(v)
+            (out * probe).sum().backward()
+            outs[det] = (out.detach(), v.grad)
+        finally:
+            torch.use_deterministic_algorithms(saved)
+    for got, lib in zip(outs[True], outs[False]):
+        _close(got, lib, 1e-6 * max(1.0, _maxabs(lib)))
+    if want is not None:
+        _close(outs[True][0], want, 1e-6)
 
 
 def test_valuemetric_grouping_keeps_each_image_in_its_row():
@@ -296,8 +347,9 @@ def test_geometric_corners_from_jax_draws():
     fam, u0, u42 = (np.asarray(a) for a in jax.jit(jax.vmap(draws))(keys))
     assert set(fam.tolist()) == set(range(5))
     uniforms = np.where((fam == 3)[:, None, None], u42, np.broadcast_to(u0[:, None, None], (40, 4, 2)))
+    corners = jax.jit(jax.vmap(lambda k, s: jss.sample_geometric_corners(k, perspective_strength=s), (0, None)))
     for strength in (0.25, 0.05):
-        want = jax.jit(jax.vmap(lambda k: jss.sample_geometric_corners(k, perspective_strength=strength)))(keys)
+        want = corners(keys, strength)
         got = tss.sample_geometric_corners(40, perspective_strength=strength, family=_t(fam), uniforms=_t(uniforms))
         _close(got, want, 1e-6)
     weighted = tss.sample_geometric_corners(64, torch.Generator().manual_seed(0), probs=(1.0, 0, 0, 0, 0))
@@ -335,7 +387,8 @@ def test_ssim_and_eval_grid_match_jax(monkeypatch):
         sift = False
     rng = jax.random.PRNGKey(0)
     jm.embed01, jm.detect01 = jax.jit(jm.embed01), jax.jit(jm.detect01)  # JAX's eager ops are slow
-    monkeypatch.setattr(jss, "apply_tv_corner_warp", jax.jit(jss.apply_tv_corner_warp))
+    for name in ("apply_tv_corner_warp", "ssim", "sample_geometric_corners"):
+        monkeypatch.setattr(jss, name, jax.jit(getattr(jss, name)))
     from wmar_tpu.augmentations import valuemetric as JV
 
     for name in ("jpeg_diff", "gaussian_blur"):
@@ -510,15 +563,22 @@ def test_trainer_with_yaml_configs_runs_and_copies_them(tmp_path):
 
 
 def test_fault_f_port_resume_ends_where_an_uninterrupted_run_ends(tmp_path):
-    """Fault (f), the port: 2 epochs then ``--resume`` to 3 equals 3 epochs
-    straight, bit for bit (checkpoint, log of epoch 2, eval), with a
-    detector-only epoch in between; the schedules' horizon stays 3 epochs."""
+    """Fault (f), the port: a run of 3 epochs stopped after 2 (a copy of its
+    directory then) and resumed to 3 equals the 3 epochs straight, bit for
+    bit (checkpoint, log of epoch 2, eval), with a detector-only epoch in
+    between."""
+    import shutil
+
     from wmar_tpu_torch import train_syncseal
 
-    args = [*TINY_ARGS, "--finetune_detector_start", "1", "--schedule_epochs", "3"]
-    train_syncseal.main(["--output_dir", str(tmp_path / "a"), "--epochs", "2", *args])
-    resumed = train_syncseal.main(["--output_dir", str(tmp_path / "a"), "--epochs", "3", *args])
-    straight = train_syncseal.main(["--output_dir", str(tmp_path / "b"), "--epochs", "3", *args])
+    args = ["--epochs", "3", *TINY_ARGS, "--finetune_detector_start", "1"]
+
+    def stop_after_two(epoch):
+        if epoch == 1:
+            shutil.copytree(tmp_path / "b", tmp_path / "a")
+
+    straight = train_syncseal.main(["--output_dir", str(tmp_path / "b"), *args], on_epoch_end=stop_after_two)
+    resumed = train_syncseal.main(["--output_dir", str(tmp_path / "a"), *args])
     assert [r["epoch"] for r in resumed["log"]] == [2]
     a, b = (torch.load(tmp_path / d / "checkpoint.pt", weights_only=True) for d in "ab")
     for part in ("model", "disc"):

@@ -17,6 +17,8 @@ function runs on the images' own device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -101,29 +103,56 @@ def resize_weights(n_in: int, n_out: int, kernel=_triangle, device=None) -> torc
     return torch.where(inside[:, None], w, torch.zeros_like(w))
 
 
-def _resize(imgs: torch.Tensor, size, kernel, channels_last: bool = True) -> torch.Tensor:
-    """Separable resize of the two spatial axes by weight matrices: two
-    products, whose backward is deterministic on the card (``F.interpolate``'s
-    atomic adds are not)."""
-    h_ax, w_ax = (1, 2) if channels_last else (2, 3)
-    wh = resize_weights(imgs.shape[h_ax], size[0], kernel, imgs.device).to(imgs.dtype)
-    ww = resize_weights(imgs.shape[w_ax], size[1], kernel, imgs.device).to(imgs.dtype)
-    if channels_last:
-        return torch.einsum("yh,bhwc->bywc", wh, torch.einsum("xw,bhwc->bhxc", ww, imgs))
-    return torch.einsum("yh,bchw->bcyw", wh, torch.einsum("xw,bchw->bchx", ww, imgs))
+@functools.lru_cache(maxsize=256)
+def _cached_weights(n_in: int, n_out: int, kernel, device, dtype) -> torch.Tensor:
+    with torch.inference_mode(False):  # a plain tensor, which a later backward may save
+        return resize_weights(n_in, n_out, kernel, device).to(dtype)
+
+
+def _resize(imgs: torch.Tensor, size, kernel) -> torch.Tensor:
+    """Separable resize of the two spatial axes of NHWC images by weight
+    matrices (built once per shape and device): two products, whose backward
+    is deterministic on the card."""
+    wh = _cached_weights(imgs.shape[1], size[0], kernel, imgs.device, imgs.dtype)
+    ww = _cached_weights(imgs.shape[2], size[1], kernel, imgs.device, imgs.dtype)
+    return torch.einsum("yh,bhwc->bywc", wh, torch.einsum("xw,bhwc->bhxc", ww, imgs))
 
 
 def resize_linear(imgs: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(..., method="linear")`` (antialiased when
-    shrinking) of NHWC images to ``size = (H, W)``."""
-    return _resize(imgs, size, _triangle)
+    shrinking) of NHWC images to ``size = (H, W)``: ``F.interpolate``, or,
+    under ``torch.use_deterministic_algorithms``, the weight matrices
+    (``F.interpolate``'s backward adds atomically on the card)."""
+    if torch.are_deterministic_algorithms_enabled():
+        return _resize(imgs, size, _triangle)
+    x = F.interpolate(imgs.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1)
+
+
+def _up_axis(x: torch.Tensor, factor: int, dim: int) -> torch.Tensor:
+    """Bilinear upsampling by an integer ``factor`` along ``dim``: output
+    ``factor * i + r`` samples ``i + (r + 0.5) / factor - 0.5``, two taps of
+    the neighbours with the edges repeated (slices, so the backward adds no
+    atomics)."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    phases = []
+    for r in range(factor):
+        d = (r + 0.5) / factor - 0.5
+        phases.append(-d * prev + (1 + d) * x if d < 0 else (1 - d) * x + d * nxt if d > 0 else x)
+    return torch.stack(phases, dim + 1).flatten(dim, dim + 1)
 
 
 def bilinear_up_nchw(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``nn.Upsample(scale_factor=factor, mode="bilinear",
     align_corners=False)`` of NCHW maps (upsampling: no antialiasing, the
-    edges repeated), with a deterministic backward."""
-    return _resize(x, (x.shape[2] * factor, x.shape[3] * factor), _triangle, channels_last=False)
+    edges repeated); under ``torch.use_deterministic_algorithms`` by slices,
+    whose backward is deterministic on the card."""
+    if torch.are_deterministic_algorithms_enabled():
+        return _up_axis(_up_axis(x, factor, 2), factor, 3)
+    return F.interpolate(x, scale_factor=factor, mode="bilinear", align_corners=False)
 
 
 def resize_cubic(imgs: torch.Tensor, size) -> torch.Tensor:

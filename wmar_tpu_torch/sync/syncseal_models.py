@@ -66,8 +66,9 @@ class ChannelsFirstLN(nn.Module):
 
 
 class BilinearUp(nn.Module):
-    """``nn.Upsample(scale_factor, "bilinear", align_corners=False)`` with a
-    deterministic backward on the card (``geometric.bilinear_up_nchw``)."""
+    """``nn.Upsample(scale_factor, "bilinear", align_corners=False)``
+    (``geometric.bilinear_up_nchw``: a deterministic backward on the card
+    under ``torch.use_deterministic_algorithms``)."""
 
     def __init__(self, factor: int):
         super().__init__()
@@ -77,17 +78,15 @@ class BilinearUp(nn.Module):
         return bilinear_up_nchw(x, self.factor)
 
 
-def _reflect1(n: int, device) -> torch.Tensor:
-    """Source index of each position of a side of ``n`` padded by 1 (reflect)."""
-    i = torch.arange(-1, n + 1, device=device).abs()
-    return torch.where(i == n, n - 2, i)
-
-
 class ReflectPad1(nn.Module):
-    """``nn.ReflectionPad2d(1)`` by index (deterministic backward on the card)."""
+    """``nn.ReflectionPad2d(1)``; under ``torch.use_deterministic_algorithms``
+    by slices, whose backward is deterministic on the card."""
 
     def forward(self, x):
-        return x[:, :, _reflect1(x.shape[2], x.device)][:, :, :, _reflect1(x.shape[3], x.device)]
+        if not torch.are_deterministic_algorithms_enabled():
+            return F.pad(x, (1, 1, 1, 1), mode="reflect")
+        x = torch.cat([x[:, :, 1:2], x, x[:, :, -2:-1]], dim=2)
+        return torch.cat([x[..., 1:2], x, x[..., -2:-1]], dim=3)
 
 
 class UpBlock(nn.Module):

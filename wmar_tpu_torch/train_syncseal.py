@@ -53,10 +53,6 @@ def get_parser():
     p.add_argument("--synthetic", type=str2bool, default=False, help="train on procedural images (smoke test)")
     p.add_argument("--img_size", type=int, default=256)
     p.add_argument("--epochs", type=int, default=100)
-    p.add_argument("--schedule_epochs", type=int, default=None,
-                   help="the horizon of the cosine lr and the scaling_w schedules, in epochs (default --epochs); "
-                        "a run stopped early and resumed with a larger --epochs keeps its schedules when this "
-                        "stays the same")
     p.add_argument("--steps_per_epoch", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -156,9 +152,11 @@ def set_deterministic() -> None:
     torch.use_deterministic_algorithms(True, warn_only=True)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, on_epoch_end=None) -> dict:
     """Train; returns ``{"log": [rows], "evals": {epoch: report}, "state":
-    RefTrainState}``."""
+    RefTrainState}``. ``on_epoch_end(epoch)``, where given, is called once
+    an epoch's checkpoint and eval are written (a caller keeps a copy of
+    the run there, to resume it as a stopped run)."""
     from wmar_tpu_torch.sync import configs as sync_configs
     from wmar_tpu_torch.sync import syncseal_models as sm
     from wmar_tpu_torch.sync.syncseal import (
@@ -220,12 +218,11 @@ def main(argv=None) -> dict:
         shutil.copyfile(path, os.path.join(cfg_out, saved))
 
     model = SyncSealRef.init(args.seed, unet_cfg=unet_cfg, convnext_cfg=cn_cfg, device=device)
-    horizon = args.schedule_epochs or args.epochs
-    cfg = RefTrainConfig(scaling_w=args.scaling_w, scaling_w_min=args.scaling_w_min, schedule_epochs=horizon,
+    cfg = RefTrainConfig(scaling_w=args.scaling_w, scaling_w_min=args.scaling_w_min, schedule_epochs=args.epochs,
                          lambda_i=args.lambda_i, lambda_d=args.lambda_d, lambda_det=args.lambda_det,
                          lambda_sync=args.lambda_sync, disc_start=args.disc_start,
                          finetune_detector_start=args.finetune_detector_start)
-    state = init_ref_train_state(model, args.lr, horizon * args.steps_per_epoch, seed=args.seed)
+    state = init_ref_train_state(model, args.lr, args.epochs * args.steps_per_epoch, seed=args.seed)
     perceptual = None
     if args.lambda_i > 0 and not args.tiny:
         from wmar_tpu_torch.finetune.perceptual import PerceptualLoss
@@ -281,6 +278,8 @@ def main(argv=None) -> dict:
             with open(os.path.join(args.output_dir, f"eval_{epoch:04}.json"), "w") as f:
                 json.dump(report, f, indent=1)
             evals[epoch] = report
+        if on_epoch_end is not None:
+            on_epoch_end(epoch)
     return {"log": log, "evals": evals, "state": state}
 
 
