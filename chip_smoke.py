@@ -30,8 +30,12 @@ phases:
    (equal bits; ``valid_len`` 1, 128 and 129 leave shares empty), and one
    launch replayed from a CUDA graph after ``valid_len``, ``start`` and
    ``key_mask`` changed in place;
-   kernels #1 and #2 again at the Taming-1.4B decode shape (32 rows, 257
-   slots, 16 heads of 104, 48 layers), both timed there too; kernel #8
+   kernels #1 and #2 again at the short caches of Taming-1.4B (32 rows,
+   257 slots, 16 heads of 104, 48 layers) and Moshi-7B's temporal decode
+   (8 rows, 66 slots, 32 heads of 128, 32 layers; there also a CUDA-graph
+   replay and the planner's layout beside forced ones), each timed with
+   its bound and one SDPA call over a bf16 cache (``short_cache_attention``,
+   the kernels line's ``shapes``); kernel #8
    (``matmul_w4``, the w4a16 matmul: bf16 x on the tensor cores, f32 x on the
    CUDA cores) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24
    rows) and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64
@@ -173,7 +177,23 @@ phases:
    synthetic 256 px images (441 rows), ``hidden`` through random WAM and
    ``ss`` without sync (21 rows each): finite numbers, ``ss`` at
    identity >= 0.99 bit accuracy, three cells equal to the CPU's; the
-   seconds of each run and the per-cell medians of the CSV's timings.
+   seconds of each run and the per-cell medians of the CSV's timings;
+13. audio (``phase_audio``): MOSHI_V01 with random bf16 weights (7.7B
+   parameters, drawn on the card) and a random MIMI_V0_1, batch 8, 64
+   frames, Maryland on streams 0-8 (delta 4, gamma 0.25): (a) a generation
+   on the packed cache (kernel #2); (b) ``audio_eval.evaluate`` with the
+   flags of ``python -m wmar_tpu_torch.audio_eval --cache_dtype packed4
+   --mimi_compression``: generation on the packed4 cache (kernel #1), Mimi
+   decode, the whole audio grid (MP3 where libmp3lame loads, the Mimi round
+   trip), re-encode, scoring, ``results.json``; (c) a ``--wm_method none``
+   control on the packed cache. Gates: exactly 32 layers x 65 loop frames
+   launches of the cache's kernel a generation and none of any other, every
+   watermarked audio stream's own tokens at Maryland p < 1e-6 in (a) and
+   (b), the control's median p above 0.01, cells x 8 rows x 8 streams
+   finite records. Prints frames/s of each generation, host and device ms
+   a frame (``torch.profiler`` over 8 frames), the launches, whether MP3
+   ran and the record count; then ``python -m wmar_tpu_torch.audio_eval
+   --tiny`` once on the card.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -337,21 +357,21 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
 
 def _short_graph_replay_check(label, launch, cache, q, t) -> None:
     """One launch of a short-cache kernel (#1, #2) captured in a CUDA graph
-    and replayed after ``valid_len`` changed in place to 2, 129 and ``t``
-    must give the bits of a fresh call."""
+    and replayed after ``valid_len`` changed in place to 2, 129 (at most
+    ``t - 1``) and ``t`` must give the bits of a fresh call."""
     lens = torch.full((1,), 2, dtype=torch.int32, device=q.device)
     launch(q, cache.kv, cache.scale, 1, lens)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         replayed = launch(q, cache.kv, cache.scale, 1, lens)
-    for n in (2, 129, t):
+    for n in (2, min(129, t - 1), t):
         lens.fill_(n)
         graph.replay()
         torch.cuda.synchronize()
         if not torch.equal(replayed, launch(q, cache.kv, cache.scale, 1, lens)):
             raise AssertionError(f"{label}: a replayed launch differs from a fresh call at valid_len {n}")
-    print(f"{label}: one launch replayed from a CUDA graph at valid_len 2, 129, {t}: equal bits")
+    print(f"{label}: one launch replayed from a CUDA graph at valid_len 2, {min(129, t - 1)}, {t}: equal bits")
 
 
 def _check_close(label: str, got, want, q_dtype) -> float:
@@ -540,19 +560,45 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     return out
 
 
-def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129, 257)) -> dict:
-    """Kernels #1 and #2 at the Taming-1.4B decode shape ``(L, B, T, H, D)``
-    against their plain versions; returns each one's worst bf16 error."""
+TAMING_DECODE_SHAPE = (48, 32, 257, 16, 104)  # (L, B, T, H, D) of Taming-1.4B's decode attention
+
+
+def short_cache_attention(device, label, shape, lens, seed, layouts=False, reps=50) -> dict:
+    """Kernels #1 (int4 cache) and #2 (int8) at a short-cache decode shape
+    ``(L, B, T, H, D)``: against their plain versions at layers 0 and
+    L - 1, bf16 and f32 q, each ``valid_len`` of ``lens``. On the card also
+    timed at full fill, walking the layers, by CUDA events (plain, kernel,
+    kernel, plain) and replayed from a CUDA graph, beside the byte bound and
+    one SDPA call over a bf16 cache of the same shape (the library
+    yardstick); with ``layouts``, the planner must take the tiled kernel,
+    one launch replayed from a CUDA graph after ``valid_len`` changed must
+    give a fresh call's bits, and the planner's layout stands beside forced
+    ones, each checked and replayed from a graph. Returns ``{name: the
+    shape's numbers}``."""
     from wmar_tpu_torch.ops import flash_decode as fd
+    from wmar_tpu_torch.tools import bench_attention as ba
 
     n_layers, b, t, h, d = shape
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    is_cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q16 = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+    lens_t = torch.full((1,), t, dtype=torch.int32, device=device)
+    if is_cuda:
+        c16 = ba.filled_caches(n_layers, b, h, t, d, gen, device, kinds=("bf16",))["bf16"]
+        attn_mask = ba.sdpa_mask(b, t, t, None, None, device)
+
+        def sdpa(li):
+            return ba.library_attention(q16, c16.k[li], c16.v[li], attn_mask)
+
+        library = {"library_ms": ba.median_ms(sdpa, n_layers, reps), "library_graph_ms": ba.graph_ms(sdpa, n_layers)}
+        del c16
     out = {}
-    for name, launch, plain, kind in (
-            ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, "packed4"),
-            ("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
-             "packed")):
-        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
+    for name, launch, plain, int4, payload_bytes, kv_dtype in (
+            ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, True, 0.5,
+             torch.uint8),
+            ("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain, False,
+             1, torch.int8)):
+        cache = _filled_cache(n_layers, b, h, t, d, gen, device, "packed4" if int4 else "packed")
         worst = 0.0
         for q_dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, h, 1, d), generator=gen, device=device).to(q_dtype)
@@ -562,45 +608,41 @@ def phase_taming_attention(device, shape=(48, 32, 257, 16, 104), lens=(1, 2, 129
                     if got.is_cuda:
                         torch.cuda.synchronize()  # a fault in the kernel shows here
                     want = plain(q.float(), cache.kv, cache.scale, layer, n)
-                    err = _check_close(f"{name} taming {q_dtype} layer={layer} valid_len={n}", got, want, q_dtype)
+                    err = _check_close(f"{name} {label} {q_dtype} layer={layer} valid_len={n}", got, want, q_dtype)
                     worst = max(worst, err) if q_dtype == torch.bfloat16 else worst
-        out[name] = worst
-        print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}, Taming-1.4B): ok, valid_len "
-              f"{list(lens)}, layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
-        del cache
-    return out
-
-
-def time_taming_attention(device, shape=(48, 32, 257, 16, 104), reps=50) -> dict:
-    """Kernels #1 (int4 cache) and #2 (int8) at the Taming-1.4B decode shape
-    ``(L, B, T, H, D)``, full fill, walking the layers: replayed from a CUDA
-    graph and by CUDA events, beside the byte bound and the plain version.
-    Returns ``{name: numbers}``."""
-    from wmar_tpu_torch.ops import flash_decode as fd
-    from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, time_turns
-
-    n_layers, b, t, h, d = shape
-    gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    out = {}
-    for name, launch, plain, kind, payload_bytes, kv_dtype in (
-            ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, "packed4",
-             0.5, torch.uint8),
-            ("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
-             "packed", 1, torch.int8)):
-        cache = _filled_cache(n_layers, b, h, t, d, gen, device, kind)
-        q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
-        lens = torch.full((1,), t, dtype=torch.int32, device=device)
-        times = time_turns(lambda li: launch(q, cache.kv, cache.scale, li, lens),
-                           lambda li: plain(q, cache.kv, cache.scale, li, lens), n_layers, reps)
-        bound_ms, bound_by = attention_bound(b, h, t, d, t, payload_bytes, True, q.dtype, kv_dtype)
-        res = {"ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]), "bound_ms": bound_ms,
-               "bound_by": bound_by, "graph_ms": graph_ms(lambda li: launch(q, cache.kv, cache.scale, li, lens),
-                                                          n_layers)}
-        out[name] = res
-        print(f"time {name} at Taming-1.4B (B={b} T={t} H={h} D={d}), full cache (plain, kernel, kernel, plain): "
+        print(f"kernel vs plain {name} (L={n_layers} B={b} T={t} H={h} D={d}, {label}): ok, valid_len {list(lens)}, "
+              f"layers 0 and {n_layers - 1}, bf16 and f32 q; worst bf16 max abs err {worst:.3e}")
+        out[name] = res = {"label": label, "L": n_layers, "B": b, "T": t, "H": h, "D": d, "max_abs_err": worst}
+        if not is_cuda:  # the checks alone (the CPU tests run them)
+            continue
+        if layouts:
+            sm = fd._sm_count(device.index or 0)
+            plan = fd.packed_decode_plan(b, h, t, d, int4, sm)
+            if plan.kernel != "tiled" or plan.splits < 1:
+                raise AssertionError(f"{name} at {label}: plan {plan}")
+            _short_graph_replay_check(f"{name} at {label}", launch, cache, q16, t)
+            want = plain(q16.float(), cache.kv, cache.scale, n_layers - 1, t)
+            res["plan"] = {"splits": plan.splits, "warp_head": plan.warp_head, "lanes": plan.lanes, "tile": plan.tile}
+            res["layouts_graph_ms"] = {}
+            for splits, warp_head in ((plan.splits, plan.warp_head), (1, True), (1, False), (2, False), (3, False)):
+                def forced(li, s_=splits, w_=warp_head):
+                    return fd._launch_packed(q16, cache.kv, cache.scale, li, lens_t, None, None, int4, splits=s_,
+                                             warp_head=w_)
+                _check_close(f"{name} {label} S={splits} warp_head={warp_head}", forced(n_layers - 1), want,
+                             q16.dtype)
+                res["layouts_graph_ms"][f"S={splits},warp_head={warp_head}"] = ba.graph_ms(forced, n_layers)
+            print(f"{name} at {label}: planner S = {plan.splits}, warp per (row, head) {plan.warp_head}, "
+                  f"{plan.lanes} lanes a slot, tiles of {plan.tile} slots, {b * h} (row, head) pairs over {sm} SMs; "
+                  f"graph ms by layout " + ", ".join(f"{k} {v:.4f}" for k, v in res["layouts_graph_ms"].items()))
+        times = ba.time_turns(lambda li: launch(q16, cache.kv, cache.scale, li, lens_t),
+                              lambda li: plain(q16, cache.kv, cache.scale, li, lens_t), n_layers, reps)
+        bound_ms, bound_by = ba.attention_bound(b, h, t, d, t, payload_bytes, True, q16.dtype, kv_dtype)
+        res.update(ms=min(times[1], times[2]), plain_ms=min(times[0], times[3]), bound_ms=bound_ms, bound_by=bound_by,
+                   graph_ms=ba.graph_ms(lambda li: launch(q16, cache.kv, cache.scale, li, lens_t), n_layers), **library)
+        print(f"time {name} at {label} (B={b} T={t} H={h} D={d}), full cache (plain, kernel, kernel, plain): "
               f"{' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph {res['graph_ms']:.4f} ms; "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / res['graph_ms']:.0f}%)")
-        del cache
+              f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / res['graph_ms']:.0f}%); library (SDPA, "
+              f"bf16 cache) {res['library_ms']:.4f} ms, from a graph {res['library_graph_ms']:.4f} ms")
     return out
 
 
@@ -1989,6 +2031,190 @@ def phase_sync_training(device, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Audio: Moshi-7B with the fused watermark, Mimi, the audio grid, detection
+# ---------------------------------------------------------------------------
+
+AUDIO_BATCH = 8
+AUDIO_STEPS = 64  # wmar_audio_eval.py's default: 5.1 s of audio at 12.5 fps
+AUDIO_FLAGS = ("--batch_size", str(AUDIO_BATCH), "--steps", str(AUDIO_STEPS), "--device", "cuda",
+               "--mimi_compression", "--wm_method", "maryland", "--wm_delta", "4.0", "--wm_gamma", "0.25")
+AUDIO_P_MAX = 1e-6  # Maryland p-value of every watermarked stream's own tokens
+AUDIO_CONTROL_MEDIAN_P = 0.01  # the unwatermarked control's median p-value must lie above this
+
+
+def moshi_decode_shape():
+    """``(L, B, T, H, D)`` of the temporal decode attention of MOSHI_V01 at
+    the audio phase's batch and frame count: a cache of ``n_frames +
+    max_delay + 1`` slots."""
+    from wmar_tpu_torch.audio.lm import MOSHI_V01
+
+    tcfg = MOSHI_V01.temporal_cfg()
+    return tcfg.n_layers, AUDIO_BATCH, MOSHI_V01.total_steps(AUDIO_STEPS) + 1, tcfg.n_heads, tcfg.head_dim
+
+
+def _moshi_frame_profile(params, cfg, wm, frames: int = 8) -> dict:
+    """Host and device time of the frame loop over ``frames`` frames on the
+    packed4 cache: host ms a frame by the clock, device ms a frame from
+    ``torch.profiler``'s CUDA kernel times (None if it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wmar_tpu_torch.audio.lm import MoshiGen
+
+    gen = MoshiGen(params, cfg, wm, cache_dtype="packed4")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen.generate(frames - cfg.total_steps(0), SEED, batch=AUDIO_BATCH)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        device_us = getattr(evt, "self_device_time_total", None)
+        if device_us is None:
+            device_us = evt.self_cuda_time_total
+        if device_us > 0 and str(evt.device_type).endswith("CUDA"):
+            kernels.append((evt.key, evt.count, device_us))
+    kernels.sort(key=lambda k: -k[2])
+    device_ms = sum(k[2] for k in kernels) / 1e3 / frames if kernels else None
+    return {"frames": frames, "host_ms_per_frame_profiled": host_s * 1e3 / frames, "device_ms_per_frame": device_ms,
+            "launches_per_frame": sum(k[1] for k in kernels) / frames if kernels else None,
+            "top": [{"name": k[0][:80], "calls_per_frame": k[1] / frames, "device_ms_per_frame": k[2] / 1e3 / frames}
+                    for k in kernels[:8]]}
+
+
+def _stream_pvalues(audio, gamma: float, wm_seed: int = 0) -> np.ndarray:
+    """Maryland p-value of every (row, audio stream) of generated tokens
+    ``[B, K, T]``, scored with the fixed hash and first-occurrence dedup."""
+    from wmar_tpu_torch.audio import wm as audio_wm
+
+    audio = audio.cpu()
+    hashes = audio_wm.window_hash(torch.zeros((audio.shape[2], 0), dtype=torch.int64), wm_seed)
+    out = np.zeros(audio.shape[:2])
+    for b in range(audio.shape[0]):
+        for s in range(audio.shape[1]):
+            ng, ns = audio_wm.score_stream_maryland(audio[b, s], hashes, gamma)
+            out[b, s] = float(audio_wm.pvalue_maryland(ng, ns, gamma))
+    return out
+
+
+def phase_audio(device, workdir: str) -> dict:
+    """The audio case study at full width: MOSHI_V01 with random bf16
+    weights (7.7B parameters, drawn on the card) and a random MIMI_V0_1,
+    batch 8, 64 frames, Maryland at the default streams (text + 8 audio),
+    delta 4, gamma 0.25. (a) a generation on the packed cache (kernel #2);
+    (b) the entry point's path, ``audio_eval.evaluate`` with the flags of
+    ``python -m wmar_tpu_torch.audio_eval --cache_dtype packed4
+    --mimi_compression``: generation on the packed4 cache (kernel #1), Mimi
+    decode, the whole audio grid (MP3 where libmp3lame loads, the Mimi
+    round trip), re-encode, scoring, results.json; (c) a ``--wm_method
+    none`` control on the packed cache. Gates: exactly 32 layers x 65 loop
+    frames launches of the cache's kernel in each generation and none of any
+    other; every watermarked audio stream's own tokens at Maryland p <
+    1e-6 in (a) and (b), the control's median p above 0.01; every record
+    finite. Then host and device time of a frame (``torch.profiler``), and
+    ``python -m wmar_tpu_torch.audio_eval --tiny`` once on the card."""
+    from wmar_tpu_torch import audio_eval, bridge
+    from wmar_tpu_torch.audio import lm as audio_lm
+    from wmar_tpu_torch.audio import mimi as audio_mimi
+
+    cfg = audio_lm.MOSHI_V01
+    t0 = time.perf_counter()
+    params = audio_lm.init_moshi_params(cfg, torch.Generator(device=device).manual_seed(SEED), dtype=torch.bfloat16,
+                                        device=device)
+    mimi = audio_mimi.init_mimi(audio_mimi.MIMI_V0_1, torch.Generator(device=device).manual_seed(SEED + 1),
+                                device=device)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in bridge.flatten(params))
+    build_s = time.perf_counter() - t0
+    per_gen = cfg.temporal_cfg().n_layers * cfg.total_steps(AUDIO_STEPS)
+    wm = audio_lm.WMConfig(method="maryland", streams=tuple(range(1 + cfg.n_audio_streams)), ngram=0, delta=4.0,
+                           gamma=0.25, seed=0, temp=0.8, top_k=250)
+    total = {name: 0 for name in launches()}
+
+    def generation(label, cache, wm_cfg, seed):
+        gen = audio_lm.MoshiGen(params, cfg, wm_cfg, cache_dtype=cache)
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        text, audio = gen.generate(AUDIO_STEPS, seed, batch=AUDIO_BATCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = launches()
+        kernel = "packed4_decode_attention" if cache == "packed4" else "packed_decode_attention_q8"
+        _check_launches(device, counts, {kernel: per_gen}, f"audio {label}")
+        for k, n in counts.items():
+            total[k] += n
+        return text, audio, seconds
+
+    runs = {}
+    _, audio_a, runs["packed"] = generation("packed", "packed", wm, 42)
+    args = audio_eval.get_parser().parse_args(["--output_dir", f"{workdir}/audio_eval", "--cache_dtype", "packed4",
+                                               *AUDIO_FLAGS])
+    reset_launches()
+    ev = audio_eval.evaluate(args, cfg, params, mimi)
+    counts = launches()
+    _check_launches(device, counts, {"packed4_decode_attention": per_gen}, "audio eval path")
+    for k, n in counts.items():
+        total[k] += n
+    runs["packed4"] = ev["generate_s"]
+    _, audio_c, runs["control"] = generation("control", "packed", None, 43)
+    for label, audio in (("packed", audio_a), ("packed4", ev["audio"]), ("control", audio_c)):
+        if tuple(audio.shape) != (AUDIO_BATCH, cfg.n_audio_streams, AUDIO_STEPS) or \
+                not bool(((audio >= 0) & (audio < cfg.audio_vocab)).all()):
+            raise AssertionError(f"audio {label}: tokens {tuple(audio.shape)} in [{audio.min()}, {audio.max()}]")
+    p_a, p_b, p_c = (_stream_pvalues(a, 0.25) for a in (audio_a, ev["audio"], audio_c))
+    if not (p_a.max() < AUDIO_P_MAX and p_b.max() < AUDIO_P_MAX):
+        raise AssertionError(f"audio: watermarked streams' largest p-values {p_a.max()} / {p_b.max()} "
+                             f"not below {AUDIO_P_MAX}")
+    if not np.median(p_c) > AUDIO_CONTROL_MEDIAN_P:
+        raise AssertionError(f"audio control: median p-value {np.median(p_c)} not above {AUDIO_CONTROL_MEDIAN_P}")
+    records = ev["records"]
+    n_cells = ev["cells"]
+    if len(records) != n_cells * AUDIO_BATCH * cfg.n_audio_streams:
+        raise AssertionError(f"audio eval: {len(records)} records for {n_cells} cells")
+    for r in records:
+        vals = [r["token_match"], r["sisnr"], r["stoi"]] + ([r["pvalue"]] if r["pvalue"] is not None else [])
+        if r["pvalue"] is None or not (np.isfinite(vals).all() and 0 <= r["pvalue"] <= 1):
+            raise AssertionError(f"audio eval: record {r}")
+    with open(f"{workdir}/audio_eval/results.json") as f:
+        if len(json.load(f)) != len(records):
+            raise AssertionError("audio eval: results.json differs from the records returned")
+    mp3 = "mp3-compression" in ev["augs"]
+    profile = _moshi_frame_profile(params, cfg, wm)
+    frames = cfg.total_steps(AUDIO_STEPS)
+    out = {"launches": total, "per_generation": per_gen, "build_s": build_s, "params": n_params,
+           "generate_s": runs, "frames_per_s": {k: frames / v for k, v in runs.items()},
+           "host_ms_per_frame": {k: v * 1e3 / frames for k, v in runs.items()}, "grid_s": ev["grid_s"],
+           "records": len(records), "mp3": mp3, "max_p": {"packed": float(p_a.max()), "packed4": float(p_b.max())},
+           "control_median_p": float(np.median(p_c)), "profile": profile,
+           "median_identity_token_match": float(np.median([r["token_match"] for r in records
+                                                           if r["aug"] == "identity"]))}
+    del params, mimi
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tiny = audio_eval.main(["--tiny", "--output_dir", f"{workdir}/audio_eval_tiny"])
+    if not tiny or not all(r["pvalue"] is None or 0 <= r["pvalue"] <= 1 for r in tiny):
+        raise AssertionError(f"audio_eval --tiny on the card: {len(tiny)} records")
+    out["tiny_cli_s"] = time.perf_counter() - t
+    dev_ms = profile["device_ms_per_frame"]
+    print(f"audio: MOSHI_V01 random bf16 ({n_params / 1e9:.2f}B parameters, built on the card in {build_s:.1f} s), "
+          f"MIMI_V0_1 random, batch {AUDIO_BATCH}, {AUDIO_STEPS} frames ({frames} loop frames), Maryland delta 4 "
+          f"gamma 0.25 on streams 0-8; generation s: " + ", ".join(f"{k} {v:.2f}" for k, v in runs.items())
+          + "; frames/s: " + ", ".join(f"{k} {v:.2f}" for k, v in out["frames_per_s"].items())
+          + f"; host ms a frame (packed4) {out['host_ms_per_frame']['packed4']:.2f}; device ms a frame (profiler, "
+          f"packed4, {profile['frames']} frames) " + (f"{dev_ms:.3f}" if dev_ms is not None else "not measured")
+          + (f", {profile['launches_per_frame']:.0f} launches a frame" if dev_ms is not None else "")
+          + f"; kernel launches {total} ({per_gen} a generation); largest p-value of the watermarked streams "
+          f"{out['max_p']}; control median p {out['control_median_p']:.3f}; grid + decode {ev['grid_s']:.1f} s, "
+          f"{len(records)} records, mp3 {'ran' if mp3 else 'did not run (libmp3lame did not load)'}; identity "
+          f"token match median {out['median_identity_token_match']:.3f} (random Mimi); --tiny CLI on the card "
+          f"{out['tiny_cli_s']:.1f} s, {len(tiny)} records")
+    for k in profile["top"]:
+        print(f"  {k['device_ms_per_frame']:8.3f} ms  {k['calls_per_frame']:7.1f} calls  {k['name']}")
+    return out
+
+
 # RCC finetune: (label, --model, tokenizer file, flags of the run)
 RCC_RUNS = (("Taming", "taming", "vqgan.msgpack", ("--disc_init", "random")),
             ("MaskGit", "rar", "maskgit_vqgan.msgpack", ("--disable_gan",)))
@@ -2184,10 +2410,13 @@ def main() -> int:
     timed("build", phase_build)
     numbers = {"packed4_decode_attention": timed("kernel #1", phase_kernels, device)}
     numbers.update(timed("kernels #2-#4", phase_packed_kernels, device))
-    for name, err in timed("kernels #1, #2 at Taming", phase_taming_attention, device).items():
-        numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], err)
-    for name, taming in timed("kernels #1, #2 at Taming, timed", time_taming_attention, device).items():
-        numbers[name]["taming"] = taming
+    for label, shape, lens, seed, layouts in (
+            ("Taming-1.4B", TAMING_DECODE_SHAPE, (1, 2, 129, 257), SEED + 2, False),
+            ("Moshi-7B temporal", moshi_decode_shape(), (1, 2, 33, 65, 66), SEED + 7, True)):
+        for name, res in timed(f"kernels #1, #2 at {label}", short_cache_attention, device, label, shape, lens, seed,
+                               layouts).items():
+            numbers[name]["max_abs_err"] = max(numbers[name]["max_abs_err"], res["max_abs_err"])
+            numbers[name].setdefault("shapes", []).append(res)
     numbers["matmul_w4"] = timed("kernel #8", phase_w4, device)
     errs = timed("kernels #5, #6", phase_flash_kernels, device)
     errs.update(timed("kernels #7, #9", phase_probes, device))
@@ -2216,6 +2445,8 @@ def main() -> int:
         paths.append(timed("sync", phase_sync, device, workdir))
         torch.cuda.empty_cache()
         paths.append(timed("sync training", phase_sync_training, device, workdir))
+        torch.cuda.empty_cache()
+        paths.append(timed("audio", phase_audio, device, workdir))
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:
@@ -2236,9 +2467,7 @@ def main() -> int:
         "bound_by": numbers[name]["bound_by"],
         "library_ms": numbers[name]["library_ms"],
         "library_graph_ms": numbers[name].get("library_graph_ms"),
-        **({"taming": numbers[name]["taming"]} if "taming" in numbers[name] else {}),
-        **({"shapes": [{k: v for k, v in sh.items() if k != "times"} for sh in numbers[name]["shapes"]]}
-           if "shapes" in numbers[name] else {}),
+        **({"shapes": numbers[name]["shapes"]} if "shapes" in numbers[name] else {}),
     } for name, _, source, replaces in _kernels()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1031,3 +1031,87 @@ def test_full_size_tokenizer_msgpack_round_trip(device, tmp_path):
     got = ckpt.load_and_apply_delta(str(tmp_path / "d.msgpack"), base)
     for (k, g), (_, w) in zip(bridge.flatten(got), bridge.flatten(new)):
         assert float((g - w).abs().max()) <= 4 * torch.finfo(torch.float32).eps * max(float(w.abs().max()), 1.0), k
+
+
+# Moshi-7B's temporal decode (MOSHI_V01, batch 8, 64 frames): 32 heads of 128
+# over a cache of n_frames + max_delay + 1 = 66 slots
+MOSHI_SHAPE = dict(b=8, h=32, t=66, d=128)
+
+
+@pytest.mark.parametrize("kernel", ["packed4", "q8"])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_moshi_shape_packed_kernels_match_plain(device, kernel, q_dtype):
+    """Kernels #1 (int4) and #2 (int8) at Moshi's shape against their plain
+    versions, every fill of the 66 slots' interesting ones: 2^-8 + 1e-5 of
+    the largest output for bf16 q, 1e-5 for f32; one launch counted per
+    call, on the kernel's own count. On 132 SMs the planner gives each of
+    the 256 (row, head) pairs one block of four warps (S = 1)."""
+    b, h, t, d = (MOSHI_SHAPE[k] for k in "bhtd")
+    int4 = kernel == "packed4"
+    launch = packed4_decode_attention if int4 else fd.packed_decode_attention_q8
+    plain = packed4_decode_attention_plain if int4 else fd.packed_decode_attention_q8_plain
+    cache, g = _cache(2, b, h, t, d, device, seed=66, cls=Packed4QuantKVCache if int4 else PackedQuantKVCache)
+    if fd._sm_count(0) == 132:
+        plan = fd.packed_decode_plan(b, h, t, d, int4, 132)
+        assert (plan.kernel, plan.splits, plan.warp_head, plan.tile) == ("tiled", 1, False, 32)
+    q = torch.randn((b, h, 1, d), generator=g, device=device).to(q_dtype)
+    rel = 2.0**-8 + 1e-5 if q_dtype == torch.bfloat16 else 1e-5
+    for layer in (0, 1):
+        for n in (1, 2, 31, 32, 33, 64, 65, 66):
+            before = launch.launches
+            got = launch(q, cache.kv, cache.scale, layer, torch.full((1,), n, dtype=torch.int32, device=device))
+            torch.cuda.synchronize()
+            assert launch.launches == before + 1
+            want = plain(q.float(), cache.kv, cache.scale, layer, n)
+            assert got.dtype == q_dtype and torch.isfinite(got).all()
+            assert (got.float() - want).abs().max().item() <= rel * want.abs().max().item() + 1e-6, (layer, n)
+
+
+@pytest.mark.parametrize("kernel", ["packed4", "q8"])
+def test_moshi_shape_replays_from_a_cuda_graph(device, kernel):
+    """One launch at Moshi's shape captured in a CUDA graph, replayed after
+    ``valid_len`` changed in place, gives the bits of a fresh call."""
+    b, h, t, d = (MOSHI_SHAPE[k] for k in "bhtd")
+    int4 = kernel == "packed4"
+    launch = packed4_decode_attention if int4 else fd.packed_decode_attention_q8
+    cache, g = _cache(2, b, h, t, d, device, seed=67, cls=Packed4QuantKVCache if int4 else PackedQuantKVCache)
+    q = torch.randn((b, h, 1, d), generator=g, device=device, dtype=torch.bfloat16)
+    lens = torch.full((1,), 2, dtype=torch.int32, device=device)
+    launch(q, cache.kv, cache.scale, 1, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch(q, cache.kv, cache.scale, 1, lens)
+    for n in (2, 1, 33, t):
+        lens.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, launch(q, cache.kv, cache.scale, 1, lens)), n
+
+
+@pytest.mark.parametrize("cache_dtype", ["packed", "packed4"])
+def test_tiny_moshi_runs_through_the_kernels(device, cache_dtype):
+    """A tiny Moshi (MOSHI_V01's flags: 6 input streams for 4 generated,
+    per-codebook depformer weights) on a packed cache: every temporal layer
+    of every loop frame launches the cache's kernel (layers x (frames +
+    max_delay)), and greedy tokens agree with the CPU run of the plain
+    version on >= 95% of the positions."""
+    from wmar_tpu_torch.audio import lm
+
+    cfg = lm.MoshiConfig(n_audio_streams=4, audio_vocab=64, text_vocab=64, dim=128, n_layers=2, n_heads=2,
+                         dep_dim=32, dep_layers=1, dep_heads=2, delays=(0, 1, 1, 1, 0, 1), n_q=6,
+                         depformer_multi_linear=True, depformer_weights_per_step=True, depformer_pos_emb="none")
+    launch = packed4_decode_attention if cache_dtype == "packed4" else fd.packed_decode_attention_q8
+    wm = lm.WMConfig(method="none", greedy=True)
+    from wmar_tpu_torch.bridge import load_moshi
+
+    cpu_params = lm.init_moshi_params(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        params = load_moshi(cpu_params, device=dev)
+        before = launch.launches
+        text, audio = lm.MoshiGen(params, cfg, wm, cache_dtype=cache_dtype).generate(12, batch=3)
+        out[dev.type] = (text.cpu(), audio.cpu(), launch.launches - before)
+    assert out["cuda"][2] == cfg.n_layers * cfg.total_steps(12) and out["cpu"][2] == 0
+    assert (out["cuda"][1] == out["cpu"][1]).float().mean() >= 0.95
+    assert (out["cuda"][0] == out["cpu"][0]).float().mean() >= 0.95

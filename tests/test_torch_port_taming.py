@@ -247,7 +247,7 @@ def test_chip_smoke_taming_phases_on_cpu():
 
     w4 = chip_smoke.phase_w4("cpu", cases=[("tiny", 3, 256, 40), ("ragged", 1, 128, 7)], timed=[])
     assert 0 < w4["max_abs_err"] < 2e-2
-    attn = chip_smoke.phase_taming_attention("cpu", shape=(3, 4, 20, 2, 24), lens=(1, 2, 10, 20))
+    attn = chip_smoke.short_cache_attention("cpu", "Taming-1.4B", (3, 4, 20, 2, 24), (1, 2, 10, 20), 0)
     assert set(attn) == {"packed4_decode_attention", "packed_decode_attention_q8"}
     wrapper = chip_smoke.build_taming("cpu", tgpt.GPTConfig(**{**GPT, "n_embd": 64}), tvq.VQGANConfig(**VQ_SAMPLE))
     assert "w_q4" in wrapper.gpt.blocks[0].mlp.fc.params() and float(wrapper.gpt.pos_emb.float().std()) > 0.01

@@ -12,6 +12,9 @@ sync, ``eval.analyzer``), RCC tokenizer finetuning (``finetune``, ``python
 -m wmar_tpu_torch.finetune``), the flax checkpoint and delta format
 (``utils.checkpoint`` over the port's own msgpack codec), the weight bridge
 (``bridge``) and the entry points ``python -m wmar_tpu_torch.generate`` and
-``python -m wmar_tpu_torch.precompute_imagenet_codes``. Hand-written CUDA
-kernels live in ``csrc/``.
+``python -m wmar_tpu_torch.precompute_imagenet_codes``, sync
+(``sync``, ``python -m wmar_tpu_torch.train_syncseal``), and the audio case
+study's serving path (``audio``: Moshi with the fused watermark, Mimi, the
+audio grid and detection; ``python -m wmar_tpu_torch.audio_eval``).
+Hand-written CUDA kernels live in ``csrc/``.
 """

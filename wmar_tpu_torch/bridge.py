@@ -17,6 +17,9 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
   BatchNorm ``mean``/``var`` the ``running_*`` buffers. :func:`flax_tree`
   is the inverse: a module's ``state_dict`` as the Flax tree, so files the
   port writes (RCC deltas, trainables) have the JAX package's layout.
+* Moshi trees (the audio LM) stay dict trees as the Llama ones do
+  (:func:`load_moshi`); Mimi's Flax tree loads into the port's module by
+  :func:`load_mimi`, each kernel turned into torch's layout.
 * A JAX ``KVCache`` (``k``, ``v``), ``QuantKVCache`` (``k``, ``v``,
   ``k_scale``, ``v_scale``), ``PackedQuantKVCache`` or
   ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
@@ -124,6 +127,54 @@ def load_maskgit(model: MaskGitVQGAN, variables: Dict) -> MaskGitVQGAN:
 def load_taming_vqgan(model: TamingVQGAN, variables: Dict) -> TamingVQGAN:
     """Load Flax Taming-VQGAN variables (``{"params": ...}`` or the inner dict)."""
     return load_flax(model, variables)
+
+
+def load_moshi(params: Any, device=None) -> Any:
+    """A JAX Moshi tree (``wmar_tpu.audio.lm``: numpy leaves, float or with
+    the int8 ``{"q", "s"}`` matrices of ``quantize_moshi_params_int8``) as
+    the same tree of tensors, which :class:`wmar_tpu_torch.audio.lm.MoshiGen`
+    takes: a Llama-style dict tree, loaded as :func:`load_llama` loads one."""
+    return load_llama(params, device=device)
+
+
+@torch.no_grad()
+def load_mimi(model, variables: Dict):
+    """Copy Flax Mimi variables (``{"params": ...}`` or the inner dict; the
+    JAX package's, a msgpack file's or :func:`wmar_tpu_torch.audio.mimi.
+    convert_mimi`'s) into a :class:`wmar_tpu_torch.audio.mimi.Mimi`, casting
+    to its dtype: a conv ``kernel [K, I, O]`` becomes ``weight [O, I, K]``,
+    a transposed conv's flipped ``kernel [K, I/g, O]`` torch's ``[I, O/g,
+    K]``, a dense ``kernel`` a Linear's ``weight.T``, a LayerNorm ``scale``
+    its ``weight``. Every tensor of the model needs a leaf."""
+    from wmar_tpu_torch.audio.mimi import CausalConvTranspose1d
+
+    params = variables.get("params", variables)
+    own = dict(model.named_parameters())
+    seen = set()
+    for path, leaf in flatten(params):
+        mod, name = path.rsplit(".", 1) if "." in path else ("", path)
+        t = to_tensor(leaf)
+        key = path
+        if name == "kernel":
+            key = f"{mod}.weight"
+            sub = model.get_submodule(mod)
+            if isinstance(sub, CausalConvTranspose1d):
+                t = t.flip(0).permute(1, 2, 0) if sub.groups == 1 else t.flip(0).permute(2, 1, 0)
+            elif isinstance(sub, torch.nn.Linear):
+                t = t.T
+            else:
+                t = t.permute(2, 1, 0)
+        elif name == "scale":
+            key = f"{mod}.weight"
+        if key not in own:
+            raise KeyError(f"Flax leaf {path} has no counterpart {key}")
+        if own[key].shape != t.shape:
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != {tuple(own[key].shape)}")
+        own[key].copy_(t)
+        seen.add(key)
+    if seen != set(own):
+        raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - seen)[:5]}")
+    return model
 
 
 # Flax leaf names that are not the torch names (conv ``kernel`` is handled apart)

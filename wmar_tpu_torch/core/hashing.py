@@ -48,3 +48,10 @@ def hash_key_token(keys: torch.Tensor, tokens: torch.Tensor, salt: int) -> torch
     k = fmix32(k)
     t = _mul32(tokens.to(torch.int64) & _MASK, _C1)
     return fmix32(k ^ t ^ (t >> 15))
+
+
+def uniform_from_hash(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 hash bits (held in int64) -> float32 uniforms in [0, 1], as
+    ``wmar_tpu.core.hashing.uniform_from_hash``: the bits rounded to float32
+    (so the largest round to 1.0) times ``2^-32``."""
+    return (bits & _MASK).to(torch.float32) * (2.0**-32)
