@@ -96,8 +96,10 @@ phases:
 7. interleaved sampler at the reference's 4096-slot cache, which no flag of
    the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
    one prompt, one image, on the bf16, the int8 and the packed4 cache
-   (kernel #4's ``key_mask`` route): exactly 1153 forwards x 32 layers =
-   36,896 launches each, one image segment of 1024 image tokens;
+   (kernel #4's ``key_mask`` route), at half depth (the first 16 of the 32
+   layers, :func:`first_layers`, for the script's time): exactly 1153
+   forwards x 16 layers = 18,448 launches each, one image segment of 1024
+   image tokens;
 8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
    positional embeddings, the f16 ImageNet VQGAN at 256 px, the same
@@ -130,9 +132,13 @@ phases:
    (kernel #1), 16 classes, the device JPEG; (b) Taming-1.4B, grouped-int4
    weights (kernel #8), packed4 cache (kernel #1), 8 classes, ``--exact_jpeg
    true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
-   from a table) and phase 9's epoch-3 RCC deltas
+   from a table), ``--include_neural_compress true --nc_allow_random
+   true`` (the reference's 22 neural codecs, random, at their published
+   widths: 62 + 22 cells; every codec record tagged ``random_weights`` with
+   a finite ``bpp``, the diffusers codecs' nominal one; the analyzer's
+   TPR-against-bpp table) and phase 9's epoch-3 RCC deltas
    (``--encoder_ft_ckpt/--decoder_ft_ckpt``), its tokenizer checked to be
-   the base plus the deltas within bf16 rounding. Checks n x 64 records and
+   the base plus the deltas within bf16 rounding. Checks n x 64 (b: 86) records and
    as many json, png and npy files, images finite in [-1, 1], codes in
    range, p-values in [0, 1], the
    identity cells (blur 0, noise 0, brightness 1, rotation 0, flip 0, crop
@@ -145,7 +151,14 @@ phases:
    the C++ ngram scorer (``wmar_tpu_torch.native``, built by g++ at first
    use; the gates: it built, it was called, the stored p-values), then the
    scorer and the numpy branch re-score the same 2-class subtree, timed,
-   with equal p-values;
+   with equal p-values; then "neural codecs" on (b)'s bank, its DC-AE
+   rebuilt at ``dc-ae-f64c128``'s stage widths (293M parameters): each
+   codec on 8 random 256 px images, finite, in [0, 1], its bpp, its ms a
+   batch (CUDA events after a warm-up), and on one 64 px image against a
+   CPU copy of its weights within 1e-3 of the output's scale (compressai:
+   the latents, the share of quantized integers rounded apart at most
+   1e-3, the synthesis of the same integers, the bpp); the phase's peak
+   GiB;
 11. sync, on random weights written in the released layouts: (a) the
    entry point ``generate.main --sync true --syncpath syncseal_random.pt``
    (the released SyncSeal: UNet + ConvNeXt-tiny, its corner head well
@@ -302,6 +315,31 @@ def _filled_cache(n_layers, b, h, t, d, gen, device, kind="packed4"):
     return cache
 
 
+def sdpa_library(device, n_layers, b, h, t, d, start=None, reps=50) -> dict:
+    """The library yardstick of a decode-attention kernel: one
+    ``scaled_dot_product_attention`` call over a bf16 cache of the same
+    shape (its own random K/V) with the boolean mask of ``start``, walking
+    ``n_layers`` layers, by CUDA events and replayed from a CUDA graph.
+    Timed here and called nowhere in the port."""
+    from wmar_tpu_torch.tools import bench_attention as ba
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    c16 = ba.filled_caches(n_layers, b, h, t, d, gen, device, kinds=("bf16",))["bf16"]
+    q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+    attn_mask = ba.sdpa_mask(b, t, t, start, None, device)
+
+    def sdpa(li):
+        return ba.library_attention(q, c16.k[li], c16.v[li], attn_mask)
+
+    out = {"library_ms": ba.median_ms(sdpa, n_layers, reps), "library_graph_ms": ba.graph_ms(sdpa, n_layers)}
+    del c16
+    torch.cuda.empty_cache()
+    print(f"library (SDPA over a bf16 cache, B={b} H={h} T={t} D={d}, {n_layers} layers walked"
+          f"{', the ragged start' if start is not None else ''}): {out['library_ms']:.4f} ms, from a CUDA graph "
+          f"{out['library_graph_ms']:.4f} ms")
+    return out
+
+
 def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_xl", 32, 80), ("rar_xxl", 40, 88)),
                   valid_lens=(1, 2, 129, 258), reps=100) -> dict:
     """Kernel vs plain on the card; returns the RAR-XL numbers."""
@@ -342,14 +380,17 @@ def phase_kernels(device, b=128, t=258, h=16, shapes=(("rar_b", 24, 48), ("rar_x
             nbytes = b * t * h * d + 4 * b * h * t
             bound_ms, bound_by = attention_bound(b, h, t, d, t, 0.5, True, q.dtype, torch.uint8)
             result = {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": None,
+                      "bound_by": bound_by,
                       "graph_ms": graph_ms(lambda li: packed4_decode_attention(q, cache.kv, cache.scale, li, lens),
                                            n_layers)}
+            del cache
+            result.update(sdpa_library(device, n_layers, b, h, t, d))
             print(f"time rar_xl decode attention, full cache (plain, kernel, kernel, plain): "
                   f"{plain_ms:.4f} {ms:.4f} {ms2:.4f} {plain_ms2:.4f} ms; replayed from a CUDA graph "
                   f"{result['graph_ms']:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
                   f"= {nbytes / (result['graph_ms'] * 1e-3) / 1e9:.0f} GB/s")
-        del cache
+        else:
+            del cache
     result["max_abs_err"] = worst
     print(f"kernel vs plain: worst bf16 max abs err {worst:.3e}")
     return result
@@ -453,7 +494,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
                          rar_lens=(1, 2, 129, 258), cham_lens=(1, 128, 129, 600, 1043), blank=130,
                          reps=50, sampler=(3, 4096, 32, 128, 2), sampler_lens=(1, 128, 129, 1160, 4096),
                          interleaved=(7, 64, 1024), forced=tuple(range(1, 17)),
-                         rar_layouts=((1, True), (1, False), (2, False), (4, False))) -> dict:
+                         rar_layouts=((1, True), (1, False), (2, False), (4, False)), library_layers=8) -> dict:
     """Kernels #2-#4 against their plain versions, and timed beside them at
     full fill; returns ``{name: {"max_abs_err", "ms", "plain_ms"}}``. Kernel
     #2 runs at the RAR-XL shape ``rar`` through the wrapper (the planner's
@@ -468,7 +509,9 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     wrapper and (on the card) with every split count of ``forced`` twice
     with equal bits; ``valid_len`` 1, 128 and 129 leave shares empty. Then
     one launch is replayed from a CUDA graph after ``valid_len``, ``start``
-    and ``key_mask`` changed in place."""
+    and ``key_mask`` changed in place. Each timed shape also gets its SDPA
+    yardstick (:func:`sdpa_library`, at most ``library_layers`` layers
+    walked: one bf16 layer of Chameleon's shape is 410 MB, far past L2)."""
     from wmar_tpu_torch.ops import flash_decode as fd
     from wmar_tpu_torch.tools.bench_attention import attention_bound, graph_ms, interleaved_masks, time_turns
 
@@ -476,6 +519,7 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
     is_cuda = torch.device(device).type == "cuda"
     out = {}
     chunked_layouts = tuple((s_, None) for s_ in forced)
+    library = {}
     cases = [("packed_decode_attention_q8", fd.packed_decode_attention_q8, fd.packed_decode_attention_q8_plain,
               "packed", rar, rar_lens, False, tuple(rar_layouts)),
              ("packed_decode_attention_q8_chunked", fd.packed_decode_attention_q8_chunked,
@@ -523,13 +567,17 @@ def phase_packed_kernels(device, rar=(128, 258, 16, 80, 32), cham=(24, 1043, 32,
         bound_ms, bound_by = attention_bound(b, h, t, d, t, 1 if kind == "packed" else 0.5, True, q.dtype,
                                              torch.int8 if kind == "packed" else torch.uint8, start=st)
         out[name] = {"max_abs_err": worst, "ms": min(times[1], times[2]), "plain_ms": min(times[0], times[3]),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
                      "graph_ms": graph_ms(lambda li: launch(q, cache.kv, cache.scale, li, lens, start=st), n_layers)}
         print(f"time {name}, full cache{' with the ragged start' if masked else ''} (plain, kernel, kernel, "
               f"plain): {' '.join(f'{x:.4f}' for x in times)} ms; replayed from a CUDA graph "
               f"{out[name]['graph_ms']:.4f} ms; bound {bound_ms:.4f} ms; kernel reads {nbytes / 1e6:.1f} MB "
               f"= {nbytes / (out[name]['graph_ms'] * 1e-3) / 1e9:.0f} GB/s")
         del cache
+        key = (b, t, h, d, masked)  # #3 and #4 share one shape and mask
+        if key not in library:
+            library[key] = sdpa_library(device, min(n_layers, library_layers), b, h, t, d, st)
+        out[name].update(library[key])
     # the interleaved sampler's shape: three CFG rows over one long cache
     b, t, h, d, n_layers = sampler
     start0 = torch.tensor([0, 130, 37], dtype=torch.int32)[:b].to(device)
@@ -583,15 +631,7 @@ def short_cache_attention(device, label, shape, lens, seed, layouts=False, reps=
     gen = torch.Generator(device=device).manual_seed(seed)
     q16 = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
     lens_t = torch.full((1,), t, dtype=torch.int32, device=device)
-    if is_cuda:
-        c16 = ba.filled_caches(n_layers, b, h, t, d, gen, device, kinds=("bf16",))["bf16"]
-        attn_mask = ba.sdpa_mask(b, t, t, None, None, device)
-
-        def sdpa(li):
-            return ba.library_attention(q16, c16.k[li], c16.v[li], attn_mask)
-
-        library = {"library_ms": ba.median_ms(sdpa, n_layers, reps), "library_graph_ms": ba.graph_ms(sdpa, n_layers)}
-        del c16
+    library = sdpa_library(device, n_layers, b, h, t, d, reps=reps) if is_cuda else {}
     out = {}
     for name, launch, plain, int4, payload_bytes, kv_dtype in (
             ("packed4_decode_attention", fd.packed4_decode_attention, fd.packed4_decode_attention_plain, True, 0.5,
@@ -1246,6 +1286,19 @@ def phase_interleaved_4k(device, wrapper, prompt: str = "a cat", cache_budget: i
     return out
 
 
+def first_layers(wrapper, n_layers: int):
+    """A view of a Chameleon wrapper that runs its first ``n_layers``
+    decoder layers only (the same tensors): the 4096-slot sampler phase runs
+    at half depth so that the script keeps its time."""
+    import copy
+    import dataclasses
+
+    view = copy.copy(wrapper)
+    view.llama_params = {**wrapper.llama_params, "blocks": wrapper.llama_params["blocks"][:n_layers]}
+    view.llama_cfg = dataclasses.replace(wrapper.llama_cfg, n_layers=n_layers)
+    return view
+
+
 def build_taming(device, gpt_cfg=None, vq_cfg=None):
     """The Taming-1.4B cin_transformer and the f16 ImageNet VQGAN unless
     other configs are given, with random weights from ``SEED``: grouped-int4
@@ -1332,9 +1385,11 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def _sweep_argv(tiny: bool, n_rar: int, n_taming: int) -> list:
-    """(label, generate argv, checks the torch-compat table) of the two runs."""
+def _sweep_argv(tiny: bool, n_rar: int, n_taming: int, neural_compress: bool = False) -> list:
+    """(label, generate argv, checks the torch-compat table) of the two runs;
+    ``neural_compress`` adds the random 22-codec bank to the Taming run."""
     size = ["--tiny", "--device", "cpu"] if tiny else []
+    codecs = ["--include_neural_compress", "true", "--nc_allow_random", "true"] if neural_compress else []
     return [
         ("RAR-XL", ["--model", "rar", *size, "--weight_dtype", "int8", "--cache_dtype", "packed4",
                     "--conditioning", ",".join(str(c) for c in range(n_rar)), "--batch_size", str(n_rar),
@@ -1342,19 +1397,45 @@ def _sweep_argv(tiny: bool, n_rar: int, n_taming: int) -> list:
         ("Taming-1.4B", ["--model", "taming", *size, "--weight_dtype", "int4", "--cache_dtype", "packed4",
                          "--conditioning", ",".join(str(c) for c in range(n_taming)), "--batch_size", str(n_taming),
                          "--top_k", str(TAMING_GEN["top_k"]), "--top_p", str(TAMING_GEN["top_p"]),
-                         "--exact_jpeg", "true", "--wm_torch_compat", "true", "--seed", str(SEED)], True),
+                         "--exact_jpeg", "true", "--wm_torch_compat", "true", "--seed", str(SEED), *codecs], True),
     ]
 
 
-def _sweep_checks(label, wrapper, log, records, outdir, n) -> dict:
-    """The gates of one sweep run on its log, records and tree."""
+# the nominal bpp of the diffusers codecs (neuralcompression.py:185-225); DC-AE's is 1 too
+NOMINAL_BPP = {"diffusers-sd-vae-ft-ema": 2.0, "diffusers-sd-vae-fp16": 1.0, "diffusers-deep-compression": 1.0,
+               "diffusers-flux": 2.0}
+
+
+def _check_codec_records(label, records, codecs) -> dict:
+    """Every neural-compress record carries ``random_weights: true`` and a
+    finite ``bpp`` >= 0, the diffusers codecs their nominal one; returns
+    each codec's bpp."""
+    bpp = {}
+    for r in records:
+        if r["transform"] != "neural-compress":
+            continue
+        b = r.get("bpp")
+        if r.get("random_weights") is not True or b is None or not np.isfinite(b) or b < 0:
+            raise AssertionError(f"{label}: neural-compress {r['param']}: tags {r}")
+        if r["param"] in NOMINAL_BPP and b != NOMINAL_BPP[r["param"]]:
+            raise AssertionError(f"{label}: {r['param']} reports {b} bpp, not its nominal {NOMINAL_BPP[r['param']]}")
+        bpp[r["param"]] = b
+    if sorted(bpp) != sorted(codecs):
+        raise AssertionError(f"{label}: neural-compress rows for {sorted(bpp)}, codecs {sorted(codecs)}")
+    return bpp
+
+
+def _sweep_checks(label, wrapper, log, records, outdir, n, codecs=()) -> dict:
+    """The gates of one sweep run on its log, records and tree: the 62
+    classic cells, and one neural-compress cell per name of ``codecs``."""
     import os
 
     from wmar_tpu_torch.core import green_fraction
 
     n_aug = sum(len(rows) for transform, rows in log.items() if transform != "roundtrips")
     want = n * (len(log["roundtrips"]) + n_aug)
-    if n_aug != 62 or set(log) != {"roundtrips", *SWEEP_ATTACKS} or len(records) != want:
+    transforms = {"roundtrips", *SWEEP_ATTACKS, *(["neural-compress"] if codecs else [])}
+    if n_aug != 62 + len(codecs) or set(log) != transforms or len(records) != want:
         raise AssertionError(f"{label}: {len(records)} records, {n_aug} attack cells, transforms {sorted(log)}")
     files = [f for _, _, fs in os.walk(outdir) for f in fs]
     counts = {ext: sum(f.endswith(ext) for f in files) for ext in (".json", ".png", ".npy")}
@@ -1448,7 +1529,7 @@ def _native_rescore(label, outdir, wrapper, records, device, classes: int = 2) -
 
 
 def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: int = 8, taming_extra=(),
-                       inspect=None) -> dict:
+                       inspect=None, neural_compress: bool = False) -> dict:
     """The main path with the attack grid, through the entry point
     ``generate.main`` without ``--no_augs``, one batch each: (a) RAR-XL,
     int8 weights, packed4 cache (kernel #1), ``n_rar`` classes, the device
@@ -1458,15 +1539,23 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
     the identity cells, the torch-compat table (b), the exact launch
     counts, and the port's analyzer on each tree. ``tiny`` runs the CLI's
     tiny models on the CPU. ``taming_extra`` adds flags to run (b) (the RCC
-    deltas), ``inspect(label, wrapper)`` checks each run's wrapper."""
+    deltas), ``inspect(label, wrapper)`` checks each run's wrapper.
+    ``neural_compress`` adds ``--include_neural_compress true
+    --nc_allow_random true`` to run (b): the 22 random codecs at their
+    published widths (DC-AE: the JAX package's random slot), all 22 in the
+    bank and 62 + 22 = 84 attack cells,
+    their records tagged ``random_weights`` with a finite ``bpp``, the
+    diffusers codecs' the nominal one, and the analyzer's TPR-against-bpp
+    table; the bank comes back as ``out["bank"]``."""
     import os
 
     from wmar_tpu_torch import generate as tgen
+    from wmar_tpu_torch.augmentations import neural
     from wmar_tpu_torch.eval import analyzer, pipeline
 
     out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "runs": {}}
-    fill, load = pipeline.fill_batch_log, tgen.load_wrapper
-    for label, argv, compat in _sweep_argv(tiny, n_rar, n_taming):
+    fill, load, build_bank = pipeline.fill_batch_log, tgen.load_wrapper, neural.build_codec_bank
+    for label, argv, compat in _sweep_argv(tiny, n_rar, n_taming, neural_compress):
         if label == "Taming-1.4B":
             argv = [*argv, *taming_extra]
         seen = {"logs": []}
@@ -1479,9 +1568,15 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
             seen["logs"].append(fill(*a, **k))
             return seen["logs"][-1]
 
+        def bank_kept(*a, **k):
+            t = time.perf_counter()
+            seen["bank"] = build_bank(*a, **k)
+            seen["bank_s"] = time.perf_counter() - t
+            return seen["bank"]
+
         with tempfile.TemporaryDirectory() as tmp:
             outdir = os.path.join(tmp, "out")
-            tgen.load_wrapper, pipeline.fill_batch_log = load_kept, fill_kept
+            tgen.load_wrapper, pipeline.fill_batch_log, neural.build_codec_bank = load_kept, fill_kept, bank_kept
             printed = _Tee(sys.stdout)
             try:
                 reset_launches()
@@ -1491,7 +1586,7 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
                 seconds = time.perf_counter() - t0
                 counts = launches()
             finally:
-                tgen.load_wrapper, pipeline.fill_batch_log = load, fill
+                tgen.load_wrapper, pipeline.fill_batch_log, neural.build_codec_bank = load, fill, build_bank
             # the seconds of each batch, as generate_and_evaluate logs them
             sample_s = [float(x) for x in re.findall(r"sampling took ([\d.]+)s", printed.getvalue())]
             fill_save = re.findall(r"round trips and attacks took ([\d.]+)s, detection and files ([\d.]+)s",
@@ -1508,7 +1603,21 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
                 want = {"packed4_decode_attention": steps * wrapper.gpt_cfg.n_layer,
                         "matmul_w4": steps * _w4_products_per_forward(wrapper.gpt)}
             _check_launches(device, counts, want, f"attack sweep, {label}")
-            gates = _sweep_checks(label, wrapper, seen["logs"][0], records, outdir, n)
+            bank = seen.pop("bank", {})
+            codecs = tuple(neural.REFERENCE_CODEC_NAMES) if neural_compress and label == "Taming-1.4B" else ()
+            if sorted(bank) != sorted(codecs):
+                raise AssertionError(f"attack sweep, {label}: the bank holds {len(bank)} codecs {sorted(bank)}, "
+                                     f"not the {len(codecs)} of the reference's grid")
+            gates = _sweep_checks(label, wrapper, seen["logs"][0], records, outdir, n, codecs)
+            if bank:
+                out["bank"] = bank
+                gates["bank_build_s"] = seen.pop("bank_s")
+                gates["bpp"] = _check_codec_records(f"attack sweep, {label}", records, bank)
+                points = analyzer.tpr_vs_bpp(analyzer.load_records(outdir, cache=False))
+                if sorted(c for _, _, c in points) != sorted(bank):
+                    raise AssertionError(f"attack sweep, {label}: the analyzer's bpp table has {points}")
+                print(f"attack sweep [{label}]: {len(bank)} random codecs built in {gates['bank_build_s']:.1f} s; "
+                      f"the analyzer's TPR@1%FPR against bpp (random codecs: destruction, not compression): " + "; ".join(f"{c} {b:.4f} bpp TPR {t:.2f}" for b, t, c in points))
             if compat:
                 _check_table_rows(label, wrapper)
                 gates["rescore"] = _native_rescore(label, outdir, wrapper, records, str(device))
@@ -1538,12 +1647,136 @@ def phase_attack_sweep(device, tiny: bool = False, n_rar: int = 16, n_taming: in
                               "fill_s": fill_s, "save_s": save_s, "table": table, **gates}
         print(f"attack sweep [{label}]: generate {' '.join(argv)}: {gates['records']} records, files "
               f"{gates['files']}; a batch: sampling {sample_s[0]:.2f} s, then the grid {grid_s[0]:.2f} s = "
-              f"decode, round trip, 62 attacks and re-encodes {fill_s[0]:.2f} s + detection, metrics and "
+              f"decode, round trip, {62 + len(gates.get('bpp', ()))} attacks and re-encodes {fill_s[0]:.2f} s + "
+              f"detection, metrics and "
               f"files {save_s[0]:.2f} s; whole run {seconds:.2f} s (model build included); launches {dict((k, v) for k, v in counts.items() if v)}, expected {want}; green fraction "
               f"{gates['green_fraction']:.3f}; identity cells' codes equal to the first round trip's on "
               f"{min(gates['identity_agreement'].values()):.4f} or more of the tokens")
         print(f"attack sweep [{label}]: TPR@1%FPR per attack {json.dumps(table['per_attack'])}")
         print(analyzer.markdown_table(table))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The neural codecs: the sweep's bank (and DC-AE at f64c128's widths), card against CPU
+# ---------------------------------------------------------------------------
+
+CODEC_REL_TOL = 1e-3  # card against CPU, float32 with TF32 off, relative to the output's largest value
+CODEC_FLIP_SHARE = 1e-3  # quantized latents whose integer the two devices round apart at a .5 tie
+
+
+def _codec_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.double().cpu()
+    return float((got.double().cpu() - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def _hold_codec_on_cpu(name, codec, cpu_model, x_check, generator) -> dict:
+    """One codec's card output against the port's CPU output on the same
+    weights and image. compressai: the latents ``y``, the share of quantized
+    integers that differ, the synthesis fed the CPU's quantized latents, the
+    bpp (1e-5 relative, 1e-3 where an integer flipped) and, without a flip,
+    the whole reconstruction; KL-VAE: the moments and the decode of the same
+    posterior draw; DC-AE: the round trip. Relative to the largest value of
+    the CPU's output (random codecs blow theirs up)."""
+    from wmar_tpu_torch.augmentations import compressai_models as cm
+    from wmar_tpu_torch.augmentations import diffusers_vae as dv
+    from wmar_tpu_torch.augmentations.dcae import DCAE
+
+    device = next(codec.model.parameters()).device
+    xc = x_check.permute(0, 3, 1, 2)
+    xd = xc.to(device)
+    row = {"tol": CODEC_REL_TOL}
+    with torch.inference_mode():
+        if isinstance(codec.model, DCAE):
+            row["max_abs_err"] = _codec_rel(codec.model.roundtrip(xd), cpu_model.roundtrip(xc))
+        elif isinstance(codec.model, dv.AutoencoderKL):
+            moments = cpu_model.encode(xc)
+            row["moments_err"] = _codec_rel(codec.model.encode(xd), moments)
+            noise = torch.randn(moments[:, : moments.shape[1] // 2].shape, generator=generator)
+            want = dv.kl_vae_roundtrip(cpu_model, xc, noise=noise)
+            row["max_abs_err"] = max(row["moments_err"], _codec_rel(
+                dv.kl_vae_roundtrip(codec.model, xd, noise=noise.to(device)), want))
+        else:
+            y_cpu, y = cpu_model.g_a(xc), codec.model.g_a(xd)
+            row["latents_err"] = _codec_rel(y, y_cpu)
+            yh_cpu, yh = cm.st_round(y_cpu), cm.st_round(y)
+            row["flipped"] = float(((yh.cpu() - yh_cpu).abs() > 0.25).float().mean())
+            row["synthesis_err"] = _codec_rel(codec.model.synthesis(yh_cpu.to(device)), cpu_model.synthesis(yh_cpu))
+            rec_cpu, liks_cpu = cpu_model(xc)
+            rec, liks = codec.model(xd)
+            n_px = xc.shape[0] * xc.shape[2] * xc.shape[3]
+            bpp_cpu = float(cm.bpp_from_likelihoods(liks_cpu, n_px))
+            row["bpp_rel_err"] = abs(float(cm.bpp_from_likelihoods(liks, n_px)) - bpp_cpu) / max(1.0, abs(bpp_cpu))
+            row["max_abs_err"] = max(row["latents_err"], row["synthesis_err"])
+            if row["flipped"] == 0:
+                row["max_abs_err"] = max(row["max_abs_err"], _codec_rel(rec, rec_cpu))
+            if not (row["flipped"] <= CODEC_FLIP_SHARE
+                    and row["bpp_rel_err"] <= (1e-5 if row["flipped"] == 0 else 1e-3)):
+                raise AssertionError(f"neural codecs: {name}: the card against the CPU {row}")
+    if not row["max_abs_err"] <= CODEC_REL_TOL:
+        raise AssertionError(f"neural codecs: {name}: the card against the CPU {row}")
+    return row
+
+
+def phase_neural_codecs(device, bank: dict, dcae_cfg=None, batch: int = 8, size: int = 256, check_size: int = 64,
+                        reps: int = 3) -> dict:
+    """Every codec of ``bank`` (the attack sweep's: the 22 random codecs at
+    their published widths) with the DC-AE slot rebuilt at ``dcae_cfg``
+    (default: ``dc-ae-f64c128``'s stage widths, ``init_dcae_params(0)``),
+    each on ``batch`` random images of ``size`` px on the card: its output
+    finite, in [0, 1] and of the input's shape, its bpp finite and >= 0, its
+    ms a batch by CUDA events (the median of ``reps`` after a warm-up), and
+    its output on one ``check_size`` px image held against a CPU copy of the
+    same weights (:func:`_hold_codec_on_cpu`). Prints the phase's peak GiB."""
+    import copy
+
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.augmentations import dcae as tdc
+    from wmar_tpu_torch.augmentations import diffusers_vae as dv
+
+    is_cuda = torch.device(device).type == "cuda"
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg = dcae_cfg or tdc.f64c128_config()
+    t0 = time.perf_counter()
+    codecs = dict(bank)
+    codecs["diffusers-deep-compression"] = dv.DiffusersCompression(
+        "diffusers-deep-compression", cfg, bridge.load_dcae(cfg, tdc.init_dcae_params(0, cfg), device),
+        random_weights=True)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    x = torch.rand((batch, size, size, 3), generator=gen, device=device)
+    x_check = torch.rand((1, check_size, check_size, 3), generator=torch.Generator().manual_seed(SEED + 13))
+    out = {"codecs": {}, "dcae_params": sum(p.numel() for p in codecs["diffusers-deep-compression"].model.parameters()),
+           "dcae_build_s": build_s}
+    for name in sorted(codecs):
+        codec = codecs[name]
+        rec, bpp = codec(x, generator=gen, return_bpp=True)  # the warm-up
+        bpp = float(bpp)
+        if not (rec.shape == x.shape and torch.isfinite(rec).all() and rec.min() >= 0 and rec.max() <= 1
+                and np.isfinite(bpp) and bpp >= 0):
+            raise AssertionError(f"neural codecs: {name}: output {tuple(rec.shape)} in [{rec.min()}, {rec.max()}], "
+                                 f"bpp {bpp}")
+        times = []
+        for _ in range(reps if is_cuda else 0):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            codec(x, generator=gen, return_bpp=True)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        row = _hold_codec_on_cpu(name, codec, copy.deepcopy(codec.model).cpu(), x_check,
+                                 torch.Generator().manual_seed(SEED + 14))
+        row.update(bpp=bpp, ms=float(np.median(times)) if times else None, random_weights=codec.random_weights)
+        out["codecs"][name] = row
+        print(f"neural codecs: {name}: {batch} x {size} px {row['ms'] if row['ms'] is None else round(row['ms'], 3)} "
+              f"ms a batch, {bpp:.4f} bpp; card against CPU at {check_size} px "
+              + ", ".join(f"{k} {v:.2e}" for k, v in row.items() if k.endswith("err") or k == "flipped"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if is_cuda else None
+    times = [r["ms"] for r in out["codecs"].values() if r["ms"] is not None]
+    print(f"neural codecs: {len(codecs)} codecs, the bank {sum(times):.1f} ms for {batch} x {size} px each"
+          f"{'' if times else ' (not timed on the CPU)'}; DC-AE at {out['dcae_params'] / 1e6:.1f}M parameters "
+          f"built in {build_s:.1f} s; peak {out['peak_gib']} GiB")
     return out
 
 
@@ -2430,7 +2663,8 @@ def main() -> int:
     chameleon = build_chameleon(device)
     paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
     paths.append(timed("interleaved path", phase_interleaved, device, chameleon))
-    paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, chameleon))
+    paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device,
+                       first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
     del chameleon
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
@@ -2440,7 +2674,9 @@ def main() -> int:
         paths.append(rcc)
         tuned = [f"--{part}_ft_ckpt={rcc['runs']['Taming']['deltas'][part]}" for part in ("encoder", "decoder")]
         paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, taming_extra=tuned,
-                                                                      inspect=check_tuned_tokenizer(rcc))))
+                                                                      inspect=check_tuned_tokenizer(rcc),
+                                                                      neural_compress=True)))
+        timed("neural codecs", phase_neural_codecs, device, paths[-1].pop("bank"))
         torch.cuda.empty_cache()
         paths.append(timed("sync", phase_sync, device, workdir))
         torch.cuda.empty_cache()

@@ -376,6 +376,9 @@ def test_chip_smoke_interleaved_phases_on_cpu():
     for run in res["runs"].values():
         assert "prompt.txt" in run["files"] and len(run["records"]) == 2
         assert all(f > 0.35 for f in run["green_fractions"])
-    res = chip_smoke.phase_interleaved_4k("cpu", wrapper, cache_budget=2048, text_opts=til.TextGenOptions(max_gen_len=2))
+    # as the script runs it, through a view of the wrapper's first layers (here all 2: the tiny random
+    # model at 1 layer draws </s> before its image)
+    res = chip_smoke.phase_interleaved_4k("cpu", chip_smoke.first_layers(wrapper, 2), cache_budget=2048,
+                                          text_opts=til.TextGenOptions(max_gen_len=2))
     assert set(res["launches"].values()) == {0} and set(res["runs"]) == {"bf16", "int8", "packed4"}
     assert all(r["segments"].count("image_seg") == 1 for r in res["runs"].values())

@@ -8,13 +8,17 @@ package letter for letter (ints stay ints: brightness ``1``, rotation
 NHWC float images on their own device; only gaussian noise draws from the
 generator. ``exact_jpeg`` swaps the device JPEG for PIL's on the host.
 
-The neural-compression and DiffPure slots are not ported (ROADMAP queue 1,
-item 12); the entry point refuses their flags.
+A bank of codecs (``nc_models``, from ``neural.build_codec_bank``) adds
+the reference's "neural-compress" attack, one cell per codec name; each call writes the codec's exact bpp into ``row_tags``,
+and a random-weight codec's rows carry ``random_weights``. Unlike the JAX
+package's manager, the cell's generator reaches the codec, so a KL-VAE
+draws fresh posterior noise in each cell and batch (ROADMAP queue 3, fault
+(h)). The DiffPure slot is not ported (ROADMAP queue 1, item 12b).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,13 +40,15 @@ def make_jpeg_fn(exact_pil: bool) -> AugFn:
 
 
 class AugmentationManager:
-    """The reference's attack registry, without the neural slots.
+    """The reference's attack registry, without DiffPure.
 
     Args:
       exact_jpeg: PIL's JPEG on the host instead of the device JPEG.
+      nc_models: name -> codec; each name, sorted, is a "neural-compress"
+        cell (none without codecs).
     """
 
-    def __init__(self, exact_jpeg: bool = False):
+    def __init__(self, exact_jpeg: bool = False, nc_models: Optional[dict] = None):
         self.augs: List[AugEntry] = [
             ("gaussian-blur", _no_rng(lambda x, k: V.gaussian_blur(x, int(k))),
              [0, 1, 3, 5, 7, 9, 11, 13, 15, 17, 19]),
@@ -59,9 +65,22 @@ class AugmentationManager:
              [1.0, 0.95, 0.9, 0.85, 0.8, 0.75, 0.7, 0.65, 0.6, 0.55, 0.5]),
         ]
         self.exact_jpeg = exact_jpeg
+        self.compressors = nc_models or {}
         #: (transform, param) -> extra fields merged into the result records
-        #: (the JAX package's neural codecs tag their rows; no classic attack does)
+        #: (a codec's bpp; random-weight codecs' rows, so they cannot pass as real attacks)
         self.row_tags: Dict[tuple, dict] = {}
+        if self.compressors:
+            self.augs.append(("neural-compress", self._run_codec, sorted(self.compressors)))
+            for name, codec in self.compressors.items():
+                if codec.random_weights:
+                    self.row_tags[("neural-compress", name)] = {"random_weights": True}
+
+    def _run_codec(self, x, name, generator):
+        """One codec on the cell's generator; its exact bpp goes to
+        ``row_tags``, so the analyzer's TPR-against-bpp axis has the rate."""
+        rec, bpp = self.compressors[name](x, generator=generator, return_bpp=True)
+        self.row_tags.setdefault(("neural-compress", name), {})["bpp"] = float(bpp)
+        return rec
 
     def names(self) -> List[str]:
         return [name for name, _, _ in self.augs]

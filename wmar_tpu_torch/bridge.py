@@ -20,6 +20,12 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
 * Moshi trees (the audio LM) stay dict trees as the Llama ones do
   (:func:`load_moshi`); Mimi's Flax tree loads into the port's module by
   :func:`load_mimi`, each kernel turned into torch's layout.
+* The neural codecs' trees (compressai, KL-VAE, DC-AE: the JAX package's
+  converters' and ``init_*_params``' layout, copied in the port) load by
+  :func:`load_codec_tree` into modules whose child names follow the tree:
+  an HWIO kernel becomes a Conv2d's OIHW weight (a ConvTranspose2d's
+  unflipped), a ``[in, out]`` matrix a Linear's weight
+  (:func:`load_compressai`, :func:`load_kl_vae`, :func:`load_dcae`).
 * A JAX ``KVCache`` (``k``, ``v``), ``QuantKVCache`` (``k``, ``v``,
   ``k_scale``, ``v_scale``), ``PackedQuantKVCache`` or
   ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
@@ -565,3 +571,124 @@ def load_ref_train_state(state, jax_state) -> None:
     state.disc.load_state_dict(disc_sd(disc_params))
     load_adam_state(state.opt, state.sched, m.named_parameters(), opt_state, model_sd)
     load_adam_state(state.opt_d, state.sched_d, state.disc.named_parameters(), disc_opt_state, disc_sd)
+
+
+# ---------------------------------------------------------------------------
+# Neural codecs (the attack bank): the JAX package's parameter trees -> modules
+# ---------------------------------------------------------------------------
+
+
+def _codec_set(module, name: str, value: torch.Tensor, path: str, device) -> None:
+    cur = getattr(module, name)
+    if cur is None:  # an optional leaf (a DC-AE norm's bias or BatchNorm statistics)
+        value = value.to(device=device, dtype=torch.float32)
+        if name in module._parameters:
+            module._parameters[name] = torch.nn.Parameter(value, requires_grad=False)
+        else:
+            module._buffers[name] = value
+        return
+    if tuple(cur.shape) != tuple(value.shape):
+        raise ValueError(f"{path}.{name}: shape {tuple(value.shape)} != {tuple(cur.shape)}")
+    cur.copy_(value)
+
+
+def _codec_leaves(module, tree: dict, want: Dict[str, Any], path: str, device) -> None:
+    """Set ``module``'s tensors from ``want`` (name -> tensor) after checking
+    that ``tree``'s keys are exactly those the module holds."""
+    have = {k for k in ("weight", "bias") if getattr(module, k, None) is not None}
+    if set(want) != have:
+        raise KeyError(f"{path}: the tree gives {sorted(tree)}, the module holds {sorted(have)}")
+    for name, value in want.items():
+        _codec_set(module, name, value, path, device)
+
+
+@torch.no_grad()
+def load_codec_tree(module: torch.nn.Module, tree: Any, device=None, path: str = "codec") -> torch.nn.Module:
+    """Copy a codec parameter tree of the JAX package (numpy or tensor
+    leaves) into ``module``, whose child names follow the tree's keys and
+    whose lists follow its lists: an HWIO ``kernel`` becomes a Conv2d's OIHW
+    ``weight`` (a ConvTranspose2d's ``[I, O, kh, kw]``, unflipped: the tree
+    holds it flipped for a dilated conv); a ``[in, out]`` matrix (bare, or
+    ``{"w", "b"}``) a Linear's weight; GroupNorm's ``scale`` its weight;
+    other leaves keep their name and layout. Every tensor of the module
+    needs a leaf (a module's ``OPTIONAL`` ones may be absent and become
+    None) and every leaf a tensor: a mismatch raises ``KeyError``, a wrong
+    shape ``ValueError``."""
+    device = device or next(iter(module.parameters())).device
+    nn = torch.nn
+    if isinstance(module, nn.Conv2d) or isinstance(module, nn.ConvTranspose2d):
+        k = to_tensor(tree["kernel"], torch.float32)
+        weight = k.flip(0, 1).permute(2, 3, 0, 1) if isinstance(module, nn.ConvTranspose2d) else k.permute(3, 2, 0, 1)
+        want = {"weight": weight, **({"bias": to_tensor(tree["bias"], torch.float32)} if "bias" in tree else {})}
+        if set(tree) - {"kernel", "bias"}:
+            raise KeyError(f"{path}: unexpected leaves {sorted(set(tree) - {'kernel', 'bias'})}")
+        _codec_leaves(module, tree, want, path, device)
+    elif isinstance(module, nn.Linear):
+        w, b = (tree["w"], tree.get("b")) if isinstance(tree, dict) else (tree, None)
+        want = {"weight": to_tensor(w, torch.float32).T, **({"bias": to_tensor(b, torch.float32)} if b is not None
+                                                            else {})}
+        _codec_leaves(module, tree if isinstance(tree, dict) else {"w": w}, want, path, device)
+    elif isinstance(module, nn.GroupNorm):
+        _codec_leaves(module, tree, {"weight": to_tensor(tree["scale"], torch.float32),
+                                     "bias": to_tensor(tree["bias"], torch.float32)}, path, device)
+    elif isinstance(tree, (list, tuple)):
+        children = list(module) if not isinstance(module, nn.ParameterList) else None
+        n = len(module)
+        if len(tree) != n:
+            raise KeyError(f"{path}: a list of {len(tree)} against {n} in the module")
+        for i, sub in enumerate(tree):
+            if children is None:
+                _codec_set(module, str(i), to_tensor(sub, torch.float32), path, device)
+            else:
+                load_codec_tree(children[i], sub, device, f"{path}.{i}")
+    else:
+        children = dict(module.named_children())
+        tensors = {**module._parameters, **module._buffers}
+        unknown = sorted(set(tree) - set(children) - set(tensors))
+        missing = sorted(set(children) - set(tree))
+        missing += sorted(k for k, v in tensors.items() if v is not None and k not in tree
+                          and k not in getattr(module, "OPTIONAL", ()))
+        if unknown or missing:
+            raise KeyError(f"{path}: tree leaves without a tensor {unknown[:5]}, tensors without a leaf {missing[:5]}")
+        for key, sub in tree.items():
+            if key in children:
+                load_codec_tree(children[key], sub, device, f"{path}.{key}")
+            else:
+                _codec_set(module, key, to_tensor(sub, torch.float32), path, device)
+        for key in getattr(module, "OPTIONAL", ()):
+            if key not in tree:
+                setattr(module, key, None)
+    return module
+
+
+def _codec_module(build, tree, device):
+    """``build()`` on the meta device, then the tree's weights on ``device``
+    (no random draw of torch's own first)."""
+    with torch.device("meta"):
+        model = build()
+    return load_codec_tree(model.to_empty(device=device), tree, torch.device(device)).eval()
+
+
+def load_compressai(arch: str, tree: Dict, device="cpu"):
+    """The compressai module of ``arch`` at the tree's widths (N, M), from a
+    tree of ``convert_compressai`` or ``init_compressai_params``."""
+    from wmar_tpu_torch.augmentations import compressai_models as cm
+
+    n, m = cm.tree_nm(arch, tree)
+    return _codec_module(lambda: cm.FORWARDS[arch](n, m), tree, device)
+
+
+def load_kl_vae(cfg, tree: Dict, device="cpu"):
+    """An ``AutoencoderKL`` of ``cfg`` from a tree of ``convert_kl_vae`` or
+    ``init_kl_vae_params``."""
+    from wmar_tpu_torch.augmentations.diffusers_vae import AutoencoderKL
+
+    return _codec_module(lambda: AutoencoderKL(cfg), tree, device)
+
+
+def load_dcae(cfg, tree: Dict, device="cpu"):
+    """A ``DCAE`` of ``cfg`` from a tree of ``convert_dcae`` or
+    ``init_dcae_params``."""
+    from wmar_tpu_torch.augmentations.dcae import DCAE
+
+    return _codec_module(lambda: DCAE(cfg), tree, device)

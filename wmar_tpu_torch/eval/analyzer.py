@@ -26,7 +26,7 @@ import json
 import os
 import re
 from collections import defaultdict
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -325,11 +325,10 @@ def plot_robustness(records: List[Record], save_to: str, alpha: float = 0.01):
     plt.close(fig)
 
 
-def plot_tpr_vs_bpp(records: List[Record], save_to: str, alpha: float = 0.01):
-    """Neural-compression TPR as a function of the codec's exact bpp —
-    the reference's bpp x-axis grid (analyzer.py:237-239,361-560). Needs
-    ``bpp`` in the neural-compress rows (row_tags from the manager)."""
-    plt = _mpl()
+def tpr_vs_bpp(records: List[Record], alpha: float = 0.01) -> List[Tuple[float, float, str]]:
+    """``(mean bpp, TPR@alpha, codec)`` of every neural-compress codec whose
+    rows carry ``bpp`` (row_tags from the manager), sorted by bpp: the
+    points of the reference's bpp x-axis (analyzer.py:237-239,361-560)."""
     per_codec = defaultdict(lambda: {"pvals": [], "bpp": []})
     for r in records:
         if r.transform != "neural-compress" or "pvalue" not in r.metrics:
@@ -342,9 +341,16 @@ def plot_tpr_vs_bpp(records: List[Record], save_to: str, alpha: float = 0.01):
         if d["bpp"]:
             pts.append((float(np.mean(d["bpp"])),
                         tpr_at_fpr(np.asarray(d["pvals"]), alpha), codec))
+    return sorted(pts)
+
+
+def plot_tpr_vs_bpp(records: List[Record], save_to: str, alpha: float = 0.01):
+    """Neural-compression TPR as a function of the codec's exact bpp
+    (:func:`tpr_vs_bpp`'s points, one line per family)."""
+    plt = _mpl()
+    pts = tpr_vs_bpp(records, alpha)
     if not pts:
         return
-    pts.sort()
     fig, ax = plt.subplots(figsize=(6, 4))
     fams = sorted({c.rsplit("-q=", 1)[0] for _, _, c in pts})
     for fam in fams:

@@ -20,7 +20,13 @@ Each sample is decoded, round-tripped through the tokenizer and attacked
 with the reference's 62 classic (attack, param) cells, and every version
 is re-tokenized and scored, as ``generate.py`` does; ``--no_augs`` keeps
 the round trips only, ``--exact_jpeg true`` takes PIL's JPEG instead of the
-device one. ``--wm_torch_compat true`` draws the reference's greenlists bit
+device one. ``--include_neural_compress true`` adds the reference's 22
+neural codecs (the compressai zoo, three KL-VAEs, DC-AE; one
+"neural-compress" cell each, its records tagged with the codec's ``bpp``)
+from ``--nc_weights_dir``; their published weights are not in the
+repository, so without them the bank is refused unless ``--nc_allow_random
+true`` builds random codecs at the published widths (rows tagged
+``random_weights``). ``--wm_torch_compat true`` draws the reference's greenlists bit
 for bit from a table; ``--wm_seed_strategy fixed --wm_split_strategy
 clustering`` takes the clustering split. ``--tiny`` models have 128 codes
 (the JAX CLI's have 64), all alive, so both of these run on them too.
@@ -79,11 +85,8 @@ from wmar_tpu_torch import bridge
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NOT_PORTED = {
-    "include_neural_compress": "the neural attacks (ROADMAP queue 1, item 12)",
-    "nc_weights_dir": "the neural attacks (ROADMAP queue 1, item 12)",
-    "nc_allow_random": "the neural attacks (ROADMAP queue 1, item 12)",
-    "include_diffpure": "the neural attacks (ROADMAP queue 1, item 12)",
-    "diffpure_weights": "the neural attacks (ROADMAP queue 1, item 12)",
+    "include_diffpure": "DiffPure (ROADMAP queue 1, item 12b)",
+    "diffpure_weights": "DiffPure (ROADMAP queue 1, item 12b)",
 }
 
 
@@ -437,7 +440,20 @@ def main(argv=None):
     gen = GenParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
                     guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)
     eval_params = EvalParams(max_roundtrips=args.max_roundtrips, orig_only=args.orig_only)
-    aug_manager = None if (args.orig_only or args.no_augs) else AugmentationManager(exact_jpeg=args.exact_jpeg)
+    aug_manager = None
+    if not (args.orig_only or args.no_augs):
+        nc_models = None
+        if args.include_neural_compress:
+            from wmar_tpu_torch.augmentations.neural import build_codec_bank
+
+            nc_models = build_codec_bank(weights_dir=args.nc_weights_dir, allow_random=args.nc_allow_random,
+                                         device=device)
+            if not nc_models:
+                raise SystemExit(
+                    "--include_neural_compress was set but no codec could be built; provide --nc_weights_dir with "
+                    "converted checkpoints or pass --nc_allow_random true to acknowledge random-weight destruction "
+                    "slots.")
+        aug_manager = AugmentationManager(exact_jpeg=args.exact_jpeg, nc_models=nc_models)
     sync_manager = None
     if args.sync:
         from wmar_tpu_torch.sync.manager import SyncManager

@@ -171,7 +171,7 @@ def sdpa_mask(b, t, valid_len, start, key_mask, device) -> torch.Tensor:
 
 def library_attention(q, k, v, attn_mask) -> torch.Tensor:
     """One ``scaled_dot_product_attention`` call over a bf16 layer: the
-    yardstick of kernel #5, timed here and called nowhere in the port."""
+    yardstick of kernels #5 and #6, timed here and called nowhere in the port."""
     return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
 
 
@@ -206,7 +206,7 @@ def bench_shape(tag: str, shape: dict, device, n_layers: int, reps: int, valid_l
             lambda li: fd.flash_decode_attention_q8(q, c8.k[li], c8.v[li], c8.k_scale[li], c8.v_scale[li], lens, **mk),
             lambda li: fd.flash_decode_attention_q8_plain(q, c8.k[li], c8.v[li], c8.k_scale[li], c8.v_scale[li],
                                                           lens, **mk),
-            attention_bound(b, h, t, d, valid_len, 1, True, q.dtype, torch.int8, start, key_mask), None),
+            attention_bound(b, h, t, d, valid_len, 1, True, q.dtype, torch.int8, start, key_mask), library_ms),
     }
     if not masked or t >= 1024:  # the packed kernels take masks only on their chunked route
         variants["packed_decode_attention_q8"] = (
