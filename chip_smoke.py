@@ -9,8 +9,8 @@ phases:
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
    one nvcc per source, in parallel), print the build time, the card's
    name and power limit, and the TF32 switches (both off, so float32
-   matmuls and convolutions are exact; phase 9 alone runs at the finetune's
-   own precision);
+   matmuls and convolutions are exact; phases 9 and 14 alone run at their
+   entry points' own precision);
 2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
    slots the tiled kernel of #3/#4 without masks) at the decode shapes of
    RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88),
@@ -134,7 +134,7 @@ phases:
    true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
    from a table), ``--include_neural_compress true --nc_allow_random
    true`` (the reference's 22 neural codecs, random, at their published
-   widths: 62 + 22 cells; every codec record tagged ``random_weights`` with
+   widths, each geometry drawn once: 62 + 22 cells; every codec record tagged ``random_weights`` with
    a finite ``bpp``, the diffusers codecs' nominal one; the analyzer's
    TPR-against-bpp table) and phase 9's epoch-3 RCC deltas
    (``--encoder_ft_ckpt/--decoder_ft_ckpt``), its tokenizer checked to be
@@ -206,7 +206,33 @@ phases:
    finite records. Prints frames/s of each generation, host and device ms
    a frame (``torch.profiler`` over 8 frames), the launches, whether MP3
    ran and the record count; then ``python -m wmar_tpu_torch.audio_eval
-   --tiny`` once on the card.
+   --tiny`` once on the card;
+14. DiffPure (``phase_diffpure``), at the entry point's precision (cuDNN
+   TF32 on, matmuls float32): a random ADM UNet at
+   ``GUIDED_DIFFUSION_256_UNCOND``'s width (552.8M parameters, every layer
+   drawn, the zero-initialised ones too) written as ``adm_random.pt`` in
+   guided-diffusion's layout and as a converted ``adm_random.msgpack``;
+   the entry point ``generate.main`` with RAR-XL, int8 weights, the packed4
+   cache (kernel #1), 1 class (2 planned; cut for the script's time), the 62-cell grid and
+   ``--include_diffpure true --diffpure_weights adm_random.pt``. Gates: 62
+   + 5 cells and their records and files, the five diffpure cells' images
+   finite, in [0, 1], different from the input and from each other,
+   exactly 660 UNet calls, kernel #1's exact launches, the analyzer's
+   "Adversarial Purification" column; the ``.msgpack`` route's UNet equal
+   bit for bit; with TF32 off, one UNet call and a 2-step chain at 64 px,
+   fed the same noise, within 1e-3 of a CPU copy (the CPU takes seconds a
+   call at full width: the chain was cut from 10 steps for the script's
+   time). Prints ms a UNet call at batch 1, 2 and 8 (CUDA events, eager)
+   and at the run's batch replayed from DiffPure's CUDA graph, launches an
+   eager call, seconds a cell, peak GiB;
+15. FID (``phase_fid``): the entry point ``python -m
+   wmar_tpu_torch.eval.fid`` with random full-width FID-Inception weights in
+   torchvision's layout (positive BatchNorm variances), TF32 off, on phase
+   14's tree (69 PNGs at 256 px) against 64 synthetic 512 px PNGs (the
+   resize shrinks: JAX fault (i)), then ``--save_stats`` and the ``.npz``
+   against the tree itself. Gates: the FID finite and >= 0, FID(tree, its
+   own statistics) ~ 0, the ``.npz`` equal to the statistics, pool3
+   features on the card within 1e-3 of the CPU's. Prints images/s.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -1425,17 +1451,19 @@ def _check_codec_records(label, records, codecs) -> dict:
     return bpp
 
 
-def _sweep_checks(label, wrapper, log, records, outdir, n, codecs=()) -> dict:
+def _sweep_checks(label, wrapper, log, records, outdir, n, codecs=(), diffpure=False) -> dict:
     """The gates of one sweep run on its log, records and tree: the 62
-    classic cells, and one neural-compress cell per name of ``codecs``."""
+    classic cells, one neural-compress cell per name of ``codecs`` and,
+    with ``diffpure``, the five diffpure cells."""
     import os
 
     from wmar_tpu_torch.core import green_fraction
 
     n_aug = sum(len(rows) for transform, rows in log.items() if transform != "roundtrips")
     want = n * (len(log["roundtrips"]) + n_aug)
-    transforms = {"roundtrips", *SWEEP_ATTACKS, *(["neural-compress"] if codecs else [])}
-    if n_aug != 62 + len(codecs) or set(log) != transforms or len(records) != want:
+    transforms = {"roundtrips", *SWEEP_ATTACKS, *(["neural-compress"] if codecs else []),
+                  *(["diffpure"] if diffpure else [])}
+    if n_aug != 62 + len(codecs) + 5 * diffpure or set(log) != transforms or len(records) != want:
         raise AssertionError(f"{label}: {len(records)} records, {n_aug} attack cells, transforms {sorted(log)}")
     files = [f for _, _, fs in os.walk(outdir) for f in fs]
     counts = {ext: sum(f.endswith(ext) for f in files) for ext in (".json", ".png", ".npy")}
@@ -2622,6 +2650,395 @@ def check_tuned_tokenizer(rcc: dict):
     return inspect
 
 
+# ---------------------------------------------------------------------------
+# DiffPure through the entry point, and FID
+# ---------------------------------------------------------------------------
+
+DIFFPURE_STEPS = (0.01, 0.05, 0.1, 0.2, 0.3)
+DIFFPURE_CALLS = sum(max(1, int(s * 1000)) for s in DIFFPURE_STEPS)  # 10 + 50 + 100 + 200 + 300 = 660 a batch
+DIFFPURE_CLASSES = 1  # 2 planned; 1 for the script's time (660 UNet calls a batch, ~30 ms each at 1, ~47 at 2)
+# card (TF32 off) against the CPU, relative to the output's largest value, as the codecs' bound
+DIFFPURE_REL_TOL = 1e-3
+FID_REL_TOL = 1e-3  # pool3 features, card (TF32 off) against the CPU, relative to the largest feature
+FID_SELF_REL = 1e-5  # FID(dir, its own statistics) against 2 Tr(sigma): the matrix root's rounding
+
+
+def random_adm_unet(cfg, device, seed: int):
+    """An ``ADMUNet`` of ``cfg`` on ``device`` with every weight drawn from
+    a generator on the device, the layers that guided-diffusion and Flax
+    start at zero included (each ResBlock's ``conv2``, the attention's
+    ``proj``, ``conv_out``; with them at zero the output is exactly 0):
+    weights N(0, 1/fan_in), which keeps the activations bounded, GroupNorm
+    scales 1 + N(0, 0.1), biases N(0, 0.1)."""
+    from wmar_tpu_torch.augmentations.diffpure import ADMUNet
+
+    with torch.device("meta"):
+        model = ADMUNet(cfg)
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            else:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.1, generator=gen)
+    return model.eval()
+
+
+def write_adm_files(model, cfg, workdir: str) -> tuple:
+    """``model``'s weights as ``adm_random.pt`` (guided-diffusion's layout,
+    what ``256x256_diffusion_uncond.pt`` holds) and ``adm_random.msgpack``
+    (the converted Flax tree, as the JAX package writes it)."""
+    import os
+
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.augmentations import diffpure as tdp
+    from wmar_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    tree = {"params": _np_tree(bridge.adm_unet_tree(model))}
+    pt, mp = os.path.join(workdir, "adm_random.pt"), os.path.join(workdir, "adm_random.msgpack")
+    t1 = time.perf_counter()
+    torch.save({k: torch.from_numpy(v) for k, v in tdp.to_guided_diffusion(tree, cfg).items()}, pt)
+    t2 = time.perf_counter()
+    ckpt.save_pytree(mp, tree)
+    print(f"DiffPure: weights to the host {t1 - t0:.1f} s, adm_random.pt {t2 - t1:.1f} s, adm_random.msgpack "
+          f"{time.perf_counter() - t2:.1f} s")
+    return pt, mp
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else v.float().cpu().numpy() for k, v in tree.items()}
+
+
+def _call_ms(fn, batch: int, size: int, reps: int = 3) -> float:
+    """CUDA-event ms of one ``fn(x, t)`` (a UNet forward) at ``batch`` x
+    ``size`` px, the mean over ``reps`` calls after a warm-up."""
+    x = torch.randn((batch, 3, size, size), generator=torch.Generator(device="cuda").manual_seed(SEED + 16),
+                    device="cuda")
+    t = torch.full((batch,), 500, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        fn(x, t)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(x, t)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _unet_launches(unet, batch: int, size: int):
+    """CUDA kernels one UNet call launches (``torch.profiler``; None if it
+    recorded no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros((batch, 3, size, size), device="cuda")
+    t = torch.full((batch,), 500, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        unet(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            unet(x, t)
+            torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return n or None
+
+
+def phase_diffpure(device, workdir: str, tiny: bool = False, time_batches=(1, 2, 8), check_size: int = 64,
+                   chain_steps: float = 0.002) -> dict:
+    """DiffPure through the entry point at the entry point's precision
+    (cuDNN TF32 on, matmuls float32: PyTorch's defaults, restored after).
+    A random ADM UNet of ``GUIDED_DIFFUSION_256_UNCOND`` (552.8M parameters)
+    is written as ``adm_random.pt`` in guided-diffusion's layout and as
+    ``adm_random.msgpack``; then ``generate.main`` runs RAR-XL with int8
+    weights, the packed4 cache (kernel #1), ``DIFFPURE_CLASSES`` classes in
+    one batch, the 62-cell grid and ``--include_diffpure true
+    --diffpure_weights adm_random.pt``. Gates: 62 + 5 cells and their
+    records and files (``_sweep_checks``); the five diffpure cells' images
+    finite, in [0, 1], different from the input and from each other;
+    exactly ``DIFFPURE_CALLS`` UNet calls; kernel #1's exact launches; the
+    analyzer's "Adversarial Purification" column. Then: ms a UNet call at
+    each of ``time_batches`` (CUDA events), launches a call
+    (``torch.profiler``), seconds a cell, peak GiB; the ``.msgpack`` route's
+    UNet equal bit for bit; with TF32 off, one UNet call and a
+    ``chain_steps`` chain at ``check_size`` px, fed the same noise, within
+    ``DIFFPURE_REL_TOL`` of a CPU copy. ``tiny`` runs the CLI's tiny RAR on
+    the CPU (the caller patches the ADM config). The tree stays in
+    ``workdir/diffpure`` for the FID phase."""
+    from wmar_tpu_torch.finetune.cli import set_precision
+
+    saved = set_precision()
+    try:
+        return _diffpure_run(device, workdir, tiny, time_batches, check_size, chain_steps)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _diffpure_run(device, workdir, tiny, time_batches, check_size, chain_steps) -> dict:
+    import copy
+    import os
+
+    from wmar_tpu_torch import generate as tgen
+    from wmar_tpu_torch.augmentations import diffpure as tdp
+    from wmar_tpu_torch.eval import analyzer, pipeline
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = tdp.GUIDED_DIFFUSION_256_UNCOND
+    print(f"DiffPure: tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = random_adm_unet(cfg, device, SEED + 15)
+    n_params = sum(p.numel() for p in model.parameters())
+    pt, mp = write_adm_files(model, cfg, workdir)
+    del model
+    files_s = time.perf_counter() - t0
+    seen = {"logs": [], "purifiers": [], "cells": [], "load_s": 0.0}
+    fill, load, purifier_cls, load_adm = pipeline.fill_batch_log, tgen.load_wrapper, tdp.DiffPure, tdp.load_adm_weights
+
+    class Timed(purifier_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["purifiers"].append(self)
+
+        def __call__(self, imgs01, steps_override=None, generator=None, noise=None):
+            if cuda:
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = super().__call__(imgs01, steps_override, generator=generator, noise=noise)
+            if cuda:
+                torch.cuda.synchronize(device)
+            seen["cells"].append((steps_override, time.perf_counter() - t))
+            return out
+
+    def load_kept(args, dev):
+        seen["wrapper"] = load(args, dev)
+        return seen["wrapper"]
+
+    def load_adm_timed(*a, **k):
+        t = time.perf_counter()
+        unet = load_adm(*a, **k)
+        seen["load_s"] += time.perf_counter() - t
+        return unet
+
+    def fill_kept(*a, **k):
+        seen["logs"].append(fill(*a, **k))
+        return seen["logs"][-1]
+
+    outdir = os.path.join(workdir, "diffpure")
+    where = ["--tiny", "--device", "cpu"] if tiny else []
+    argv = ["--model", "rar", *where, "--weight_dtype", "int8", "--cache_dtype", "packed4", "--conditioning",
+            ",".join(str(c) for c in range(DIFFPURE_CLASSES)), "--batch_size", str(DIFFPURE_CLASSES),
+            "--max_roundtrips", "1", "--seed", str(SEED), "--include_diffpure", "true", "--diffpure_weights", pt,
+            "--outdir", outdir]
+    tgen.load_wrapper, pipeline.fill_batch_log, tdp.DiffPure, tdp.load_adm_weights = (load_kept, fill_kept, Timed,
+                                                                                      load_adm_timed)
+    printed = _Tee(sys.stdout)
+    try:
+        reset_launches()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            records = tgen.main(argv)
+        run_s = time.perf_counter() - t1
+        counts = launches()
+    finally:
+        tgen.load_wrapper, pipeline.fill_batch_log, tdp.DiffPure, tdp.load_adm_weights = (load, fill, purifier_cls,
+                                                                                          load_adm)
+    wrapper = seen.pop("wrapper")
+    want = {"packed4_decode_attention": (wrapper.rar_cfg.image_seq_len - 1) * wrapper.rar_cfg.depth}
+    _check_launches(device, counts, want, "DiffPure")
+    log = seen["logs"][0]
+    gates = _sweep_checks("DiffPure", wrapper, log, records, outdir, DIFFPURE_CLASSES, diffpure=True)
+    (purifier,) = seen["purifiers"]
+    if purifier.unet_calls != DIFFPURE_CALLS:
+        raise AssertionError(f"DiffPure: {purifier.unet_calls} UNet calls a batch, not {DIFFPURE_CALLS}")
+    orig = log["roundtrips"][0][2]
+    cells = [imgs for _, _, imgs in log["diffpure"]]
+    if [p for p, _, _ in log["diffpure"]] != list(DIFFPURE_STEPS) or len(seen["cells"]) != len(DIFFPURE_STEPS):
+        raise AssertionError(f"DiffPure: cells {[p for p, _, _ in log['diffpure']]}, {len(seen['cells'])} calls")
+    moved = [float(np.abs(c - orig).max()) for c in cells]
+    apart = min(float(np.abs(a - b).max()) for i, a in enumerate(cells) for b in cells[i + 1:])
+    if not (all(np.isfinite(c).all() and c.min() >= -1 and c.max() <= 1 for c in cells) and min(moved) > 1e-3
+            and apart > 1e-3):
+        raise AssertionError(f"DiffPure: cells moved the input by {moved}, differ by at least {apart}")
+    table = analyzer.robustness_table(analyzer.load_records(outdir, cache=False))
+    if "diffpure" not in table["per_attack"] or "Adversarial Purification" not in analyzer.markdown_table(table):
+        raise AssertionError(f"DiffPure: the analyzer's table {table}")
+    print(analyzer.markdown_table(table))
+    out = {"launches": counts, "params": n_params, "files_s": files_s, "run_s": run_s, "pt_load_s": seen["load_s"],
+           "unet_calls": purifier.unet_calls,
+           "cell_s": {str(s): sec for s, sec in seen["cells"]}, "table": table, "moved": moved, "apart": apart,
+           "outdir": outdir, **gates}
+    sample_s = re.findall(r"sampling took ([\d.]+)s", printed.getvalue())
+    out["sample_s"] = float(sample_s[0]) if sample_s else None
+    unet = purifier.unet
+    size = orig.shape[1]
+    t1 = time.perf_counter()
+    out["ms_per_call"] = {b: _call_ms(unet, b, size) for b in time_batches} if cuda else {}
+    # the purifier's own forwards: replayed from its CUDA graph of the run's shape
+    out["graph_ms_per_call"] = {DIFFPURE_CLASSES: _call_ms(purifier._eps, DIFFPURE_CLASSES, size)} if cuda else {}
+    out["launches_per_call"] = _unet_launches(unet, time_batches[0], size) if cuda else None
+    out["peak_gib"] = _peak_gib(device)
+    out["timing_s"] = time.perf_counter() - t1
+    # the .msgpack route: the same weights, the same bits
+    x = torch.rand((1, 3, size, size), generator=torch.Generator().manual_seed(SEED + 17)).to(device) * 2 - 1
+    t = torch.full((1,), 321, dtype=torch.int32, device=device)
+    t1 = time.perf_counter()
+    other = tdp.load_adm_weights(mp, cfg, device)
+    out["msgpack_load_s"] = time.perf_counter() - t1
+    with torch.inference_mode():
+        if not torch.equal(other(x, t), unet(x, t)):
+            raise AssertionError("DiffPure: the .msgpack route's UNet differs from the .pt route's")
+    del other
+    # card against the CPU, float32
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.perf_counter()
+    cpu = copy.deepcopy(unet).cpu()
+    gen = torch.Generator().manual_seed(SEED + 18)
+    xc = torch.rand((1, check_size, check_size, 3), generator=gen)
+    tc = torch.full((1,), 500, dtype=torch.int32)
+    with torch.inference_mode():
+        want_out = cpu(xc.permute(0, 3, 1, 2) * 2 - 1, tc)
+        got_out = unet(xc.permute(0, 3, 1, 2).to(device) * 2 - 1, tc.to(device))
+    out["unet_err"] = _codec_rel(got_out, want_out)
+    t_star = max(1, int(chain_steps * cfg.diffusion_steps))
+    noise = torch.randn((t_star, *xc.shape), generator=gen)
+    want_chain = tdp.DiffPure(cpu)(xc, chain_steps, noise=noise)
+    got_chain = tdp.DiffPure(unet)(xc.to(device), chain_steps, noise=noise)
+    out["chain_err"] = _codec_rel(got_chain, want_chain)
+    out["unet_scale"] = float(want_out.abs().max())
+    out["cpu_check_s"] = time.perf_counter() - t1
+    if not (out["unet_err"] <= DIFFPURE_REL_TOL and out["chain_err"] <= DIFFPURE_REL_TOL):
+        raise AssertionError(f"DiffPure: the card against the CPU: UNet {out['unet_err']}, chain {out['chain_err']}")
+    del cpu, purifier, unet
+    print(f"DiffPure: ADM UNet {n_params / 1e6:.1f}M parameters, files written in {files_s:.1f} s; generate "
+          f"{' '.join(argv[:-2])}: {gates['records']} records, files {gates['files']}, run {run_s:.1f} s (sampling "
+          f"{out['sample_s']} s); {out['unet_calls']} UNet calls; seconds a cell "
+          f"{json.dumps({k: round(v, 3) for k, v in out['cell_s'].items()})}; ms a UNet call at {size} px "
+          f"{json.dumps({b: round(v, 3) for b, v in out['ms_per_call'].items()})} eager, "
+          f"{json.dumps({b: round(v, 3) for b, v in out['graph_ms_per_call'].items()})} from the CUDA graph; launches a call "
+          f"{out['launches_per_call']}; peak {out['peak_gib']:.2f} GiB; kernel launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}, expected {want}; seconds: .pt read and built "
+          f"{out['pt_load_s']:.1f}, timing {out['timing_s']:.1f}, .msgpack read and built {out['msgpack_load_s']:.1f}, "
+          f"CPU check {out['cpu_check_s']:.1f}; cells moved the input by "
+          f"{min(moved):.3f}-{max(moved):.3f}, differ by >= {apart:.3f}; .msgpack route bit-equal; card against "
+          f"CPU at {check_size} px (TF32 off): UNet {out['unet_err']:.2e} of {out['unet_scale']:.3g}, "
+          f"{t_star}-step chain {out['chain_err']:.2e}")
+    return out
+
+
+def random_inception_file(path: str, seed: int, div: int = 1) -> None:
+    """Random FID-Inception weights in torchvision's layout at ``path``:
+    convolutions N(0, 2/fan_in), BatchNorm weights and variances U(0.8,
+    1.2) (positive), biases and means U(-0.1, 0.1)."""
+    from wmar_tpu_torch.eval import fid
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, s in fid.inception_state_dict_shapes(div).items():
+        if k.endswith("conv.weight"):
+            sd[k] = torch.randn(s, generator=gen) * (2.0 / float(np.prod(s[1:]))) ** 0.5
+        elif k.endswith(("running_var", "bn.weight")):
+            sd[k] = torch.rand(s, generator=gen) * 0.4 + 0.8
+        else:
+            sd[k] = torch.rand(s, generator=gen) * 0.2 - 0.1
+    torch.save(sd, path)
+
+
+def synthetic_images(n: int, size: int, seed: int) -> np.ndarray:
+    """``n`` smooth ``size`` px images in [0, 1] that differ from one another
+    (colour ramps and a blob each)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    out = np.empty((n, size, size, 3), np.float32)
+    for i in range(n):
+        a, b, c = rng.uniform(-1, 1, (3, 3, 1, 1)).astype(np.float32)
+        cy, cx, r = rng.uniform(0.2, 0.8, 3)
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (0.05 + 0.2 * r))
+        out[i] = np.clip(0.5 + 0.25 * (a * xx + b * yy + c * blob), 0, 1).transpose(1, 2, 0)
+    return out
+
+
+def phase_fid(device, workdir: str, image_dir: str, div: int = 1, n_synth: int = 64, synth_size: int = 512,
+              batch: int = 32, check_images: int = 4, min_images: int = 64) -> dict:
+    """The FID CLI (``python -m wmar_tpu_torch.eval.fid``) on the card with
+    random FID-Inception weights at ``div`` of the published widths
+    (``inception_fid.pth``, torchvision's layout), TF32 off: ``image_dir``
+    (the DiffPure phase's tree, every PNG) against ``n_synth`` synthetic
+    ``synth_size`` px PNGs, so the resize shrinks there; then
+    ``--save_stats`` of ``image_dir`` and that ``.npz`` against
+    ``image_dir`` itself. Gates: the FID finite and >= 0; FID(dir, its own
+    statistics) within ``FID_SELF_REL`` of 2 Tr(sigma) of 0; the ``.npz``
+    equal to the statistics computed here; ``min_images`` or more images a
+    directory; pool3 features of
+    ``check_images`` images of each directory on the card within
+    ``FID_REL_TOL`` of a CPU copy. Prints images/s (feature extraction,
+    the PNGs already read)."""
+    import os
+
+    from PIL import Image
+
+    from wmar_tpu_torch.augmentations.neural import read_state_dict
+    from wmar_tpu_torch.eval import fid
+
+    cuda = torch.device(device).type == "cuda"
+    weights = os.path.join(workdir, "inception_fid.pth")
+    random_inception_file(weights, SEED + 19, div)
+    synth_dir = os.path.join(workdir, "fid_synthetic")
+    os.makedirs(synth_dir, exist_ok=True)
+    for i, img in enumerate(synthetic_images(n_synth, synth_size, SEED + 20)):
+        Image.fromarray((img * 255 + 0.5).astype(np.uint8)).save(os.path.join(synth_dir, f"{i:03}.png"),
+                                                                 compress_level=1)
+    stats = os.path.join(workdir, "fid_stats.npz")
+    base = ["--weights", weights, "--device", str(device), "--batch_size", str(batch)]
+    printed = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        for argv in ([image_dir, synth_dir], [image_dir, synth_dir, "--save_stats", stats], [stats, image_dir]):
+            if fid.main([*argv, *base]) != 0:
+                raise AssertionError(f"FID: the CLI on {argv} failed")
+    cli_s = time.perf_counter() - t0
+    values = [float(v) for v in re.findall(r"FID: (-?[\d.]+)", printed.getvalue())]
+    model = fid.FIDInceptionV3.from_state_dict(read_state_dict(weights), device)
+    imgs = {"dir": fid._load_images(image_dir), "synthetic": fid._load_images(synth_dir)}
+    rates = {}
+    for name, x in imgs.items():
+        fid.compute_activations(model, x[:batch], batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        acts = fid.compute_activations(model, x, batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        rates[name] = len(x) / (time.perf_counter() - t)
+        if name == "dir":
+            mu, sigma = acts.mean(axis=0), np.cov(acts, rowvar=False)
+    z = np.load(stats)
+    stats_err = max(_codec_rel(torch.from_numpy(z["mu"]), torch.from_numpy(mu)),
+                    _codec_rel(torch.from_numpy(z["sigma"]), torch.from_numpy(sigma)))
+    self_bound = FID_SELF_REL * 2 * float(np.trace(sigma)) + 1e-4  # + the print's rounding
+    cpu = fid.FIDInceptionV3.from_state_dict(read_state_dict(weights), "cpu")
+    feat_err = max(_codec_rel(torch.from_numpy(fid.compute_activations(model, x[:check_images], batch)),
+                              torch.from_numpy(fid.compute_activations(cpu, x[:check_images], batch)))
+                   for x in imgs.values())
+    out = {"fid": values[0] if values else None, "fid_self": values[1] if len(values) > 1 else None,
+           "self_bound": self_bound, "stats_err": stats_err, "features_err": feat_err, "imgs_per_s": rates,
+           "cli_s": cli_s, "images": {k: tuple(v.shape) for k, v in imgs.items()},
+           "params": sum(p.numel() for p in model.parameters())}
+    if not (len(values) == 2 and np.isfinite(values[0]) and values[0] >= 0 and abs(values[1]) <= self_bound
+            and stats_err <= 1e-5 and feat_err <= FID_REL_TOL and min(len(x) for x in imgs.values()) >= min_images):
+        raise AssertionError(f"FID: {out}")
+    print(f"FID: Inception {out['params'] / 1e6:.2f}M parameters; {len(imgs['dir'])} images of {image_dir} "
+          f"({imgs['dir'].shape[1]} px) against {n_synth} synthetic {synth_size} px: FID {values[0]:.4f}; FID against "
+          f"its own saved statistics {values[1]:.4f} (bound {self_bound:.2e}); the .npz within {stats_err:.1e} of "
+          f"the statistics; three CLI runs {cli_s:.1f} s; images/s "
+          f"{json.dumps({k: round(v, 1) for k, v in rates.items()})} at batch {batch}; features card against CPU "
+          f"{feat_err:.2e} (TF32 off)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2683,6 +3100,10 @@ def main() -> int:
         paths.append(timed("sync training", phase_sync_training, device, workdir))
         torch.cuda.empty_cache()
         paths.append(timed("audio", phase_audio, device, workdir))
+        torch.cuda.empty_cache()
+        paths.append(timed("DiffPure", phase_diffpure, device, workdir))
+        torch.cuda.empty_cache()
+        timed("FID", phase_fid, device, workdir, paths[-1]["outdir"])
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}
     never = [name for name, n in counts.items() if n == 0]
     if never:

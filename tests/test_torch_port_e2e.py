@@ -196,19 +196,21 @@ def test_chip_smoke_attack_sweep_on_cpu(one_torch_thread):
 
 
 def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
-    """What is still unported exits with its ROADMAP item (DiffPure: item
-    12b); the clustering split, a run with the attack grid (no
-    ``--no_augs``) and the neural-compression flags, which this test once
-    saw refused, now run: with ``--no_augs`` those flags are accepted and
-    ignored, as in JAX."""
+    """What is still unported (multi-GPU) exits with its ROADMAP item; the
+    clustering split, a run with the attack grid (no ``--no_augs``), the
+    neural-compression and the DiffPure flags, which this test once saw
+    refused, now run: with ``--no_augs`` those flags are accepted and
+    ignored, as in JAX, and without it ``--include_diffpure`` without
+    weights is refused in JAX's words."""
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    for extra in (["--dp", "2"], ["--include_diffpure", "true"], ["--diffpure_weights", "w.pt"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            tgen.main(base + ["--device", "cpu"] + extra)
-    with pytest.raises(SystemExit, match="item 12b"):
-        tgen.main(base + ["--device", "cpu", "--include_diffpure", "true"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        tgen.main(base + ["--device", "cpu", "--dp", "2"])
+    for extra in (["--include_diffpure", "true"], ["--diffpure_weights", "w.pt"]):
+        assert len(tgen.main(base + ["--device", "cpu"] + extra)) == 2
+    with pytest.raises(SystemExit, match="--include_diffpure requires --diffpure_weights"):
+        tgen.main([a for a in base if a != "--no_augs"] + ["--device", "cpu", "--include_diffpure", "true"])
     records = tgen.main(["--model", "rar", "--tiny", "--no_augs", "--device", "cpu", "--outdir", str(tmp_path / "nc"),
                          "--include_neural_compress", "true", "--nc_allow_random", "true"])
     assert len(records) == 2 and {r["transform"] for r in records} == {"roundtrips"}
@@ -256,9 +258,9 @@ def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path, one_torch_t
     """``--syncpath none --sync false`` (what the sweep configs pass) runs,
     and so does a ``--syncpath`` without ``--sync true`` (ignored, as in
     JAX), and so do ``--nc_weights_dir`` and ``--nc_allow_random`` under
-    ``--no_augs`` (ported; ignored there, as in JAX); a flag whose value
-    needs unported code (``--diffpure_weights``) exits through
-    ``_refuse_unported`` with its ROADMAP item. ``--exact_jpeg true``, which
+    ``--no_augs`` (ported; ignored there, as in JAX), and so does
+    ``--diffpure_weights``, which this test once saw refused (ported;
+    ignored under ``--no_augs``, as in JAX). ``--exact_jpeg true``, which
     this test once saw refused, runs the grid with PIL's JPEG."""
     from wmar_tpu_torch import generate as tgen
 
@@ -270,8 +272,7 @@ def test_generate_takes_syncpath_none_and_refuses_the_rest(tmp_path, one_torch_t
     assert len(tgen.main(base + ["--syncpath", "sync.ckpt"])) == 4
     for extra in (["--nc_weights_dir", "w"], ["--nc_allow_random", "true"]):
         assert len(tgen.main(base + extra)) == 4
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tgen.main(base + ["--diffpure_weights", "adm.msgpack"])
+    assert len(tgen.main(base + ["--diffpure_weights", "adm.msgpack"])) == 4
     out = tmp_path / "exact_jpeg"
     records = tgen.main([a for a in base if a != "--no_augs"][:-1] + [str(out), "--exact_jpeg", "true"])
     assert len(records) == 2 * 64 and sum(r["transform"] == "jpeg" for r in records) == 2 * 11

@@ -1115,3 +1115,72 @@ def test_tiny_moshi_runs_through_the_kernels(device, cache_dtype):
     assert out["cuda"][2] == cfg.n_layers * cfg.total_steps(12) and out["cpu"][2] == 0
     assert (out["cuda"][1] == out["cpu"][1]).float().mean() >= 0.95
     assert (out["cuda"][0] == out["cpu"][0]).float().mean() >= 0.95
+
+
+def _random_adm(device):
+    """``GUIDED_DIFFUSION_256_UNCOND``'s UNet with every weight drawn (none
+    left at zero): weights N(0, 1/fan_in), GroupNorm scales 1 + N(0, 0.1),
+    biases N(0, 0.1)."""
+    from wmar_tpu_torch.augmentations.diffpure import GUIDED_DIFFUSION_256_UNCOND, ADMUNet
+
+    with torch.device("meta"):
+        model = ADMUNet(GUIDED_DIFFUSION_256_UNCOND)
+    model = model.to_empty(device=device)
+    g = torch.Generator(device=device).manual_seed(15)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=g)
+            else:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.1, generator=g)
+    return model.eval()
+
+
+def test_diffpure_on_the_card_matches_the_cpu(device):
+    """The full-width ADM UNet (552.8M parameters) on a 64 px image, and a
+    10-step DiffPure chain (steps 0.01; on the card its UNet forwards replay
+    a CUDA graph) fed the same noise, on the card against a CPU copy,
+    float32 (TF32 off): within 1e-3 of the output's scale, the codecs'
+    bound (~100 convolutions and GroupNorms, 16 attentions, summed in
+    another order)."""
+    from wmar_tpu_torch.augmentations.diffpure import DiffPure
+
+    unet = _random_adm(device)
+    cpu = copy.deepcopy(unet).cpu()
+    g = torch.Generator().manual_seed(16)
+    x = torch.rand((1, 64, 64, 3), generator=g)
+    t = torch.full((1,), 500, dtype=torch.int32)
+    with torch.inference_mode():
+        want = cpu(x.permute(0, 3, 1, 2) * 2 - 1, t)
+        got = unet(x.permute(0, 3, 1, 2).to(device) * 2 - 1, t.to(device)).cpu()
+    scale = float(want.abs().max())
+    assert scale > 0.1 and float((got - want).abs().max()) <= 1e-3 * max(1.0, scale)
+    noise = torch.randn((10, *x.shape), generator=g)
+    dp_card, dp_cpu = DiffPure(unet), DiffPure(cpu)
+    got = dp_card(x.to(device), 0.01, noise=noise).cpu()
+    want = dp_cpu(x, 0.01, noise=noise)
+    assert dp_card.unet_calls == dp_cpu.unet_calls == 10 and float((got - x).abs().max()) > 1e-3
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_fid_features_on_the_card_match_the_cpu(device):
+    """The FID InceptionV3 at full width (random, BatchNorm variances
+    positive) on 512 px and 256 px images, the card's pool3 features
+    against the CPU's, float32: within 1e-3 of the largest feature."""
+    from wmar_tpu_torch.eval import fid
+
+    g = torch.Generator().manual_seed(19)
+    sd = {}
+    for k, s in fid.inception_state_dict_shapes().items():
+        if k.endswith("conv.weight"):
+            sd[k] = torch.randn(s, generator=g) * (2.0 / float(torch.tensor(s[1:]).prod())) ** 0.5
+        elif k.endswith(("running_var", "bn.weight")):
+            sd[k] = torch.rand(s, generator=g) * 0.4 + 0.8
+        else:
+            sd[k] = torch.rand(s, generator=g) * 0.2 - 0.1
+    card, cpu = fid.FIDInceptionV3.from_state_dict(sd, device), fid.FIDInceptionV3.from_state_dict(sd, "cpu")
+    for size in (512, 256):
+        x = torch.rand((3, size, size, 3), generator=g).numpy()
+        want = fid.compute_activations(cpu, x)
+        got = fid.compute_activations(card, x)
+        assert got.shape == (3, 2048) and abs(got - want).max() <= 1e-3 * abs(want).max()

@@ -105,13 +105,14 @@ def test_generate_neural_compress_matches_jax(tmp_path, monkeypatch, jax_generat
 def test_generate_refuses_a_random_bank_as_jax_does(tmp_path, capsys):
     """Without weights and without ``--nc_allow_random`` every codec is
     skipped and the run exits with JAX's message; ``--include_diffpure``
-    stays refused, naming ROADMAP item 12b."""
+    without ``--diffpure_weights`` is refused in JAX's words (this test once
+    saw it refused as unported, ROADMAP item 12b)."""
     base = ["--model", "rar", "--tiny", "--device", "cpu", "--outdir", str(tmp_path)]
     with pytest.raises(SystemExit, match="no codec could be built; provide --nc_weights_dir with converted "
                                          "checkpoints or pass --nc_allow_random true"):
         tgen.main(base + ["--include_neural_compress", "true", "--nc_weights_dir", str(tmp_path)])
     assert capsys.readouterr().out.count("skipping codec") == 22
-    with pytest.raises(SystemExit, match="item 12b"):
+    with pytest.raises(SystemExit, match="--include_diffpure requires --diffpure_weights"):
         tgen.main(base + ["--include_diffpure", "true"])
 
 

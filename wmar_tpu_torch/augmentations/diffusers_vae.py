@@ -353,7 +353,7 @@ class DiffusersCompression:
         ``weights_dir``; without them this raises ``RandomWeightsError``
         unless ``allow_random``."""
         from wmar_tpu_torch import bridge
-        from wmar_tpu_torch.augmentations.neural import RandomWeightsError, layout_errors, read_state_dict
+        from wmar_tpu_torch.augmentations.neural import RandomWeightsError, layout_errors, random_tree, read_state_dict
 
         if "deep-compression" in name or "dc-ae" in name:
             return _dcae_from_name(name, weights_dir, allow_random, device)
@@ -367,8 +367,9 @@ class DiffusersCompression:
             raise RandomWeightsError(f"no weights for diffusers codec '{name}' in {weights_dir!r}; "
                                      "pass allow_random=True to acknowledge a destructive slot.")
         print(f"WARNING: {name} running with RANDOM weights.")
-        return DiffusersCompression(name, cfg, bridge.load_kl_vae(cfg, init_kl_vae_params(0, cfg), device),
-                                    random_weights=True)
+        geometry = dataclasses.replace(cfg, nominal_bpp=0.0)  # the draws do not depend on the nominal rate
+        tree = random_tree(("kl_vae", geometry), lambda: init_kl_vae_params(0, cfg))
+        return DiffusersCompression(name, cfg, bridge.load_kl_vae(cfg, tree, device), random_weights=True)
 
 
 def _weights_file(name: str, weights_dir: Optional[str]) -> Optional[str]:

@@ -13,7 +13,9 @@ the reference's "neural-compress" attack, one cell per codec name; each call wri
 and a random-weight codec's rows carry ``random_weights``. Unlike the JAX
 package's manager, the cell's generator reaches the codec, so a KL-VAE
 draws fresh posterior noise in each cell and batch (ROADMAP queue 3, fault
-(h)). The DiffPure slot is not ported (ROADMAP queue 1, item 12b).
+(h)). A purifier (``diffpure``, an ``augmentations.diffpure.DiffPure``)
+adds the reference's "diffpure" attack after them, steps 0.01 to 0.3; the
+cell's generator draws its noise.
 """
 
 from __future__ import annotations
@@ -40,15 +42,17 @@ def make_jpeg_fn(exact_pil: bool) -> AugFn:
 
 
 class AugmentationManager:
-    """The reference's attack registry, without DiffPure.
+    """The reference's attack registry.
 
     Args:
       exact_jpeg: PIL's JPEG on the host instead of the device JPEG.
       nc_models: name -> codec; each name, sorted, is a "neural-compress"
         cell (none without codecs).
+      diffpure: a purifier ``fn(imgs01, steps, generator=)``; five
+        "diffpure" cells (none without it).
     """
 
-    def __init__(self, exact_jpeg: bool = False, nc_models: Optional[dict] = None):
+    def __init__(self, exact_jpeg: bool = False, nc_models: Optional[dict] = None, diffpure=None):
         self.augs: List[AugEntry] = [
             ("gaussian-blur", _no_rng(lambda x, k: V.gaussian_blur(x, int(k))),
              [0, 1, 3, 5, 7, 9, 11, 13, 15, 17, 19]),
@@ -74,6 +78,9 @@ class AugmentationManager:
             for name, codec in self.compressors.items():
                 if codec.random_weights:
                     self.row_tags[("neural-compress", name)] = {"random_weights": True}
+        if diffpure is not None:
+            self.augs.append(("diffpure", lambda x, steps, generator: diffpure(x, float(steps), generator=generator),
+                              [0.01, 0.05, 0.1, 0.2, 0.3]))
 
     def _run_codec(self, x, name, generator):
         """One codec on the cell's generator; its exact bpp goes to

@@ -14,6 +14,7 @@ and carries ``random_weights``, which the attack manager puts on its rows.
 :func:`build_codec_bank` skips a codec whose weights are missing or whose
 weights file does not convert, with a message; any other error (a CUDA
 error, running out of memory, a bug, in a random build too) stops the run.
+A bank draws each random geometry once (:func:`shared_draws`).
 
 Weights in ``weights_dir``: ``{name}.msgpack`` (a converted tree, as the
 JAX package writes it, through the port's own msgpack reader), or
@@ -249,8 +250,35 @@ class NeuralCompression:
                 "allow_random=True to acknowledge.")
         n, m = cm.quality_nm(arch, q or 3)
         print(f"WARNING: codec {name} running with RANDOM weights — its rows measure destruction, not compression.")
-        return NeuralCompression(name, bridge.load_compressai(arch, init_compressai_params(0, arch, n, m), device),
-                                 random_weights=True)
+        tree = random_tree(("compressai", arch, n, m), lambda: init_compressai_params(0, arch, n, m))
+        return NeuralCompression(name, bridge.load_compressai(arch, tree, device), random_weights=True)
+
+
+_DRAWS: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def shared_draws():
+    """Within the block, :func:`random_tree` draws each random geometry
+    once: the bank's random codecs all come from seed 0, so q=1 and q=3 of
+    a compressai family, or SD-VAE and SDXL, are the same tree."""
+    global _DRAWS
+    outer = _DRAWS
+    _DRAWS = {} if outer is None else outer
+    try:
+        yield
+    finally:
+        _DRAWS = outer
+
+
+def random_tree(key, draw):
+    """``draw()``, or inside :func:`shared_draws` the tree already drawn for
+    ``key`` (its geometry). The loaders copy the tree, so sharing it is safe."""
+    if _DRAWS is None:
+        return draw()
+    if key not in _DRAWS:
+        _DRAWS[key] = draw()
+    return _DRAWS[key]
 
 
 def read_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -298,10 +326,11 @@ def build_codec_bank(names=None, weights_dir: Optional[str] = None, allow_random
     message rather than registered at random; any other error, a random
     build's included, stops the run."""
     bank = {}
-    for name in names or REFERENCE_CODEC_NAMES:
-        try:
-            bank[name] = NeuralCompression.from_name(name, weights_dir=weights_dir, allow_random=allow_random,
-                                                     device=device)
-        except (RandomWeightsError, CheckpointLayoutError) as e:
-            print(f"skipping codec {name}: {type(e).__name__}: {e}")
+    with shared_draws():
+        for name in names or REFERENCE_CODEC_NAMES:
+            try:
+                bank[name] = NeuralCompression.from_name(name, weights_dir=weights_dir, allow_random=allow_random,
+                                                         device=device)
+            except (RandomWeightsError, CheckpointLayoutError) as e:
+                print(f"skipping codec {name}: {type(e).__name__}: {e}")
     return bank

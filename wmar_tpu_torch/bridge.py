@@ -26,6 +26,10 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
   an HWIO kernel becomes a Conv2d's OIHW weight (a ConvTranspose2d's
   unflipped), a ``[in, out]`` matrix a Linear's weight
   (:func:`load_compressai`, :func:`load_kl_vae`, :func:`load_dcae`).
+* DiffPure's ADM UNet takes its Flax tree by :func:`load_adm_unet` (conv
+  kernels HWIO, Dense kernels ``[in, out]``; :func:`adm_unet_tree` is the
+  inverse); the FID InceptionV3 the JAX package's ``convert_inception``
+  tree by :func:`load_inception`.
 * A JAX ``KVCache`` (``k``, ``v``), ``QuantKVCache`` (``k``, ``v``,
   ``k_scale``, ``v_scale``), ``PackedQuantKVCache`` or
   ``Packed4QuantKVCache`` (``kv``, ``scale``) becomes the port's.
@@ -198,15 +202,20 @@ def _flax_state(model) -> Dict[str, torch.Tensor]:
 def load_flax(model, variables: Dict):
     """Copy a Flax tree (``{"params": ...}`` or the inner dict; numpy or
     tensor leaves) into ``model``'s parameters and BatchNorm statistics,
-    casting to their dtype. Every tensor of the model needs a leaf."""
+    casting to their dtype: a conv ``kernel`` (HWIO) becomes an OIHW
+    ``weight``, a Dense ``kernel`` ``[in, out]`` a Linear's ``weight``.
+    Every tensor of the model needs a leaf."""
     params = variables.get("params", variables)
     own = _flax_state(model)
     seen = set()
     for path, leaf in flatten(params):
         mod, name = path.rsplit(".", 1) if "." in path else ("", path)
-        t = to_tensor(leaf)
+        # read only, so a writable numpy leaf is taken without a copy (552.8M parameters for DiffPure's UNet)
+        writable = isinstance(leaf, np.ndarray) and leaf.flags.writeable and leaf.flags.c_contiguous \
+            and leaf.dtype.name != "bfloat16"
+        t = torch.from_numpy(leaf) if writable else to_tensor(leaf)
         if name == "kernel":
-            key, t = f"{mod}.weight", t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+            key, t = f"{mod}.weight", t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T  # HWIO -> OIHW, [in, out]
         elif name in _FLAX_TO_TORCH:
             key = f"{mod}.{_FLAX_TO_TORCH[name]}"
         else:
@@ -692,3 +701,57 @@ def load_dcae(cfg, tree: Dict, device="cpu"):
     from wmar_tpu_torch.augmentations.dcae import DCAE
 
     return _codec_module(lambda: DCAE(cfg), tree, device)
+
+
+# ---------------------------------------------------------------------------
+# DiffPure's ADM UNet and the FID InceptionV3
+# ---------------------------------------------------------------------------
+
+
+def adm_unet_tree(model) -> Dict:
+    """An ``ADMUNet``'s Flax tree (the inverse of :func:`load_adm_unet`):
+    conv weights as HWIO ``kernel``, Linear weights as ``[in, out]``
+    ``kernel``, GroupNorm weights as ``scale``. Leaves are tensors on the
+    model's device (meta tensors for a model built on the meta device)."""
+    tree: Dict = {}
+    for key, t in model.state_dict(keep_vars=True).items():
+        mod, name = key.rsplit(".", 1)
+        t = t.detach()
+        if name == "weight":
+            name, t = ("kernel", t.permute(2, 3, 1, 0)) if t.dim() == 4 else ("kernel", t.T) if t.dim() == 2 \
+                else ("scale", t)
+        node = tree
+        for part in mod.split("."):
+            node = node.setdefault(part, {})
+        node[name] = t.contiguous()
+    return tree
+
+
+@torch.no_grad()
+def load_adm_unet(variables: Dict, cfg=None, device="cpu"):
+    """An ``ADMUNet`` of ``cfg`` (default ``GUIDED_DIFFUSION_256_UNCOND``)
+    on ``device`` from its Flax tree (``convert_adm_unet``'s output or a
+    ``.msgpack``'s; numpy or tensor leaves), built on the meta device first
+    so no weight is drawn. The attention's ``qkv`` keeps the tree's
+    ``[q, k, v][head][head_dim]`` rows, the module's own layout."""
+    from wmar_tpu_torch.augmentations.diffpure import GUIDED_DIFFUSION_256_UNCOND, ADMUNet
+
+    with torch.device("meta"):
+        model = ADMUNet(cfg or GUIDED_DIFFUSION_256_UNCOND)
+    return load_flax(model.to_empty(device=device), variables).eval()
+
+
+def load_inception(params: Dict, device="cpu"):
+    """The FID InceptionV3 on ``device`` from the JAX package's converted
+    tree (``convert_inception``: per BasicConv2d ``kernel`` HWIO, ``scale``,
+    ``bias``, ``mean``, ``var``), at the tree's widths."""
+    from wmar_tpu_torch.eval.fid import FIDInceptionV3
+
+    names = {"kernel": "conv.weight", "scale": "bn.weight", "bias": "bn.bias", "mean": "bn.running_mean",
+             "var": "bn.running_var"}
+    sd = {}
+    for path, leaf in flatten(params):
+        prefix, name = path.rsplit(".", 1)
+        t = to_tensor(leaf, torch.float32)
+        sd[f"{prefix}.{names[name]}"] = t.permute(3, 2, 0, 1) if name == "kernel" else t
+    return FIDInceptionV3.from_state_dict(sd, device)

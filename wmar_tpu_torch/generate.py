@@ -26,7 +26,12 @@ neural codecs (the compressai zoo, three KL-VAEs, DC-AE; one
 from ``--nc_weights_dir``; their published weights are not in the
 repository, so without them the bank is refused unless ``--nc_allow_random
 true`` builds random codecs at the published widths (rows tagged
-``random_weights``). ``--wm_torch_compat true`` draws the reference's greenlists bit
+``random_weights``). ``--include_diffpure true --diffpure_weights FILE``
+adds DiffPure's five cells (steps 0.01 to 0.3) with the ADM UNet at
+``GUIDED_DIFFUSION_256_UNCOND``'s width, on ``--device``: FILE is
+``256x256_diffusion_uncond.pt`` (``.pt``/``.pth``, guided-diffusion's
+layout) or a converted ``.msgpack``; without a file the run is refused, as
+in JAX. ``--wm_torch_compat true`` draws the reference's greenlists bit
 for bit from a table; ``--wm_seed_strategy fixed --wm_split_strategy
 clustering`` takes the clustering split. ``--tiny`` models have 128 codes
 (the JAX CLI's have 64), all alive, so both of these run on them too.
@@ -47,8 +52,9 @@ slots) the plain attention runs.
 
 The flags keep ``generate.py``'s names. ``--device`` (default ``cuda``)
 names the device outright: without a CUDA card the default fails rather
-than moving to the CPU, and the tests pass ``--device cpu``. Flags whose
-paths are not ported yet exit with the ROADMAP item that ports them.
+than moving to the CPU, and the tests pass ``--device cpu``. Multi-GPU
+flags, which are not ported yet, exit with the ROADMAP item that ports
+them.
 Without ``--tiny`` or ``--modelpath`` the model runs at its published widths
 with random weights drawn from ``--seed``. For Taming that means the 1.4B
 cin_transformer (48 layers, width 1664) and the f16 ImageNet VQGAN; for
@@ -83,11 +89,6 @@ import torch
 from wmar_tpu_torch import bridge
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-_NOT_PORTED = {
-    "include_diffpure": "DiffPure (ROADMAP queue 1, item 12b)",
-    "diffpure_weights": "DiffPure (ROADMAP queue 1, item 12b)",
-}
 
 
 def str2bool(v):
@@ -210,9 +211,6 @@ def run_interleaved(args, wrapper, apply_wm: bool):
 
 
 def _refuse_unported(args) -> None:
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) not in (None, False, "none"):
-            raise SystemExit(f"--{name}: {what} is not ported yet")
     if any(getattr(args, f) != 1 for f in ("dp", "tp", "sp", "pp")):
         raise SystemExit("--dp/--tp/--sp/--pp: multi-GPU runs are not ported yet (ROADMAP queue 1, item 14)")
 
@@ -453,7 +451,16 @@ def main(argv=None):
                     "--include_neural_compress was set but no codec could be built; provide --nc_weights_dir with "
                     "converted checkpoints or pass --nc_allow_random true to acknowledge random-weight destruction "
                     "slots.")
-        aug_manager = AugmentationManager(exact_jpeg=args.exact_jpeg, nc_models=nc_models)
+        diffpure = None
+        if args.include_diffpure:
+            if not args.diffpure_weights:
+                raise SystemExit(
+                    "--include_diffpure requires --diffpure_weights (256x256_diffusion_uncond.pt or a converted "
+                    "msgpack); a random-weight purifier is not DiffPure.")
+            from wmar_tpu_torch.augmentations.diffpure import GUIDED_DIFFUSION_256_UNCOND, DiffPure, load_adm_weights
+
+            diffpure = DiffPure(load_adm_weights(args.diffpure_weights, GUIDED_DIFFUSION_256_UNCOND, device))
+        aug_manager = AugmentationManager(exact_jpeg=args.exact_jpeg, nc_models=nc_models, diffpure=diffpure)
     sync_manager = None
     if args.sync:
         from wmar_tpu_torch.sync.manager import SyncManager
