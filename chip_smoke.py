@@ -9,7 +9,7 @@ phases:
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
    one nvcc per source, in parallel), print the build time, the card's
    name and power limit, and the TF32 switches (both off, so float32
-   matmuls and convolutions are exact; phases 9 and 14 alone run at their
+   matmuls and convolutions are exact; phases 9 and 15 alone run at their
    entry points' own precision);
 2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
    slots the tiled kernel of #3/#4 without masks) at the decode shapes of
@@ -87,8 +87,11 @@ phases:
    behind the live ``key_mask``; with two images that cache passes 2048
    slots, so every forward after the prefill takes the flash-decode
    kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
-   (kernel #6), exactly 2243 forwards x 32 layers = 71,776 launches each and
-   none of any other attention kernel; checks the tree the run wrote
+   (kernel #6), at half depth (the first 16 of the 32 layers,
+   :func:`first_layers`, for the script's time; #5 and #6 keep their
+   full-depth shapes in phase 2), exactly 2243 forwards x 16 layers =
+   35,888 launches each and none of any other attention kernel; checks the
+   tree the run wrote
    (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
    ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
    image segment 1024 image tokens, a 512 px PNG, both p-values in [0, 1]
@@ -196,9 +199,13 @@ phases:
    frames, Maryland on streams 0-8 (delta 4, gamma 0.25): (a) a generation
    on the packed cache (kernel #2); (b) ``audio_eval.evaluate`` with the
    flags of ``python -m wmar_tpu_torch.audio_eval --cache_dtype packed4
-   --mimi_compression``: generation on the packed4 cache (kernel #1), Mimi
-   decode, the whole audio grid (MP3 where libmp3lame loads, the Mimi round
-   trip), re-encode, scoring, ``results.json``; (c) a ``--wm_method none``
+   --mimi_compression --encodec_weight E --dac_weight D --save_audio``, E
+   and D a random ``ENCODEC_24K`` (HF's layout) and ``DAC_24K``
+   (descript's, weight_g / weight_v) written by the port's writers:
+   generation on the packed4 cache (kernel #1), Mimi decode, the whole
+   audio grid (MP3 where libmp3lame loads, the Mimi, EnCodec and DAC round
+   trips: 43 cells on the card), re-encode, scoring, ``results.json`` and
+   8 WAVs; (c) a ``--wm_method none``
    control on the packed cache. Gates: exactly 32 layers x 65 loop frames
    launches of the cache's kernel a generation and none of any other, every
    watermarked audio stream's own tokens at Maryland p < 1e-6 in (a) and
@@ -207,7 +214,22 @@ phases:
    a frame (``torch.profiler`` over 8 frames), the launches, whether MP3
    ran and the record count; then ``python -m wmar_tpu_torch.audio_eval
    --tiny`` once on the card;
-14. DiffPure (``phase_diffpure``), at the entry point's precision (cuDNN
+14. audio sync and codecs (``phase_audio_sync``), on phase 13's models and
+   a random ``AUDIOSEAL_16B`` written as audioseal's two ``.pth`` files:
+   (a) ``audio_eval.evaluate`` with ``--wm_sync --sync_generator_ckpt G
+   --sync_detector_ckpt D --sync_alpha 0.5 --eval_aug speed`` on the packed
+   cache (kernel #2): exactly 32 x 65 launches, every record's
+   ``sync_score`` finite in [0, 1], the inverted rows with their
+   (speed-up, shift) printed; (b) ``python -m
+   wmar_tpu_torch.audio.eval_audioseal`` (``main``) with G and D over the
+   8 WAVs of phase 13's (b), the whole grid: 8 CSV rows a cell (40 cells
+   without libmp3lame), scores and TPRs in [0, 1]; (c) on a 1 s clip,
+   AudioSeal's watermark and presence and the EnCodec and DAC round trips
+   against CPU copies, TF32 off: within 1e-3 of the output's scale, at most
+   1e-3 of the codes flipped, each decoder fed the CPU's codes; (d) ms by
+   CUDA events at 8 x 5.12 s of ``get_watermark``, ``detect`` and each
+   round trip, the host search's seconds a row, peak GiB;
+15. DiffPure (``phase_diffpure``), at the entry point's precision (cuDNN
    TF32 on, matmuls float32): a random ADM UNet at
    ``GUIDED_DIFFUSION_256_UNCOND``'s width (552.8M parameters, every layer
    drawn, the zero-initialised ones too) written as ``adm_random.pt`` in
@@ -225,10 +247,10 @@ phases:
    time). Prints ms a UNet call at batch 1, 2 and 8 (CUDA events, eager)
    and at the run's batch replayed from DiffPure's CUDA graph, launches an
    eager call, seconds a cell, peak GiB;
-15. FID (``phase_fid``): the entry point ``python -m
+16. FID (``phase_fid``): the entry point ``python -m
    wmar_tpu_torch.eval.fid`` with random full-width FID-Inception weights in
    torchvision's layout (positive BatchNorm variances), TF32 off, on phase
-   14's tree (69 PNGs at 256 px) against 64 synthetic 512 px PNGs (the
+   15's tree (69 PNGs at 256 px) against 64 synthetic 512 px PNGs (the
    resize shrinks: JAX fault (i)), then ``--save_stats`` and the ``.npz``
    against the tree itself. Gates: the FID finite and >= 0, FID(tree, its
    own statistics) ~ 0, the ``.npz`` equal to the statistics, pool3
@@ -245,6 +267,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import sys
 import tempfile
@@ -1314,8 +1337,8 @@ def phase_interleaved_4k(device, wrapper, prompt: str = "a cat", cache_budget: i
 
 def first_layers(wrapper, n_layers: int):
     """A view of a Chameleon wrapper that runs its first ``n_layers``
-    decoder layers only (the same tensors): the 4096-slot sampler phase runs
-    at half depth so that the script keeps its time."""
+    decoder layers only (the same tensors): both interleaved phases run at
+    half depth so that the script keeps its time."""
     import copy
     import dataclasses
 
@@ -2410,8 +2433,12 @@ def phase_audio(device, workdir: str) -> dict:
 
     runs = {}
     _, audio_a, runs["packed"] = generation("packed", "packed", wm, 42)
+    t = time.perf_counter()
+    codec_files = write_codec_files(device, workdir)
+    files_s = time.perf_counter() - t
     args = audio_eval.get_parser().parse_args(["--output_dir", f"{workdir}/audio_eval", "--cache_dtype", "packed4",
-                                               *AUDIO_FLAGS])
+                                               "--encodec_weight", codec_files["encodec"][1], "--dac_weight",
+                                               codec_files["dac"][1], "--save_audio", *AUDIO_FLAGS])
     reset_launches()
     ev = audio_eval.evaluate(args, cfg, params, mimi)
     counts = launches()
@@ -2432,8 +2459,12 @@ def phase_audio(device, workdir: str) -> dict:
         raise AssertionError(f"audio control: median p-value {np.median(p_c)} not above {AUDIO_CONTROL_MEDIAN_P}")
     records = ev["records"]
     n_cells = ev["cells"]
-    if len(records) != n_cells * AUDIO_BATCH * cfg.n_audio_streams:
-        raise AssertionError(f"audio eval: {len(records)} records for {n_cells} cells")
+    if len(records) != n_cells * AUDIO_BATCH * cfg.n_audio_streams or ev["augs"][-2:] != ["encodec-compression",
+                                                                                        "dac-compression"]:
+        raise AssertionError(f"audio eval: {len(records)} records for {n_cells} cells of {ev['augs']}")
+    wavs = sorted(n for n in os.listdir(f"{workdir}/audio_eval") if n.endswith(".wav"))
+    if wavs != [f"gen_{b:03d}.wav" for b in range(AUDIO_BATCH)]:
+        raise AssertionError(f"audio eval --save_audio wrote {wavs}")
     for r in records:
         vals = [r["token_match"], r["sisnr"], r["stoi"]] + ([r["pvalue"]] if r["pvalue"] is not None else [])
         if r["pvalue"] is None or not (np.isfinite(vals).all() and 0 <= r["pvalue"] <= 1):
@@ -2450,9 +2481,9 @@ def phase_audio(device, workdir: str) -> dict:
            "records": len(records), "mp3": mp3, "max_p": {"packed": float(p_a.max()), "packed4": float(p_b.max())},
            "control_median_p": float(np.median(p_c)), "profile": profile,
            "median_identity_token_match": float(np.median([r["token_match"] for r in records
-                                                           if r["aug"] == "identity"]))}
-    del params, mimi
-    torch.cuda.empty_cache()
+                                                           if r["aug"] == "identity"])),
+           "cells": n_cells, "codec_files_s": files_s,
+           "models": {"moshi": params, "mimi": mimi, **{k: m for k, (m, _) in codec_files.items()}}}
     t = time.perf_counter()
     tiny = audio_eval.main(["--tiny", "--output_dir", f"{workdir}/audio_eval_tiny"])
     if not tiny or not all(r["pvalue"] is None or 0 <= r["pvalue"] <= 1 for r in tiny):
@@ -2468,11 +2499,165 @@ def phase_audio(device, workdir: str) -> dict:
           + (f", {profile['launches_per_frame']:.0f} launches a frame" if dev_ms is not None else "")
           + f"; kernel launches {total} ({per_gen} a generation); largest p-value of the watermarked streams "
           f"{out['max_p']}; control median p {out['control_median_p']:.3f}; grid + decode {ev['grid_s']:.1f} s, "
-          f"{len(records)} records, mp3 {'ran' if mp3 else 'did not run (libmp3lame did not load)'}; identity "
+          f"{n_cells} cells with EnCodec and DAC (random files written in {files_s:.1f} s), {len(records)} records, "
+          f"mp3 {'ran' if mp3 else 'did not run (libmp3lame did not load)'}; identity "
           f"token match median {out['median_identity_token_match']:.3f} (random Mimi); --tiny CLI on the card "
           f"{out['tiny_cli_s']:.1f} s, {len(tiny)} records")
     for k in profile["top"]:
         print(f"  {k['device_ms_per_frame']:8.3f} ms  {k['calls_per_frame']:7.1f} calls  {k['name']}")
+    return out
+
+
+def write_codec_files(device, workdir: str) -> dict:
+    """Random EnCodec (``ENCODEC_24K``, 14.8M parameters) and DAC
+    (``DAC_24K``, 76.6M) drawn on the card and written by the port's writers
+    in the published layouts: HF's ``facebook/encodec_24khz`` (weight norm in
+    torch's ``parametrizations`` naming) and descript's (``weight_g`` /
+    ``weight_v``). ``{kind: (module, path)}``."""
+    from wmar_tpu_torch.audio import codecs
+
+    g = torch.Generator(device=device).manual_seed(SEED + 20)
+    enc = codecs.random_codec(lambda: codecs.Encodec(codecs.ENCODEC_24K), g, device)
+    dac = codecs.random_codec(lambda: codecs.DAC(codecs.DAC_24K), g, device)
+    paths = {"encodec": f"{workdir}/encodec_24khz_random.pth", "dac": f"{workdir}/dac_24khz_random.pth"}
+    torch.save(codecs.encodec_state_dict(enc, "hf", "parametrizations"), paths["encodec"])
+    torch.save(codecs.dac_state_dict(dac, "weight_norm"), paths["dac"])
+    return {"encodec": (enc, paths["encodec"]), "dac": (dac, paths["dac"])}
+
+
+AUDIO_SYNC_ALPHA = "0.5"  # wmar_audio_eval.py's default --sync_alpha
+AUDIO_CLIP = 24000  # (c): one 1 s clip at 24 kHz
+
+
+def _events_ms(fn, x, reps: int = 3) -> float:
+    """Median CUDA-event ms of ``fn(x)`` over ``reps`` calls after a warm-up."""
+    with torch.no_grad():
+        fn(x)
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(x)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_audio_sync(device, workdir: str, models: dict) -> dict:
+    """The audio eval's sync and codec layer on the audio phase's models
+    (MOSHI_V01 random bf16, MIMI_V0_1, the random EnCodec and DAC), with a
+    random ``AUDIOSEAL_16B`` written as the two ``.pth`` files of the
+    audioseal layout. (a) ``audio_eval.evaluate`` with ``--wm_sync
+    --sync_generator_ckpt G --sync_detector_ckpt D --sync_alpha 0.5
+    --eval_aug speed`` on the packed cache (kernel #2): exactly 32 x 65
+    launches, every record's ``sync_score`` finite in [0, 1], the inverted
+    rows and their (speed-up, shift) printed; (b) ``python -m
+    wmar_tpu_torch.audio.eval_audioseal`` (``main``) over the 8 WAVs the
+    audio phase saved, the whole grid: 8 CSV rows a cell, scores and TPRs in
+    [0, 1]; (c) on a 1 s clip, AudioSeal's watermark and presence and the
+    codecs' round trips on the card against CPU copies (TF32 off): within
+    1e-3 of the output's scale, at most 1e-3 of the codes flipped, the
+    decoders fed the CPU's codes; (d) CUDA-event ms at 8 x 5.12 s of
+    ``get_watermark``, ``detect`` and each round trip, the host search's
+    seconds a row, the phase's peak GiB."""
+    import copy
+    import csv
+
+    from wmar_tpu_torch import audio_eval
+    from wmar_tpu_torch.audio import audioseal, codecs, eval_audioseal
+    from wmar_tpu_torch.audio import lm as audio_lm
+
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = audio_lm.MOSHI_V01
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    seal = codecs.random_codec(lambda: audioseal.AudioSealModel(audioseal.AUDIOSEAL_16B), g, device)
+    gpath, dpath = f"{workdir}/audioseal_wm_16bits_random.pth", f"{workdir}/audioseal_detector_16bits_random.pth"
+    for sd, path in zip(audioseal.audioseal_state_dicts(seal), (gpath, dpath)):
+        torch.save(sd, path)
+    out = {}
+
+    # (a) the sync watermark through the audio eval, on the packed cache
+    args = audio_eval.get_parser().parse_args(
+        ["--output_dir", f"{workdir}/audio_sync", "--cache_dtype", "packed", "--wm_sync", "--sync_generator_ckpt",
+         gpath, "--sync_detector_ckpt", dpath, "--sync_alpha", AUDIO_SYNC_ALPHA, "--eval_aug", "speed",
+         *AUDIO_FLAGS])
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:  # a line per inverted row
+        ev = audio_eval.evaluate(args, cfg, models["moshi"], models["mimi"])
+    out["eval_s"] = time.perf_counter() - t
+    out["launches"] = counts = launches()
+    per_gen = cfg.temporal_cfg().n_layers * cfg.total_steps(AUDIO_STEPS)
+    _check_launches(device, counts, {"packed_decode_attention_q8": per_gen}, "audio sync eval")
+    records, inverted = ev["records"], ev["sync_inverted"]
+    if ev["augs"] != ["identity", "speed"] or len(records) != ev["cells"] * AUDIO_BATCH * cfg.n_audio_streams:
+        raise AssertionError(f"audio sync eval: {len(records)} records of {ev['augs']}")
+    for r in records:
+        if not (np.isfinite(r["sync_score"]) and 0 <= r["sync_score"] <= 1 and 0 <= r["pvalue"] <= 1):
+            raise AssertionError(f"audio sync eval: record {r}")
+    if len(inverted) != sum(line.startswith("sync:") for line in log.getvalue().splitlines()):
+        raise AssertionError("audio sync eval: the inverted rows and the printed ones differ")
+    out.update(records=len(records), inverted=len(inverted), rows=ev["cells"] * AUDIO_BATCH,
+               search_s_per_row=ev["sync_search_s"] / max(1, len(inverted)),
+               sync_scores=sorted({round(r["sync_score"], 4) for r in records}))
+    print(f"audio sync: evaluate --wm_sync --eval_aug speed on the packed cache in {out['eval_s']:.1f} s "
+          f"(generation {ev['generate_s']:.1f} s, grid {ev['grid_s']:.1f} s), {len(records)} records; inverted "
+          f"{len(inverted)} of {out['rows']} rows, host search {out['search_s_per_row']:.3f} s a row; (speed-up, "
+          f"shift): {sorted({(round(v[3], 3), v[4]) for v in inverted})}; sync scores {out['sync_scores'][:8]}")
+
+    # (b) eval_audioseal over the audio phase's 8 generated clips, the whole grid
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows, summary = eval_audioseal.main(
+            ["--audio_dir", f"{workdir}/audio_eval", "--output_dir", f"{workdir}/audioseal_eval", "--generator_ckpt",
+             gpath, "--detector_ckpt", dpath, "--batch_size", str(AUDIO_BATCH)])
+    out["eval_audioseal_s"] = time.perf_counter() - t
+    with open(f"{workdir}/audioseal_eval/audioseal_eval_results.csv") as f:
+        csv_rows = list(csv.DictReader(f))
+    cells = {(r["aug_name"], r["strength"]) for r in csv_rows}
+    if not (len(csv_rows) == len(rows) == AUDIO_BATCH * len(cells) == AUDIO_BATCH * len(summary)
+            and len(cells) in (40, 43)
+            and all(0 <= float(r[k]) <= 1 for r in csv_rows for k in ("score_wm", "score_orig"))
+            and all(0 <= v <= 1 for v in summary.values())):
+        raise AssertionError(f"eval_audioseal: {len(csv_rows)} CSV rows, {len(cells)} cells, TPRs {summary}")
+    out["eval_audioseal_cells"] = len(cells)
+    print(f"audio sync: eval_audioseal over {AUDIO_BATCH} clips, {len(cells)} cells, {len(csv_rows)} rows in "
+          f"{out['eval_audioseal_s']:.1f} s; TPR@1%FPR identity {summary['identity/0']:.3f}, median "
+          f"{float(np.median(list(summary.values()))):.3f}")
+
+    # (c) card against CPU on a 1 s clip
+    x = torch.rand((1, AUDIO_CLIP, 1), generator=torch.Generator().manual_seed(SEED + 22)) * 1.6 - 0.8
+    xd = x.to(device)
+    errs = {}
+    cpu_seal = copy.deepcopy(seal).cpu()
+    errs["audioseal watermark"] = _codec_rel(seal.get_watermark(xd), cpu_seal.get_watermark(x))
+    errs["audioseal presence"] = _codec_rel(seal.detect(xd), cpu_seal.detect(x))
+    flips = {}
+    with torch.no_grad():
+        for kind in ("encodec", "dac"):
+            model = models[kind]
+            cpu = copy.deepcopy(model).cpu()
+            codes_cpu = cpu.encode(x)
+            flips[kind] = float((model.encode(xd).cpu() != codes_cpu).float().mean())
+            errs[f"{kind} decode"] = _codec_rel(model.decode(codes_cpu.to(device)), cpu.decode(codes_cpu))
+            if flips[kind] == 0:
+                errs[f"{kind} round trip"] = _codec_rel(model(xd), cpu(x))
+    if not (max(errs.values()) <= CODEC_REL_TOL and max(flips.values()) <= CODEC_FLIP_SHARE):
+        raise AssertionError(f"audio sync: the card against the CPU {errs}, flipped codes {flips}")
+    out.update(card_vs_cpu=errs, flipped=flips)
+    print("audio sync: card against CPU on a 1 s clip: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; flipped codes {flips}")
+
+    # (d) times at the eval's batch, 8 x 5.12 s
+    xb = torch.rand((AUDIO_BATCH, AUDIO_STEPS * 1920, 1), generator=g, device=device) * 1.6 - 0.8
+    out["ms"] = {"audioseal get_watermark": _events_ms(seal.get_watermark, xb),
+                 "audioseal detect": _events_ms(seal.detect, xb),
+                 "encodec round trip": _events_ms(models["encodec"], xb),
+                 "dac round trip": _events_ms(models["dac"], xb)}
+    out["peak_gib"] = _peak_gib(device)
+    print(f"audio sync: ms at {AUDIO_BATCH} x {AUDIO_STEPS * 1920} samples (CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["ms"].items()) + f"; peak {out['peak_gib']:.2f} GiB")
     return out
 
 
@@ -3079,7 +3264,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     chameleon = build_chameleon(device)
     paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
-    paths.append(timed("interleaved path", phase_interleaved, device, chameleon))
+    paths.append(timed("interleaved path", phase_interleaved, device,
+                       first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
     paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device,
                        first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
     del chameleon
@@ -3100,6 +3286,7 @@ def main() -> int:
         paths.append(timed("sync training", phase_sync_training, device, workdir))
         torch.cuda.empty_cache()
         paths.append(timed("audio", phase_audio, device, workdir))
+        paths.append(timed("audio sync and codecs", phase_audio_sync, device, workdir, paths[-1].pop("models")))
         torch.cuda.empty_cache()
         paths.append(timed("DiffPure", phase_diffpure, device, workdir))
         torch.cuda.empty_cache()

@@ -1184,3 +1184,42 @@ def test_fid_features_on_the_card_match_the_cpu(device):
         want = fid.compute_activations(cpu, x)
         got = fid.compute_activations(card, x)
         assert got.shape == (3, 2048) and abs(got - want).max() <= 1e-3 * abs(want).max()
+
+
+def _audio_models(kind):
+    """A random full-width AudioSeal (``AUDIOSEAL_16B``), EnCodec
+    (``ENCODEC_24K``) or DAC (``DAC_24K``) on the CPU, from a seed."""
+    from wmar_tpu_torch.audio import audioseal, codecs
+
+    build = {"audioseal": lambda: audioseal.AudioSealModel(audioseal.AUDIOSEAL_16B),
+             "encodec": lambda: codecs.Encodec(codecs.ENCODEC_24K), "dac": lambda: codecs.DAC(codecs.DAC_24K)}[kind]
+    return codecs.random_codec(build, torch.Generator().manual_seed(20))
+
+
+def _within_scale(got, want, tol=1e-3):
+    scale = float(want.abs().max())
+    assert scale > 0 and float((got.cpu() - want).abs().max()) <= tol * max(1.0, scale), (
+        float((got.cpu() - want).abs().max()), scale)
+
+
+@pytest.mark.parametrize("kind", ["audioseal", "encodec", "dac"])
+def test_audio_models_on_the_card_match_the_cpu(device, kind):
+    """AudioSeal's watermark and presence, and EnCodec's and DAC's codes,
+    decodes and round trips, at full width on a 1 s clip (24,000 samples),
+    float32 (TF32 off): the card against a CPU copy within 1e-3 of the
+    output's scale; codes may differ at a near tie of the argmin (at most
+    1e-3 of them), and each decoder is fed the CPU's codes."""
+    cpu = _audio_models(kind)
+    card = copy.deepcopy(cpu).to(device)
+    x = torch.rand((2, 24000, 1), generator=torch.Generator().manual_seed(21)) * 1.6 - 0.8
+    with torch.no_grad():
+        if kind == "audioseal":
+            _within_scale(card.get_watermark(x.to(device)), cpu.get_watermark(x))
+            _within_scale(card.detect(x.to(device)), cpu.detect(x))
+            return
+        codes = cpu.encode(x)
+        got = card.encode(x.to(device)).cpu()
+        assert got.shape == codes.shape and float((got != codes).float().mean()) <= 1e-3
+        _within_scale(card.decode(codes.to(device)), cpu.decode(codes))
+        if torch.equal(got, codes):
+            _within_scale(card(x.to(device)), cpu(x))

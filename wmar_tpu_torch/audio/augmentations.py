@@ -4,7 +4,8 @@ Port of ``wmar_tpu.audio.augmentations``: speed, echo, white and pink
 noise, FIR low/high/band-pass and smoothing, amplitude, up-down
 resampling, time shift and temporal crop at the reference's strengths,
 MP3 through the port's own ctypes bridge to ``libmp3lame``
-(:mod:`wmar_tpu_torch.native.mp3`, on the host) and a Mimi round trip.
+(:mod:`wmar_tpu_torch.native.mp3`, on the host), and the Mimi, EnCodec and
+DAC round trips.
 Everything but MP3 runs on the waveform's device.
 
 The stochastic attacks draw from a ``torch.Generator`` on that device, or
@@ -195,11 +196,14 @@ class MP3Compression:
         return torch.from_numpy(out[..., None] if chan else out).to(audio.device)
 
 
-def get_validation_augs(sample_rate: int = 24000, frame_size: int = 1920,
-                        mimi_codec=None) -> List[Tuple[str, object, list]]:
+def get_validation_augs(sample_rate: int = 24000, frame_size: int = 1920, mimi_codec=None, encodec=None,
+                        dac=None) -> List[Tuple[str, object, list]]:
     """The audio eval grid: ``(name, fn(x, param, generator), params)`` for
     every family at the reference's strengths, MP3 at 16/64/128 kbps where
-    ``libmp3lame`` loads, and ``mimi-compression`` with a ``mimi_codec``.
+    ``libmp3lame`` loads, then ``mimi-compression`` with a ``mimi_codec``,
+    ``encodec-compression`` and ``dac-compression`` with an ``encodec`` /
+    ``dac`` (:class:`wmar_tpu_torch.audio.codecs.CodecCompression`), one
+    cell each.
     ``time-shift`` rolls the clip by 10, 20 and 40 ms: the shift over the
     clip's length ``x.shape[1]``. (JAX's grid divides by ``x.shape[-1]``,
     the channel axis of ``[B, T, 1]``, where the reference's ``[B, C, T]``
@@ -231,4 +235,8 @@ def get_validation_augs(sample_rate: int = 24000, frame_size: int = 1920,
         augs.append(("mp3-compression", lambda x, p, g: mp3(x, p), [16, 64, 128]))
     if mimi_codec is not None:
         augs.append(("mimi-compression", lambda x, p, g: mimi_codec(x), [0.0]))
+    if encodec is not None:
+        augs.append(("encodec-compression", lambda x, p, g: encodec(x), [0.0]))
+    if dac is not None:
+        augs.append(("dac-compression", lambda x, p, g: dac(x), [0.0]))
     return augs

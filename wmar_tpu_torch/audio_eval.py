@@ -20,9 +20,16 @@ hand-written CUDA kernels #2 (``packed``) and #1 (``packed4``) there.
 Each attack's generator is seeded from ``--seed`` and ``zlib.crc32`` of
 the attack's name, so stored p-values repeat across runs.
 
-Not ported yet (ROADMAP queue 1, item 13): the AudioSeal sync watermark
-(``--wm_sync``, ``--sync_*``) and the EnCodec / DAC codec attacks
-(``--encodec_weight``, ``--dac_weight``); those flags exit with a message.
+``--encodec_weight`` / ``--dac_weight`` add the EnCodec and DAC round trips
+to the grid (published ``.pth`` / ``.safetensors``: HF or encodec-package
+EnCodec, descript DAC). ``--wm_sync`` gates an AudioSeal watermark
+(``--sync_generator_ckpt`` / ``--sync_detector_ckpt``, or ``--tiny``'s
+random one) with the square-wave sync pattern at ``--sync_alpha`` after the
+Mimi decode; each attacked batch is then detected, a row whose mean
+presence lies within 0.25 of 0.5 has its speed-up and shift estimated (on
+the host) and inverted, every row is re-encoded on its own and the codes
+cropped to the shortest, and each record carries its row's
+``sync_score``.
 """
 
 from __future__ import annotations
@@ -37,15 +44,6 @@ import zlib
 
 import numpy as np
 import torch
-
-_NOT_PORTED = {
-    "wm_sync": "the AudioSeal sync watermark (audio/audioseal.py, audio/sync.py; ROADMAP queue 1, item 13)",
-    "sync_generator_ckpt": "the AudioSeal sync watermark (audio/audioseal.py, audio/sync.py; ROADMAP queue 1, item 13)",
-    "sync_detector_ckpt": "the AudioSeal sync watermark (audio/audioseal.py, audio/sync.py; ROADMAP queue 1, item 13)",
-    "sync_alpha": "the AudioSeal sync watermark (audio/audioseal.py, audio/sync.py; ROADMAP queue 1, item 13)",
-    "encodec_weight": "the EnCodec codec attack (audio/codecs.py; ROADMAP queue 1, item 13)",
-    "dac_weight": "the DAC codec attack (audio/codecs.py; ROADMAP queue 1, item 13)",
-}
 
 TINY_MOSHI = dict(n_audio_streams=4, audio_vocab=64, text_vocab=64, dim=64, n_layers=2, n_heads=2, dep_dim=32,
                   dep_layers=1, dep_heads=2, delays=(0, 1, 1, 1))
@@ -78,8 +76,9 @@ def get_parser():
     p.add_argument("--top_k", type=int, default=250)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_augs", action="store_true")
-    p.add_argument("--encodec_weight", type=str, default=None, help="not ported yet")
-    p.add_argument("--dac_weight", type=str, default=None, help="not ported yet")
+    p.add_argument("--encodec_weight", type=str, default=None,
+                   help="EnCodec 24k checkpoint for the codec-compression attack")
+    p.add_argument("--dac_weight", type=str, default=None, help="DAC 24k checkpoint for the codec-compression attack")
     p.add_argument("--mimi_compression", action="store_true",
                    help="add a Mimi round-trip codec attack (uses the loaded Mimi)")
     p.add_argument("--use_prompts", action="store_true",
@@ -92,17 +91,30 @@ def get_parser():
     p.add_argument("--save_tokens", action="store_true", help="write generated token streams as .npy into output_dir")
     p.add_argument("--mimi_weight_ori", type=str, default=None,
                    help="ORIGINAL (non-finetuned) Mimi for re-encode/detection: generation may use finetuned weights")
-    p.add_argument("--wm_sync", action="store_true", help="not ported yet")
-    p.add_argument("--sync_generator_ckpt", type=str, default=None, help="not ported yet")
-    p.add_argument("--sync_detector_ckpt", type=str, default=None, help="not ported yet")
-    p.add_argument("--sync_alpha", type=float, default=0.5, help="not ported yet")
+    p.add_argument("--wm_sync", action="store_true",
+                   help="gate an AudioSeal watermark with the square-wave sync pattern and invert speed/shift "
+                        "before re-encode")
+    p.add_argument("--sync_generator_ckpt", type=str, default=None,
+                   help="audioseal_wm_16bits checkpoint (random tiny with --tiny)")
+    p.add_argument("--sync_detector_ckpt", type=str, default=None, help="audioseal_detector_16bits checkpoint")
+    p.add_argument("--sync_alpha", type=float, default=0.5, help="sync watermark strength")
     return p
 
 
-def _refuse_unported(args, parser) -> None:
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) != parser.get_default(name):
-            raise SystemExit(f"--{name}: {what} is not ported yet")
+def build_sync_pattern(args, mimi_cfg, device):
+    """The AudioSeal-backed ``SyncPattern``: from the two checkpoints (3
+    frames of 1920 samples a half period), or with ``--tiny`` the JAX
+    package's tiny random AudioSeal with a half period of 2 Mimi frames."""
+    from wmar_tpu_torch.audio import audioseal
+    from wmar_tpu_torch.audio.sync import SyncPattern
+
+    if args.sync_generator_ckpt and args.sync_detector_ckpt:
+        return SyncPattern(audioseal.AudioSealModel.from_checkpoints(args.sync_generator_ckpt,
+                                                                     args.sync_detector_ckpt, device))
+    if not args.tiny:
+        raise SystemExit("--wm_sync needs --sync_generator_ckpt + --sync_detector_ckpt (or --tiny)")
+    model = audioseal.synthetic_model(audioseal.AUDIOSEAL_TINY, device=device)
+    return SyncPattern(model, frames_per_period=2, frame_size=mimi_cfg.hop_length)
 
 
 def load_moshi_params(path: str, cfg, device):
@@ -213,14 +225,22 @@ def evaluate(args, moshi_cfg, moshi_params, mimi, det_mimi=None) -> dict:
     "generate_s", "grid_s", "augs", "cells"}``: the records, the generated tokens
     (``[B, T]``, ``[B, K, T]``), the seconds of the generation and of the
     grid (the decode included), the grid's family names and its number of
-    (attack, param) cells."""
+    (attack, param) cells; with ``--wm_sync`` also ``"sync_inverted"``, the
+    ``(aug, param, row, speed-up, shift)`` of every inverted row, and
+    ``"sync_search_s"``, the host's seconds of their period search."""
     from wmar_tpu_torch.audio import lm as audio_lm
     from wmar_tpu_torch.audio import wm as audio_wm
     from wmar_tpu_torch.audio.augmentations import MimiCompression, get_validation_augs
+    from wmar_tpu_torch.audio.codecs import CodecCompression
     from wmar_tpu_torch.utils.metrics import pesq_metric, sisnr, stoi
 
     device = torch.device(args.device)
     det_mimi = mimi if det_mimi is None else det_mimi
+    # the sync model and the codecs load before the generation, so a missing file stops the run at once
+    sync_pattern = build_sync_pattern(args, mimi.cfg, device) if args.wm_sync else None
+    codecs = {} if args.no_augs else {
+        kind: CodecCompression.from_checkpoint(kind, path, device=device)
+        for kind, path in (("encodec", args.encodec_weight), ("dac", args.dac_weight)) if path}
     streams = tuple(int(s) for s in args.wm_streams.split(","))
     wm = None
     if args.wm_method != "none":
@@ -241,6 +261,8 @@ def evaluate(args, moshi_cfg, moshi_params, mimi, det_mimi=None) -> dict:
     text, audio_codes = gen.generate(args.steps, args.seed, batch=args.batch_size, prompt_codes=prompt_codes)
     t1 = _synced(device)
     pcm = mimi.decode(audio_codes)
+    if sync_pattern is not None:
+        pcm = sync_pattern.get_sync_wm(pcm, alpha=args.sync_alpha)
 
     os.makedirs(args.output_dir, exist_ok=True)
     if args.save_audio:
@@ -255,20 +277,40 @@ def evaluate(args, moshi_cfg, moshi_params, mimi, det_mimi=None) -> dict:
     if args.no_augs:
         augs = [("identity", lambda x, p, g: x, [0])]
     else:
-        augs = get_validation_augs(mimi_codec=MimiCompression(mimi) if args.mimi_compression else None)
+        augs = get_validation_augs(mimi_codec=MimiCompression(mimi) if args.mimi_compression else None, **codecs)
         if args.eval_aug:
             augs = [(n, f, ps) for n, f, ps in augs if n == args.eval_aug or n == "identity"]
             if len(augs) <= 1:
                 raise SystemExit(f"--eval_aug {args.eval_aug!r} not in the grid")
 
-    records = []
+    records, inverted, search_s = [], [], 0.0
     gen_codes = audio_codes.cpu()
     n_pcm = pcm.shape[1]
     for name, fn, params in augs:
         for param in params:
             g = torch.Generator(device).manual_seed(attack_seed(args.seed, name))
             attacked = fn(pcm, param, g)
-            re_codes = det_mimi.encode(attacked).cpu()
+            sync_scores = [None] * args.batch_size
+            if sync_pattern is None:
+                re_codes = det_mimi.encode(attacked).cpu()
+            else:
+                # where the sync is ambiguous (|mean - 0.5| < 0.25), estimate the speed-up and shift and invert
+                # them; every row is re-encoded on its own and the codes are cropped to the shortest
+                det_sig = sync_pattern.detect_signal(attacked)
+                rows = []
+                for b in range(args.batch_size):
+                    row = attacked[b:b + 1]
+                    sync_scores[b] = score = float(det_sig[b].mean())
+                    if abs(score - 0.5) < 0.25:
+                        ts = time.perf_counter()
+                        speedup, shift = sync_pattern.get_speedup_and_shift(det_sig[b])
+                        search_s += time.perf_counter() - ts
+                        row = sync_pattern.invert(row, speedup, shift)
+                        inverted.append((name, param, b, speedup, shift))
+                        print(f"sync: {name}/{param} b={b} score={score:.3f} speedup={speedup:.3f} shift={shift}")
+                    rows.append(det_mimi.encode(row).cpu())
+                n_min = min(r.shape[2] for r in rows)
+                re_codes = torch.cat([r[:, :, :n_min] for r in rows], dim=0)
             quality = [{"sisnr": sisnr(attacked[b, :n_pcm], pcm[b]),
                         "stoi": stoi(attacked[b, :n_pcm], pcm[b], fs=SAMPLE_RATE),
                         "pesq": pesq_metric(attacked[b, :n_pcm], pcm[b], fs=SAMPLE_RATE)}
@@ -289,22 +331,26 @@ def evaluate(args, moshi_cfg, moshi_params, mimi, det_mimi=None) -> dict:
                         pval = None
                     tl = min(n_re, gen_codes.shape[2])
                     tm = float((re_codes[b, s][:tl] == gen_codes[b, s][:tl]).to(torch.float32).mean())
-                    records.append({"aug": name, "param": param, "batch": b, "stream": s, "pvalue": pval,
-                                    "token_match": tm, **quality[b]})
+                    rec = {"aug": name, "param": param, "batch": b, "stream": s, "pvalue": pval, "token_match": tm,
+                           **quality[b]}
+                    if sync_scores[b] is not None:
+                        rec["sync_score"] = sync_scores[b]
+                    records.append(rec)
         print(f"aug {name} done")
     t2 = _synced(device)
 
     with open(os.path.join(args.output_dir, "results.json"), "w") as f:
         json.dump(records, f, indent=1)
     print(f"wrote {len(records)} records")
-    return {"records": records, "text": text, "audio": audio_codes, "generate_s": t1 - t0, "grid_s": t2 - t1,
-            "augs": [name for name, _, _ in augs], "cells": sum(len(params) for _, _, params in augs)}
+    out = {"records": records, "text": text, "audio": audio_codes, "generate_s": t1 - t0, "grid_s": t2 - t1,
+           "augs": [name for name, _, _ in augs], "cells": sum(len(params) for _, _, params in augs)}
+    if sync_pattern is not None:
+        out.update(sync_inverted=inverted, sync_search_s=search_s)
+    return out
 
 
 def main(argv=None):
-    parser = get_parser()
-    args = parser.parse_args(argv)
-    _refuse_unported(args, parser)
+    args = get_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is visible (pass --device cpu to run on the CPU)")

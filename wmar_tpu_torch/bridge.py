@@ -25,7 +25,11 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
   :func:`load_codec_tree` into modules whose child names follow the tree:
   an HWIO kernel becomes a Conv2d's OIHW weight (a ConvTranspose2d's
   unflipped), a ``[in, out]`` matrix a Linear's weight
-  (:func:`load_compressai`, :func:`load_kl_vae`, :func:`load_dcae`).
+  (:func:`load_compressai`, :func:`load_kl_vae`, :func:`load_dcae`). The
+  audio codecs and AudioSeal the same way, with 1-D kernels ``[K, I, O]``
+  and LSTMs (:func:`load_encodec`, :func:`load_dac`,
+  :func:`load_audioseal`); Moshi's LUT conditioners by
+  :func:`load_conditioners`.
 * DiffPure's ADM UNet takes its Flax tree by :func:`load_adm_unet` (conv
   kernels HWIO, Dense kernels ``[in, out]``; :func:`adm_unet_tree` is the
   inverse); the FID InceptionV3 the JAX package's ``convert_inception``
@@ -617,7 +621,10 @@ def load_codec_tree(module: torch.nn.Module, tree: Any, device=None, path: str =
     leaves) into ``module``, whose child names follow the tree's keys and
     whose lists follow its lists: an HWIO ``kernel`` becomes a Conv2d's OIHW
     ``weight`` (a ConvTranspose2d's ``[I, O, kh, kw]``, unflipped: the tree
-    holds it flipped for a dilated conv); a ``[in, out]`` matrix (bare, or
+    holds it flipped for a dilated conv), a ``[K, I, O]`` one a Conv1d's or
+    ConvTranspose1d's alike; an LSTM's list of ``{"w_ih", "w_hh", "b"}``
+    its ``weight_*_l{k}`` and ``bias_ih_l{k}`` (``bias_hh`` zero: ``b`` is
+    the sum of both); a ``[in, out]`` matrix (bare, or
     ``{"w", "b"}``) a Linear's weight; GroupNorm's ``scale`` its weight;
     other leaves keep their name and layout. Every tensor of the module
     needs a leaf (a module's ``OPTIONAL`` ones may be absent and become
@@ -625,13 +632,27 @@ def load_codec_tree(module: torch.nn.Module, tree: Any, device=None, path: str =
     shape ``ValueError``."""
     device = device or next(iter(module.parameters())).device
     nn = torch.nn
-    if isinstance(module, nn.Conv2d) or isinstance(module, nn.ConvTranspose2d):
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d)):
         k = to_tensor(tree["kernel"], torch.float32)
-        weight = k.flip(0, 1).permute(2, 3, 0, 1) if isinstance(module, nn.ConvTranspose2d) else k.permute(3, 2, 0, 1)
+        sp = tuple(range(k.dim() - 2))  # the spatial dims lead: [*K, I, O]
+        if isinstance(module, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
+            weight = k.flip(sp).permute(len(sp), len(sp) + 1, *sp)
+        else:
+            weight = k.permute(len(sp) + 1, len(sp), *sp)
         want = {"weight": weight, **({"bias": to_tensor(tree["bias"], torch.float32)} if "bias" in tree else {})}
         if set(tree) - {"kernel", "bias"}:
             raise KeyError(f"{path}: unexpected leaves {sorted(set(tree) - {'kernel', 'bias'})}")
         _codec_leaves(module, tree, want, path, device)
+    elif isinstance(module, nn.LSTM):
+        if len(tree) != module.num_layers:
+            raise KeyError(f"{path}: {len(tree)} LSTM layers against {module.num_layers} in the module")
+        for k, layer in enumerate(tree):  # {"w_ih" [in, 4H], "w_hh" [H, 4H], "b": b_ih + b_hh}
+            b = to_tensor(layer["b"], torch.float32)
+            for name, value in ((f"weight_ih_l{k}", to_tensor(layer["w_ih"], torch.float32).T),
+                                (f"weight_hh_l{k}", to_tensor(layer["w_hh"], torch.float32).T),
+                                (f"bias_ih_l{k}", b), (f"bias_hh_l{k}", torch.zeros_like(b))):
+                _codec_set(module, name, value, f"{path}.{k}", device)
+        module.flatten_parameters()
     elif isinstance(module, nn.Linear):
         w, b = (tree["w"], tree.get("b")) if isinstance(tree, dict) else (tree, None)
         want = {"weight": to_tensor(w, torch.float32).T, **({"bias": to_tensor(b, torch.float32)} if b is not None
@@ -701,6 +722,53 @@ def load_dcae(cfg, tree: Dict, device="cpu"):
     from wmar_tpu_torch.augmentations.dcae import DCAE
 
     return _codec_module(lambda: DCAE(cfg), tree, device)
+
+
+def load_encodec(tree: Dict, cfg=None, device="cpu"):
+    """An ``Encodec`` of ``cfg`` (default ``ENCODEC_24K``) from a tree of
+    ``convert_encodec`` (the JAX package's or the port's)."""
+    from wmar_tpu_torch.audio.codecs import ENCODEC_24K, Encodec
+
+    return _codec_module(lambda: Encodec(cfg or ENCODEC_24K), tree, device)
+
+
+def load_dac(tree: Dict, cfg=None, device="cpu"):
+    """A ``DAC`` of ``cfg`` (default ``DAC_24K``) from a tree of ``convert_dac``."""
+    from wmar_tpu_torch.audio.codecs import DAC, DAC_24K
+
+    return _codec_module(lambda: DAC(cfg or DAC_24K), tree, device)
+
+
+def load_audioseal(gen_tree: Dict, det_tree: Dict, cfg=None, device="cpu"):
+    """An ``AudioSealModel`` of ``cfg`` (default ``AUDIOSEAL_16B``; a JAX
+    ``AudioSealConfig`` is read by its fields) from the generator's and the
+    detector's trees (``convert_audioseal_generator`` / ``_detector``)."""
+    import dataclasses
+
+    from wmar_tpu_torch.audio.audioseal import AUDIOSEAL_16B, AudioSealConfig, AudioSealModel
+
+    cfg = AudioSealConfig(**dataclasses.asdict(cfg)) if cfg is not None else AUDIOSEAL_16B
+    with torch.device("meta"):
+        model = AudioSealModel(cfg)
+    model = model.to_empty(device=device)
+    load_codec_tree(model.generator, gen_tree, torch.device(device), "generator")
+    load_codec_tree(model.detector, det_tree, torch.device(device), "detector")
+    return model.eval()
+
+
+def load_conditioners(conditioners: Dict, device="cpu") -> Dict:
+    """``{name: (config, params)}`` of the JAX package's
+    ``convert_conditioners`` / ``init_lut_params`` (numpy or JAX leaves, its
+    ``LUTConditionerConfig``) as the port's: the config rebuilt from its
+    fields, each leaf a float32 tensor on ``device``. Pass the result to
+    ``ConditionProvider``."""
+    import dataclasses
+
+    from wmar_tpu_torch.audio.conditioners import LUTConditionerConfig
+
+    return {name: (LUTConditionerConfig(**dataclasses.asdict(cfg)),
+                   {k: to_tensor(v, torch.float32, device) for k, v in params.items()})
+            for name, (cfg, params) in conditioners.items()}
 
 
 # ---------------------------------------------------------------------------
