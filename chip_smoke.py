@@ -9,8 +9,8 @@ phases:
 1. build: compile the CUDA kernels from ``wmar_tpu_torch/csrc/`` (sm_90a,
    one nvcc per source, in parallel), print the build time, the card's
    name and power limit, and the TF32 switches (both off, so float32
-   matmuls and convolutions are exact; phases 9 and 15 alone run at their
-   entry points' own precision);
+   matmuls and convolutions are exact; phases 9, 15 and 17's finetune runs
+   alone run at their entry points' own precision);
 2. kernel vs plain: kernel #1 (``packed4_decode_attention``, below 1024
    slots the tiled kernel of #3/#4 without masks) at the decode shapes of
    RAR-B, RAR-XL and RAR-XXL (128 rows, 258 slots, 16 heads, D 48/80/88),
@@ -72,13 +72,15 @@ phases:
    codes, images, p-values, the green fraction, and that every
    decode-attention call went through its kernel (255 steps x 32 layers
    per batch);
-5. Chameleon path: CHAMELEON_7B at full width and depth with int8 weights,
+5. Chameleon path: CHAMELEON_7B at full width with int8 weights,
    the CHAMELEON_F16 tokenizer, the synthetic 65,536-entry vocabulary and
    tokenizer, 8 prompts of distinct lengths (24 CFG rows), temperature 0.9,
    top-p 0.9, the same watermark and one round trip, through
    ``generate_and_evaluate``: a warm-up batch on the packed cache (kernel
-   #3), a timed one on the packed4 cache (kernel #4), 1023 steps x 32
-   layers each; checks image tokens, 512 px images in [-1, 1], p-values,
+   #3), a timed one on the packed4 cache (kernel #4), at a quarter of its
+   depth (the first 8 of the 32 layers, :func:`first_layers`, for the
+   script's time; #3 and #4 keep their full-depth shapes in phase 2), 1023
+   steps x 8 layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
 6. interleaved path: the same Chameleon wrapper through the entry point
    ``generate --interleaved <prompts file> --max_images 2``
@@ -256,6 +258,19 @@ phases:
    own statistics) ~ 0, the ``.npz`` equal to the statistics, pool3
    features on the card within 1e-3 of the CPU's. Prints images/s.
 
+17. Mimi RCC and token match (``phase_mimi_rcc``), run right after phase
+   14 on phase 13's MOSHI_V01 and MIMI_V0_1: the Mimi written as a
+   ``.msgpack``; the entry point ``python -m wmar_tpu_torch.finetune_mimi``
+   at full width, 24 synthetic 10 s clips, batch 8, 2 epochs of 3 steps,
+   the augmenter from epoch 1 and the subset token-match eval (finite logs,
+   ``idemp_k`` in [0, 1], the four parts' deltas non-zero; seconds a step,
+   peak GiB); the same run resumed after 1 epoch (the same batches: JAX's
+   fault (m)); the decoder alone (the encoder deltas exactly zero); one
+   step on 2 x 0.96 s against a CPU copy, TF32 off; ``python -m
+   wmar_tpu_torch.audio.token_match`` in mimi mode (8 wavs of 4 s, the whole
+   grid, the finetuned Mimi against the original) and in moshi mode
+   (MOSHI_V01, 64 steps, batch 8). It launches no kernel.
+
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and the last line is not printed. Without
@@ -289,6 +304,8 @@ ABS_FLOOR = 1e-6
 SEED = 0
 CLASSES = 64
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
+# Chameleon-7B's layers the Chameleon path (phase 5) runs (of 32): the script's time, not the kernels' shapes
+CHAMELEON_T2I_LAYERS = 8
 # 8 prompts whose first 16 characters differ in length, so the CFG rows are ragged
 PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls",
            "a tall ship", "an old bridge at night"]
@@ -1337,8 +1354,9 @@ def phase_interleaved_4k(device, wrapper, prompt: str = "a cat", cache_budget: i
 
 def first_layers(wrapper, n_layers: int):
     """A view of a Chameleon wrapper that runs its first ``n_layers``
-    decoder layers only (the same tensors): both interleaved phases run at
-    half depth so that the script keeps its time."""
+    decoder layers only (the same tensors): the Chameleon path runs
+    ``CHAMELEON_T2I_LAYERS`` of them and both interleaved phases half, so
+    that the script keeps its time."""
     import copy
     import dataclasses
 
@@ -2661,6 +2679,285 @@ def phase_audio_sync(device, workdir: str, models: dict) -> dict:
     return out
 
 
+# Mimi RCC finetune: the entry point's flags at full width (8 x 10 s clips)
+MIMI_FT_FLAGS = ("--synthetic", "24", "--batch_size", "8", "--target_duration", "10.0", "--steps_per_epoch", "3",
+                 "--warmup_epochs", "0", "--num_valid", "8", "--augmentation_start", "1", "--augs",
+                 "{'identity': 1, 'noise_injection': 1, 'lowpass_filter': 1, 'smooth': 1, 'echo': 1}")
+MIMI_FT_LR = 1e-5  # the entry point's default --learning_rate
+MIMI_CLIP = 23040  # (e): 0.96 s, 12 Mimi frames
+MIMI_LOSS_REL_TOL = 1e-4  # a loss on the card against the CPU's
+MIMI_GRAD_REL_TOL = 1e-3  # a gradient tensor on the card against the CPU's, relative to its largest entry
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max()) for k in a)
+
+
+def _adam_state(opt) -> list:
+    """A copy of each parameter's Adam state (step, moments), in order."""
+    return [{k: v.detach().clone() for k, v in opt.state[p].items()} for p in opt.param_groups[0]["params"]]
+
+
+def _same_adam(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                                         for a, b in zip(got, want))
+
+
+def phase_mimi_rcc(device, workdir: str, models: dict) -> dict:
+    """Audio's training half on phase 13's models (MOSHI_V01 random bf16,
+    the random MIMI_V0_1): (a) the Mimi written as a Flax-layout
+    ``.msgpack``; (b) the entry point ``python -m
+    wmar_tpu_torch.finetune_mimi`` (``main``) at full width: ``--mimi_weights
+    FILE`` and ``MIMI_FT_FLAGS`` (24 synthetic 10 s clips, 8 held out, batch
+    8, 2 epochs of 3 steps, warmup 0, the augmenter of identity, noise,
+    lowpass, smooth and echo from epoch 1) with ``--val_token_match subset``:
+    every logged number finite, each ``idemp_k`` in [0, 1], both log lines
+    with ``eval_token_match_*``, the four parts' epoch-1 deltas present and
+    non-zero; seconds a step (``log.txt``'s synchronised ``train_s``), peak
+    GiB; (c) the same run as 1 epoch, then resumed to 2 (evals off): the
+    resumed run's loop draws (b)'s six batch-index sets (JAX's resumed
+    epoch draws epoch 0's: fault (m)), its Adam state carries on from the
+    checkpoint (the state its ``load_resume`` leaves is the first leg's
+    final one, bit for bit: step counts 3 and both moments; at the end
+    every step count is 6), and its weights lie within
+    ``2 x sum |lr_b(k) - lr_c(k)| + 2 lr`` of (b)'s: the first leg's cosine
+    spans its own 3 steps (the schedule follows ``--epochs``, as in JAX),
+    so its updates run at other rates, and one more Adam step of ``lr`` a
+    side where near-zero gradient entries take other signs (cuDNN's
+    backward convolutions are not deterministic); (d)
+    ``--finetune_encoder false``: the encoder parts' deltas exactly zero,
+    the decoder's not; (e) one RCC step at full width on 2 x 0.96 s, TF32
+    off, on the card and on a CPU copy, from the same perturbed trainable
+    parts: loss within 1e-4, each ``idemp_k`` within one code, each
+    gradient tensor within 1e-3 of its largest entry, the updated
+    parameters within lr / 10 (Adam's first step moves each by about lr);
+    (f) ``python -m
+    wmar_tpu_torch.audio.token_match --mode mimi`` on 8 wavs of 4 s written
+    by ``prompts.write_wav``, the original Mimi to encode and (b)'s
+    finetuned one to decode and re-encode, the whole validation grid: 8
+    rows a cell, every rate in [0, 1]; (g) ``--mode moshi`` on MOSHI_V01,
+    64 steps, batch 8 (plain sampling, the float32 cache: the plain
+    attention, as in JAX): tokens ``[8, 8, 64]``, 8 rows a cell. No kernel
+    is launched. cuDNN TF32 follows the entry point's
+    (``finetune.cli.set_precision``) in (b)-(d) and the script's switches
+    are restored after."""
+    import copy
+    import csv
+
+    from wmar_tpu_torch import bridge, finetune_mimi
+    from wmar_tpu_torch.audio import finetune as mimi_ft
+    from wmar_tpu_torch.audio import lm as audio_lm
+    from wmar_tpu_torch.audio import token_match
+    from wmar_tpu_torch.audio.augmentations import get_validation_augs
+    from wmar_tpu_torch.audio.dataloader import train_valid_split
+    from wmar_tpu_torch.audio.losses import get_audio_loss, get_code_loss
+    from wmar_tpu_torch.audio.prompts import write_wav
+    from wmar_tpu_torch.finetune import cli as ft_cli
+    from wmar_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    mimi, moshi_cfg, out, times = models["mimi"], models.get("moshi_cfg", audio_lm.MOSHI_V01), {}, {}
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    reset_launches()
+    try:
+        # (a) the weights
+        t = time.perf_counter()
+        path = f"{workdir}/mimi_v0_1_random.msgpack"
+        save_pytree(path, {"params": bridge.mimi_tree(mimi)})
+        times["write"] = time.perf_counter() - t
+
+        # (b) train through the entry point
+        def run(outdir, *flags):
+            with contextlib.redirect_stdout(io.StringIO()):
+                state = finetune_mimi.main(["--mimi_weights", path, "--device", str(device), *MIMI_FT_FLAGS, *flags,
+                                            "--output_dir", outdir])
+            with open(f"{outdir}/log.txt") as f:
+                return state, [json.loads(line) for line in f]
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        state, logs = run(f"{workdir}/mimi_ft", "--epochs", "2", "--val_token_match", "subset")
+        times["train"] = time.perf_counter() - t
+        out["peak_gib"] = _peak_gib(device)
+        straight = {k: v.detach().clone() for k, v in state.wrapper.trainable.state_dict().items()}
+        tuned = bridge.mimi_tree(mimi)
+        for part, module in state.wrapper.trainable.items():
+            tuned[part] = bridge.mimi_tree(module)
+        del state
+        torch.cuda.empty_cache()
+        if len(logs) != 2 or sum(any(k.startswith("eval_token_match_") for k in lg) for lg in logs) != 2:
+            raise AssertionError(f"finetune_mimi: log.txt {[sorted(lg) for lg in logs]}")
+        for lg in logs:
+            if not all(np.isfinite(v) for v in lg.values()) or not all(
+                    0.0 <= lg[k] <= 1.0 for k in lg if k.startswith(("idemp_", "eval_idemp_"))):
+                raise AssertionError(f"finetune_mimi: log line {lg}")
+        deltas = {}
+        for part in mimi_ft.PARTS:
+            delta = load_pytree(f"{workdir}/mimi_ft/epoch1_{part}_delta.msgpack")
+            deltas[part] = max(float(v.abs().max()) for _, v in bridge.flatten(delta))
+            if not deltas[part] > 0:
+                raise AssertionError(f"finetune_mimi: the epoch-1 {part} delta is zero")
+        out["s_per_step"] = [lg["train_s"] / lg["train_steps"] for lg in logs]
+        out.update(logs=logs, max_delta=deltas)
+
+        # (c) resumed: one epoch, then two; every batch-index draw of the loop recorded
+        quiet = ("--val_token_match", "none", "--eval_freq", "1000")
+        draws, real_rng = [], np.random.default_rng
+
+        class Recorder:
+            def __init__(self, *a, **k):
+                self.g = real_rng(*a, **k)
+
+            def choice(self, *a, **k):
+                draws.append(self.g.choice(*a, **k))
+                return draws[-1]
+
+            def __getattr__(self, name):
+                return getattr(self.g, name)
+
+        t = time.perf_counter()
+        state = run(f"{workdir}/mimi_ft_resume", "--epochs", "1", *quiet)[0]
+        first_adam = _adam_state(state.optimizer)
+        del state
+        loaded, real_load = [], ft_cli.load_resume
+
+        def recording_load(path, st):
+            real_load(path, st)
+            loaded.append(_adam_state(st.optimizer))
+
+        np.random.default_rng, ft_cli.load_resume = Recorder, recording_load
+        try:
+            state, rlogs = run(f"{workdir}/mimi_ft_resume", "--epochs", "2", *quiet)
+        finally:
+            np.random.default_rng, ft_cli.load_resume = real_rng, real_load
+        times["resume"] = time.perf_counter() - t
+        out["resume_max_abs"] = _max_abs(state.wrapper.trainable.state_dict(), straight)
+        adam_steps = sorted({float(a["step"]) for a in _adam_state(state.optimizer)})
+        if not (len(loaded) == 1 and _same_adam(loaded[0], first_adam) and adam_steps == [6.0]
+                and {float(a["step"]) for a in first_adam} == {3.0}):
+            raise AssertionError(f"finetune_mimi resumed: {len(loaded)} loads, the loaded Adam state the first "
+                                 f"leg's: {bool(loaded) and _same_adam(loaded[0], first_adam)}, step counts at "
+                                 f"the end {adam_steps}")
+        del loaded, first_adam
+        # the first leg's cosine spans its 3 steps where (b)'s spans 6: the rates of its updates differ by
+        sched = [mimi_ft.warmup_cosine_decay(0.0, MIMI_FT_LR, 1, n, MIMI_FT_LR * 1e-2) for n in (6, 3)]
+        rate_gap = sum(abs(sched[0](k) - sched[1](k)) for k in range(3))
+        bound = 2 * rate_gap + 2 * MIMI_FT_LR  # plus one flipped Adam step (cuDNN's backward is not deterministic)
+        if state.step != 6 or len(rlogs) != 2 or out["resume_max_abs"] > bound:
+            raise AssertionError(f"finetune_mimi resumed: step {state.step}, {len(rlogs)} log lines, weights "
+                                 f"{out['resume_max_abs']:.3e} from the straight run's (bound {bound:.3e})")
+        rng = real_rng(int(finetune_mimi.get_parser().get_default("seed")))
+        tr_idx = train_valid_split(24, 8, int(finetune_mimi.get_parser().get_default("seed")))[0]
+        want = [rng.choice(tr_idx, size=8, replace=False) for _ in range(6)]
+        if len(draws) != 6 or not all(np.array_equal(a, b) for a, b in zip(draws, want)):
+            raise AssertionError("finetune_mimi resumed: the loop's batch indices are not the straight run's")
+        out["resume_bound"] = bound
+        del state
+        torch.cuda.empty_cache()
+
+        # (d) the decoder alone
+        t = time.perf_counter()
+        run(f"{workdir}/mimi_ft_dec", "--epochs", "1", "--finetune_encoder", "false", *quiet)
+        times["decoder_only"] = time.perf_counter() - t
+        for part in mimi_ft.PARTS:
+            top = max(float(v.abs().max()) for _, v in bridge.flatten(
+                load_pytree(f"{workdir}/mimi_ft_dec/epoch0_{part}_delta.msgpack")))
+            if (top == 0.0) != part.startswith("enc"):
+                raise AssertionError(f"finetune_mimi --finetune_encoder false: the {part} delta's largest entry {top}")
+        torch.cuda.empty_cache()
+
+        # (e) one step on the card against the CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        t = time.perf_counter()
+        x = torch.from_numpy(finetune_mimi.synthetic_clips(2, MIMI_CLIP, SEED + 30))
+        gen = torch.Generator().manual_seed(SEED + 31)
+        # the trainable parts moved off the frozen ones (at equal decoders the MR-STFT's L1 sits at its kink)
+        noise = [torch.randn(p.shape, generator=gen) * 1e-3 for part in mimi_ft.PARTS
+                 for p in getattr(mimi, part).parameters()]
+        res = {}
+        for name, model in (("card", mimi), ("cpu", copy.deepcopy(mimi).cpu())):
+            wrapper = mimi_ft.MimiFTWrapper(model)
+            with torch.no_grad():
+                for p, z in zip(wrapper.trainable.parameters(), noise, strict=True):
+                    p.add_(z.to(p.device))
+            st = mimi_ft.init_state(wrapper, MIMI_FT_LR)
+            metrics = mimi_ft.make_rcc_train_step(st, get_audio_loss("mrstft"), get_code_loss("mse"), 1e-3, 1.0)(
+                x.to(next(model.parameters()).device))
+            named = dict(wrapper.trainable.named_parameters())
+            res[name] = ({k: float(v) for k, v in metrics.items()}, {k: p.grad.cpu() for k, p in named.items()},
+                         {k: p.detach().cpu() for k, p in named.items()})
+            del wrapper, st
+        times["card_vs_cpu"] = time.perf_counter() - t
+        (m_card, g_card, p_card), (m_cpu, g_cpu, p_cpu) = res["card"], res["cpu"]
+        one_code = 1.0 / (2 * MIMI_CLIP // mimi.cfg.hop_length)
+        errs = {"loss": abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"]),
+                "idemp": max(abs(m_card[k] - m_cpu[k]) for k in m_cpu if k.startswith("idemp_")),
+                "grad": max(float((g_card[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30)
+                            for k in g_cpu),
+                "params": _max_abs(p_card, p_cpu)}
+        if not (errs["loss"] <= MIMI_LOSS_REL_TOL and errs["idemp"] <= one_code + 1e-9
+                and errs["grad"] <= MIMI_GRAD_REL_TOL and errs["params"] <= MIMI_FT_LR / 10):
+            raise AssertionError(f"Mimi RCC step, card against CPU: {errs}")
+        out["card_vs_cpu"] = errs
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+        # (f) token match, mimi mode: the original Mimi encodes, the finetuned one decodes and re-encodes
+        t = time.perf_counter()
+        wavs = f"{workdir}/tm_wavs"
+        os.makedirs(wavs, exist_ok=True)
+        clips = finetune_mimi.synthetic_clips(AUDIO_BATCH, 4 * 24000, SEED + 32)
+        for i in range(AUDIO_BATCH):
+            write_wav(f"{wavs}/clip{i:02d}.wav", clips[i, :, 0], 24000)
+        tuned_path = f"{workdir}/mimi_v0_1_tuned.msgpack"
+        save_pytree(tuned_path, {"params": tuned})
+        cells = sum(len(p) for _, _, p in get_validation_augs())
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = token_match.main(["--mode", "mimi", "--audio_dir", wavs, "--output_dir", f"{workdir}/tm_mimi",
+                                     "--mimi_weight", tuned_path, "--mimi_weight_ori", path, "--batch_size",
+                                     str(AUDIO_BATCH), "--save_audio", "0", "--device", str(device)])
+        times["token_match_mimi"] = time.perf_counter() - t
+        with open(f"{workdir}/tm_mimi/token_match_results.csv") as f:
+            csv_rows = list(csv.DictReader(f))
+        if not (len(rows) == len(csv_rows) == AUDIO_BATCH * cells
+                and all(0.0 <= r[k] <= 1.0 for r in rows for k in r if k.startswith("tm_rate"))):
+            raise AssertionError(f"token_match mimi: {len(rows)} rows for {cells} cells")
+        identity = [r["tm_rate"] for r in rows if r["aug"] == "identity"]
+
+        # (g) token match, moshi mode on MOSHI_V01
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            mrows = token_match.main(["--mode", "moshi", "--output_dir", f"{workdir}/tm_moshi", "--steps",
+                                      str(AUDIO_STEPS), "--batch_size", str(AUDIO_BATCH), "--save_audio", "0",
+                                      "--save_tokens", "1", "--device", str(device)],
+                                     models={"moshi": (moshi_cfg, models["moshi"]), "mimi": mimi})
+        times["token_match_moshi"] = time.perf_counter() - t
+        tokens = np.load(f"{workdir}/tm_moshi/identity_0_000.npz")["original"]
+        k = moshi_cfg.n_audio_streams
+        if not (tokens.shape == (k, AUDIO_STEPS) and len(mrows) == AUDIO_BATCH * cells
+                and sorted({r["global_index"] for r in mrows}) == list(range(AUDIO_BATCH))
+                and all(f"tm_rate_{k - 1}" in r and 0.0 <= r["tm_rate"] <= 1.0 for r in mrows)):
+            raise AssertionError(f"token_match moshi: tokens {tokens.shape}, {len(mrows)} rows for {cells} cells")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    out["launches"] = counts = launches()
+    if any(counts.values()):
+        raise AssertionError(f"Mimi RCC and token match launched kernels: {counts}")
+    out.update(times=times, cells=cells, token_match_rows={"mimi": len(rows), "moshi": len(mrows)},
+               identity_tm=float(np.median(identity)))
+    print(f"Mimi RCC: finetune_mimi at MIMI_V0_1, batch 8 x 10 s, s a step (synchronised) "
+          + ", ".join(f"epoch {e} {v:.3f}" for e, v in enumerate(out["s_per_step"]))
+          + f"; peak {out['peak_gib']:.2f} GiB; epoch losses {[round(lg['loss'], 6) for lg in logs]}, eval "
+          f"idemp_0 {[round(lg['eval_idemp_0'], 4) for lg in logs]}, eval token match (identity) "
+          f"{[round(lg['eval_token_match_identity_0'], 4) for lg in logs]}; resumed run {out['resume_max_abs']:.3e} "
+          f"from the straight one (bound {bound:.3e}), its batches the straight run's, its Adam state the "
+          f"checkpoint's; card against CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; token match mimi {len(rows)} rows ({cells} cells, identity median {out['identity_tm']:.3f}), moshi "
+          f"{len(mrows)} rows, tokens [{AUDIO_BATCH}, {k}, {AUDIO_STEPS}]; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return out
+
+
 # RCC finetune: (label, --model, tokenizer file, flags of the run)
 RCC_RUNS = (("Taming", "taming", "vqgan.msgpack", ("--disc_init", "random")),
             ("MaskGit", "rar", "maskgit_vqgan.msgpack", ("--disable_gan",)))
@@ -3263,7 +3560,7 @@ def main() -> int:
     paths = [{"launches": micro["launches"]}, timed("RAR path", lambda: phase_main_path(device, build_rar(device)))]
     torch.cuda.empty_cache()
     chameleon = build_chameleon(device)
-    paths.append(timed("Chameleon path", phase_chameleon, device, chameleon))
+    paths.append(timed("Chameleon path", phase_chameleon, device, first_layers(chameleon, CHAMELEON_T2I_LAYERS)))
     paths.append(timed("interleaved path", phase_interleaved, device,
                        first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
     paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device,
@@ -3286,7 +3583,11 @@ def main() -> int:
         paths.append(timed("sync training", phase_sync_training, device, workdir))
         torch.cuda.empty_cache()
         paths.append(timed("audio", phase_audio, device, workdir))
-        paths.append(timed("audio sync and codecs", phase_audio_sync, device, workdir, paths[-1].pop("models")))
+        audio_models = paths[-1].pop("models")
+        paths.append(timed("audio sync and codecs", phase_audio_sync, device, workdir, audio_models))
+        torch.cuda.empty_cache()
+        paths.append(timed("Mimi RCC and token match", phase_mimi_rcc, device, workdir, audio_models))
+        del audio_models
         torch.cuda.empty_cache()
         paths.append(timed("DiffPure", phase_diffpure, device, workdir))
         torch.cuda.empty_cache()

@@ -196,6 +196,29 @@ class MP3Compression:
         return torch.from_numpy(out[..., None] if chan else out).to(audio.device)
 
 
+def mp3_available() -> bool:
+    return _mp3.available()
+
+
+class _MP3StraightThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, audio, bitrate_kbps: int, sample_rate: int):
+        return MP3Compression(sample_rate)(audio, bitrate_kbps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def mp3_compression_st(audio, bitrate_kbps: int, sample_rate: int = 24000):
+    """MP3 round trip with a straight-through gradient (the reference's
+    train-time ``MP3Compression(passthrough=True)``): the forward is
+    :func:`wmar_tpu_torch.native.mp3.mp3_roundtrip` on the host, in float32,
+    the result back on the waveform's device; the backward is the
+    identity."""
+    return _MP3StraightThrough.apply(audio, bitrate_kbps, sample_rate)
+
+
 def get_validation_augs(sample_rate: int = 24000, frame_size: int = 1920, mimi_codec=None, encodec=None,
                         dac=None) -> List[Tuple[str, object, list]]:
     """The audio eval grid: ``(name, fn(x, param, generator), params)`` for

@@ -206,18 +206,24 @@ class RVQ(nn.Module):
         self.output_proj = nn.Linear(codebook_dim, dim, bias=False)
         self.codebooks = nn.Parameter(torch.zeros((n_q, cardinality, codebook_dim)))
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """``[B, T, dim]`` -> codes ``[B, n_q, T]`` (int64): each level the
-        nearest code of the residual, ``argmin |e|^2 - 2 r.e`` in float32."""
-        residual = self.input_proj(x).to(torch.float32)
-        codes = []
+    def _quantize(self, residual: torch.Tensor):
+        """Each level the nearest code of the residual, ``argmin |e|^2 -
+        2 r.e`` in the residual's dtype; the residual goes on with the
+        detached code vector. Returns ``(codes [B, n_q, T], the residual
+        entering each level, each level's code vector)``."""
+        codes, pres, posts = [], [], []
         for q in range(self.n_q):
-            emb = self.codebooks[q].to(torch.float32)
-            d = (emb**2).sum(-1) - 2.0 * residual @ emb.T
-            idx = torch.argmin(d, dim=-1)
+            emb = self.codebooks[q].to(residual.dtype)
+            pres.append(residual)
+            idx = torch.argmin((emb**2).sum(-1) - 2.0 * residual @ emb.T, dim=-1)
             codes.append(idx)
-            residual = residual - emb[idx]
-        return torch.stack(codes, dim=1)
+            posts.append(emb[idx])
+            residual = residual - posts[-1].detach()
+        return torch.stack(codes, dim=1), pres, posts
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, T, dim]`` -> codes ``[B, n_q, T]`` (int64), in float32."""
+        return self._quantize(self.input_proj(x).to(torch.float32))[0]
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """codes ``[B, n_q, T]`` -> ``[B, T, dim]``."""
@@ -225,6 +231,32 @@ class RVQ(nn.Module):
         for q in range(codes.shape[1]):
             y = y + self.codebooks[q][codes[:, q]]
         return self.output_proj(y)
+
+    def _straight_through(self, x: torch.Tensor):
+        y = self.input_proj(x)
+        codes, pres, posts = self._quantize(y)
+        quantized = 0.0
+        for q_emb in posts:
+            quantized = quantized + q_emb
+        out = self.output_proj(y + (quantized - y).detach())
+        return codes, out, y, quantized, pres, posts
+
+    def encode_decode(self, x: torch.Tensor):
+        """Straight-through encode and decode, the Mimi RCC finetune's hook:
+        each level's residual is updated with the detached code vector and
+        the output is ``output_proj(y + (quantized - y).detach())``, so the
+        gradient passes the quantizer as the identity. Returns ``(codes
+        [B, n_q, T], out [B, T, dim], y [B, T, cd], quantized [B, T, cd])``."""
+        codes, out, y, quantized, _, _ = self._straight_through(x)
+        return codes, out, y, quantized
+
+    def encode_decode_all(self, x: torch.Tensor):
+        """:meth:`encode_decode` with every level's latents in codebook space:
+        ``(codes, out, all_pre [n_q, B, T, cd], all_post [n_q, B, T, cd])``,
+        ``all_pre[i]`` the residual entering level ``i``, ``all_post[i]`` its
+        code vector."""
+        codes, out, _, _, pres, posts = self._straight_through(x)
+        return codes, out, torch.stack(pres), torch.stack(posts)
 
 
 class Mimi(nn.Module):
@@ -249,19 +281,23 @@ class Mimi(nn.Module):
             self.upsample_conv = CausalConvTranspose1d(cfg.dimension, cfg.dimension, 2 * ds, stride=ds,
                                                        groups=cfg.dimension, use_bias=False)
 
-    def _to_latent(self, audio: torch.Tensor) -> torch.Tensor:
-        z = self.encoder(audio.transpose(1, 2))  # [B, D, T']
-        z = self.enc_transformer(z.transpose(1, 2)).transpose(1, 2)
+    def _to_latent(self, audio: torch.Tensor, encoder=None, enc_transformer=None) -> torch.Tensor:
+        """``[B, T, 1]`` -> ``[B, frames, D]``; ``encoder`` / ``enc_transformer``
+        replace the module's own (the finetune's trainable copies)."""
+        z = (self.encoder if encoder is None else encoder)(audio.transpose(1, 2))  # [B, D, T']
+        z = (self.enc_transformer if enc_transformer is None else enc_transformer)(z.transpose(1, 2)).transpose(1, 2)
         if self.cfg.downsample > 1:
             z = self.downsample_conv(z)
         return z.transpose(1, 2)  # [B, frames, D]
 
-    def _from_latent(self, z: torch.Tensor) -> torch.Tensor:
+    def _from_latent(self, z: torch.Tensor, decoder=None, dec_transformer=None) -> torch.Tensor:
+        """``[B, frames, D]`` -> ``[B, T, 1]``, with optional replacements as
+        :meth:`_to_latent` takes them."""
         z = z.transpose(1, 2)
         if self.cfg.downsample > 1:
             z = self.upsample_conv(z)
-        z = self.dec_transformer(z.transpose(1, 2)).transpose(1, 2)
-        return self.decoder(z).transpose(1, 2)  # [B, T, channels]
+        z = (self.dec_transformer if dec_transformer is None else dec_transformer)(z.transpose(1, 2)).transpose(1, 2)
+        return (self.decoder if decoder is None else decoder)(z).transpose(1, 2)  # [B, T, channels]
 
     @torch.no_grad()
     def encode(self, audio: torch.Tensor) -> torch.Tensor:

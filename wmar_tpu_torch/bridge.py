@@ -19,7 +19,10 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
   port writes (RCC deltas, trainables) have the JAX package's layout.
 * Moshi trees (the audio LM) stay dict trees as the Llama ones do
   (:func:`load_moshi`); Mimi's Flax tree loads into the port's module by
-  :func:`load_mimi`, each kernel turned into torch's layout.
+  :func:`load_mimi`, each kernel turned into torch's layout
+  (:func:`mimi_tree` is the inverse), and a JAX ``MimiFTWrapper``'s
+  frozen and trainable trees into the port's by :func:`load_mimi_ft`
+  (:func:`mimi_ft_tree` the inverse).
 * The neural codecs' trees (compressai, KL-VAE, DC-AE: the JAX package's
   converters' and ``init_*_params``' layout, copied in the port) load by
   :func:`load_codec_tree` into modules whose child names follow the tree:
@@ -41,7 +44,7 @@ Takes JAX parameter trees whose leaves are numpy arrays (for example
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,44 +154,101 @@ def load_moshi(params: Any, device=None) -> Any:
     return load_llama(params, device=device)
 
 
+def _mimi_to_torch(model, path: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    """A Flax Mimi leaf (path within ``model``) -> (parameter name, tensor in
+    torch's layout)."""
+    from wmar_tpu_torch.audio.mimi import CausalConvTranspose1d
+
+    mod, name = path.rsplit(".", 1) if "." in path else ("", path)
+    if name == "kernel":
+        sub = model.get_submodule(mod)
+        if isinstance(sub, CausalConvTranspose1d):
+            t = t.flip(0).permute(1, 2, 0) if sub.groups == 1 else t.flip(0).permute(2, 1, 0)
+        elif isinstance(sub, torch.nn.Linear):
+            t = t.T
+        else:
+            t = t.permute(2, 1, 0)
+        return f"{mod}.weight", t
+    if name == "scale":
+        return f"{mod}.weight", t
+    return path, t
+
+
+def mimi_state_dict(model, tree: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax Mimi tree (of ``model``, a :class:`wmar_tpu_torch.audio.mimi.
+    Mimi` or one of its parts; numpy or tensor leaves, ``{"params": ...}``
+    or the inner dict) as ``model``'s parameter names and torch layouts."""
+    params = tree.get("params", tree)
+    return dict(_mimi_to_torch(model, path, to_tensor(leaf)) for path, leaf in flatten(params))
+
+
 @torch.no_grad()
 def load_mimi(model, variables: Dict):
     """Copy Flax Mimi variables (``{"params": ...}`` or the inner dict; the
     JAX package's, a msgpack file's or :func:`wmar_tpu_torch.audio.mimi.
-    convert_mimi`'s) into a :class:`wmar_tpu_torch.audio.mimi.Mimi`, casting
-    to its dtype: a conv ``kernel [K, I, O]`` becomes ``weight [O, I, K]``,
-    a transposed conv's flipped ``kernel [K, I/g, O]`` torch's ``[I, O/g,
-    K]``, a dense ``kernel`` a Linear's ``weight.T``, a LayerNorm ``scale``
-    its ``weight``. Every tensor of the model needs a leaf."""
-    from wmar_tpu_torch.audio.mimi import CausalConvTranspose1d
-
-    params = variables.get("params", variables)
+    convert_mimi`'s) into a :class:`wmar_tpu_torch.audio.mimi.Mimi` (or one
+    of its parts), casting to its dtype: a conv ``kernel [K, I, O]`` becomes
+    ``weight [O, I, K]``, a transposed conv's flipped ``kernel [K, I/g, O]``
+    torch's ``[I, O/g, K]``, a dense ``kernel`` a Linear's ``weight.T``, a
+    LayerNorm ``scale`` its ``weight``. Every tensor of the model needs a
+    leaf."""
     own = dict(model.named_parameters())
-    seen = set()
-    for path, leaf in flatten(params):
-        mod, name = path.rsplit(".", 1) if "." in path else ("", path)
-        t = to_tensor(leaf)
-        key = path
-        if name == "kernel":
-            key = f"{mod}.weight"
-            sub = model.get_submodule(mod)
-            if isinstance(sub, CausalConvTranspose1d):
-                t = t.flip(0).permute(1, 2, 0) if sub.groups == 1 else t.flip(0).permute(2, 1, 0)
-            elif isinstance(sub, torch.nn.Linear):
-                t = t.T
-            else:
-                t = t.permute(2, 1, 0)
-        elif name == "scale":
-            key = f"{mod}.weight"
+    sd = mimi_state_dict(model, variables)
+    for key, t in sd.items():
         if key not in own:
-            raise KeyError(f"Flax leaf {path} has no counterpart {key}")
+            raise KeyError(f"Flax leaf for {key} has no counterpart")
         if own[key].shape != t.shape:
             raise ValueError(f"{key}: shape {tuple(t.shape)} != {tuple(own[key].shape)}")
         own[key].copy_(t)
-        seen.add(key)
-    if seen != set(own):
-        raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - seen)[:5]}")
+    if set(sd) != set(own):
+        raise KeyError(f"parameters without a Flax leaf: {sorted(set(own) - set(sd))[:5]}")
     return model
+
+
+def mimi_tree(model) -> Dict:
+    """The inverse of :func:`load_mimi`: ``model``'s parameters as the Flax
+    tree (kernels ``[K, I, O]``, transposed ones flipped, dense ``[in,
+    out]``, LayerNorm ``scale``), detached contiguous copies on their
+    device. The finetune's delta files take this layout."""
+    from wmar_tpu_torch.audio.mimi import CausalConvTranspose1d
+
+    tree: Dict = {}
+    for key, t in model.named_parameters():
+        mod, name = key.rsplit(".", 1) if "." in key else ("", key)
+        t = t.detach()
+        if name == "weight":
+            sub = model.get_submodule(mod)
+            if isinstance(sub, CausalConvTranspose1d):
+                name, t = "kernel", (t.permute(2, 0, 1) if sub.groups == 1 else t.permute(2, 1, 0)).flip(0)
+            elif isinstance(sub, torch.nn.Linear):
+                name, t = "kernel", t.T
+            elif isinstance(sub, torch.nn.LayerNorm):
+                name = "scale"
+            else:
+                name, t = "kernel", t.permute(2, 1, 0)
+        node = tree
+        for part in mod.split(".") if mod else ():
+            node = node.setdefault(part, {})
+        node[name] = t.clone(memory_format=torch.contiguous_format)
+    return tree
+
+
+def load_mimi_ft(wrapper, variables: Dict, trainable: Optional[Dict] = None):
+    """A JAX ``MimiFTWrapper``'s state into the port's
+    (:class:`wmar_tpu_torch.audio.finetune.MimiFTWrapper`): the frozen Mimi
+    from its variables, each trainable part from ``trainable[part]`` (JAX's
+    ``state.trainable``; a copy of the frozen part when omitted)."""
+    load_mimi(wrapper.model, variables)
+    params = variables.get("params", variables)
+    for part, module in wrapper.trainable.items():
+        load_mimi(module, (trainable or params)[part])
+    return wrapper
+
+
+def mimi_ft_tree(wrapper) -> Dict:
+    """The trainable parts of the port's ``MimiFTWrapper`` as JAX's
+    ``trainable`` tree ``{part: Flax tree}``."""
+    return {part: mimi_tree(module) for part, module in wrapper.trainable.items()}
 
 
 # Flax leaf names that are not the torch names (conv ``kernel`` is handled apart)
