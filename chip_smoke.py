@@ -72,14 +72,22 @@ phases:
    codes, images, p-values, the green fraction, and that every
    decode-attention call went through its kernel (255 steps x 32 layers
    per batch);
-5. Chameleon path: CHAMELEON_7B at full width with int8 weights,
-   the CHAMELEON_F16 tokenizer, the synthetic 65,536-entry vocabulary and
-   tokenizer, 8 prompts of distinct lengths (24 CFG rows), temperature 0.9,
-   top-p 0.9, the same watermark and one round trip, through
-   ``generate_and_evaluate``: a warm-up batch on the packed cache (kernel
-   #3), a timed one on the packed4 cache (kernel #4), at a quarter of its
-   depth (the first 8 of the 32 layers, :func:`first_layers`, for the
-   script's time; #3 and #4 keep their full-depth shapes in phase 2), 1023
+5. Chameleon path, from the reference's files (``build_chameleon_from_files``):
+   a random CHAMELEON_7B at full width and 16 of its 32 layers written as two
+   bf16 tensor-parallel ``consolidated.*.pth`` shards in the reference's
+   layout, a random CHAMELEON_F16 ``vqgan.ckpt`` and a synthetic 65,536-entry
+   byte-level ``tokenizer/text_tokenizer.json``, converted by ``python -m
+   wmar_tpu_torch.tools.convert_ckpt`` (``main``) and loaded by
+   ``generate.load_wrapper --modelpath`` (the prompts tokenized by the port's
+   BPE reader), with int8 weights; prints each file's bytes and seconds, the
+   host RSS before and at most during each conversion, and the process's
+   peak host RSS. Then 8 prompts of distinct lengths (24 CFG rows),
+   temperature 0.9, top-p 0.9, the same watermark and one round trip,
+   through ``generate_and_evaluate``: a warm-up batch on the packed cache
+   (kernel #3), a timed one on the packed4 cache (kernel #4), at a quarter
+   of its depth (the first 8 of the files' 16 layers, ``CHAMELEON_RUN_LAYERS``,
+   :func:`first_layers`, for the script's time; #3 and #4 keep their
+   full-depth shapes in phase 2), 1023
    steps x 8 layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
 6. interleaved path: the same Chameleon wrapper through the entry point
@@ -89,10 +97,10 @@ phases:
    behind the live ``key_mask``; with two images that cache passes 2048
    slots, so every forward after the prefill takes the flash-decode
    kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
-   (kernel #6), at half depth (the first 16 of the 32 layers,
-   :func:`first_layers`, for the script's time; #5 and #6 keep their
-   full-depth shapes in phase 2), exactly 2243 forwards x 16 layers =
-   35,888 launches each and none of any other attention kernel; checks the
+   (kernel #6), at a quarter of its depth (the same 8 layers, for the
+   script's time; #5 and #6 keep their full-depth shapes in phase 2),
+   exactly 2243 forwards x 8 layers =
+   17,944 launches each and none of any other attention kernel; checks the
    tree the run wrote
    (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
    ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
@@ -101,9 +109,9 @@ phases:
 7. interleaved sampler at the reference's 4096-slot cache, which no flag of
    the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
    one prompt, one image, on the bf16, the int8 and the packed4 cache
-   (kernel #4's ``key_mask`` route), at half depth (the first 16 of the 32
-   layers, :func:`first_layers`, for the script's time): exactly 1153
-   forwards x 16 layers = 18,448 launches each, one image segment of 1024
+   (kernel #4's ``key_mask`` route), at the same 8 layers, for the
+   script's time: exactly 1153
+   forwards x 8 layers = 9,224 launches each, one image segment of 1024
    image tokens;
 8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
@@ -116,9 +124,10 @@ phases:
    attention calls), and prints imgs/s and peak memory;
 9. RCC finetune: the entry point ``python -m wmar_tpu_torch.finetune``
    (``finetune.cli.main``) on the tokenizers that ``generate.load_wrapper``
-   builds at full size from seed 0 (Taming-1.4B's f16 VQGAN, then RAR-XL's
-   MaskGit-VQGAN), each written in float32 as ``vqgan.msgpack`` /
-   ``maskgit_vqgan.msgpack`` and read back through ``--modelpath``: 72
+   builds at full size from seed 0 (Taming-1.4B's f16 VQGAN; RAR-XL's
+   MaskGit-VQGAN runs in the CPU tests, cut here for the script's time),
+   written in float32 as ``vqgan.msgpack`` and read back through
+   ``--modelpath``: 72
    synthetic code rows, batch 8, lr 1e-4, idem weight 1.0, four epochs
    (``--augs_schedule 1,1,1,1``: warmup, weak, medium, strong; every
    validation cell), Taming with a random discriminator (the GAN branch),
@@ -134,7 +143,8 @@ phases:
    one batch each, so the reference's default run: sample, decode, one round
    trip, the 62 (attack, param) cells of the classic grid on the card,
    re-tokenize, detect, write. (a) RAR-XL, int8 weights, packed4 cache
-   (kernel #1), 16 classes, the device JPEG; (b) Taming-1.4B, grouped-int4
+   (kernel #1), 8 classes (16 before, cut for the script's time), the
+   device JPEG; (b) Taming-1.4B, grouped-int4
    weights (kernel #8), packed4 cache (kernel #1), 8 classes, ``--exact_jpeg
    true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
    from a table), ``--include_neural_compress true --nc_allow_random
@@ -304,8 +314,10 @@ ABS_FLOOR = 1e-6
 SEED = 0
 CLASSES = 64
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
-# Chameleon-7B's layers the Chameleon path (phase 5) runs (of 32): the script's time, not the kernels' shapes
-CHAMELEON_T2I_LAYERS = 8
+# the layers of the random Chameleon-7B written as the reference's files (of 32)
+CHAMELEON_FILE_LAYERS = 16
+# the first of them that phases 5-7 run: the script's time, not the kernels' shapes
+CHAMELEON_RUN_LAYERS = 8
 # 8 prompts whose first 16 characters differ in length, so the CFG rows are ragged
 PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls",
            "a tall ship", "an old bridge at night"]
@@ -1177,6 +1189,240 @@ def build_chameleon(device, lcfg=None, vq_cfg=None, vocab=None):
     return wrapper
 
 
+CHAMELEON_SPECIALS = ("<s>", "</s>", "<racm3:break>", "<eoss>", "<pad>", "<reserved08706>")
+
+
+def synthetic_text_tokenizer(n_vocab: int, n_codes: int, seed: int) -> dict:
+    """A byte-level BPE ``text_tokenizer.json`` of ``n_vocab`` entries in
+    Chameleon's id layout: the six specials of ``ChameleonVocab`` (ids 0-5,
+    also added tokens), the 256 byte characters, text tokens made by merges
+    drawn from ``seed`` (a token and a letter, digit or space joined; none
+    starts with ``<``, which the vocabulary reads as a special), and the
+    ``IMGIMG<digits as A-J>Z`` names of ``n_codes`` image codes at the top.
+    The ``tokenizers`` package reads it too."""
+    from wmar_tpu_torch.models.text_tokenizer import BYTE_CHARS as chars
+
+    vocab = {name: i for i, name in enumerate(CHAMELEON_SPECIALS)}
+    for b in range(256):
+        vocab[chars[b]] = len(vocab)
+    base = [chars[ord(c)] for c in "abcdefghijklmnopqrstuvwxyz0123456789 "]
+    pool, merges = list(base), []
+    rng = np.random.default_rng(seed)
+    n_text = n_vocab - n_codes
+    while len(vocab) < n_text:
+        a, b = pool[rng.integers(len(pool))], base[rng.integers(len(base))]
+        if a + b in vocab or len(a) >= 12:
+            continue
+        vocab[a + b] = len(vocab)
+        merges.append([a, b])
+        pool.append(a + b)
+    for code in range(n_codes):
+        vocab["IMGIMG" + "".join(chr(ord("A") + int(d)) for d in str(code)) + "Z"] = len(vocab)
+    added = [{"id": i, "content": name, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, name in enumerate(CHAMELEON_SPECIALS)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": byte_level, "post_processor": None, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def chameleon_reference_shards(lcfg, n_shards: int, device, seed: int) -> list:
+    """A random Chameleon transformer as the reference's tensor-parallel
+    ``consolidated.{rank:02}.pth`` state dicts (unfused ``wq/wk/wv`` and
+    ``w1/w3``, q/k norms, bf16), drawn on ``device`` and returned on
+    the host: matrices N(0, 1/n_in), embeddings N(0, 0.02^2), norms one,
+    q/k-norm biases zero. Column-parallel weights are cut on dim 0,
+    row-parallel ones (``wo``, ``w2``) on dim 1, norms replicated."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, v, hd = lcfg.dim, lcfg.vocab_size, lcfg.head_dim
+    kvd, ffn = lcfg.kv_heads * hd, lcfg.ffn_hidden
+
+    def rand(rows, cols, std):
+        return (torch.randn((rows, cols), generator=gen, device=device) * std).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    shards = [{} for _ in range(n_shards)]
+    for r in range(n_shards):
+        shards[r]["tok_embeddings.weight"] = rand(v // n_shards, d, 0.02)
+        shards[r]["output.weight"] = rand(v // n_shards, d, d**-0.5)
+        shards[r]["norm.weight"] = ones(d)
+    for i in range(lcfg.n_layers):
+        p = f"layers.{i}."
+        for r in range(n_shards):
+            sh = shards[r]
+            sh[p + "attention.wq.weight"] = rand(d // n_shards, d, d**-0.5)
+            sh[p + "attention.wk.weight"] = rand(kvd // n_shards, d, d**-0.5)
+            sh[p + "attention.wv.weight"] = rand(kvd // n_shards, d, d**-0.5)
+            sh[p + "attention.wo.weight"] = rand(d, d // n_shards, d**-0.5)
+            sh[p + "feed_forward.w1.weight"] = rand(ffn // n_shards, d, d**-0.5)
+            sh[p + "feed_forward.w3.weight"] = rand(ffn // n_shards, d, d**-0.5)
+            sh[p + "feed_forward.w2.weight"] = rand(d, ffn // n_shards, ffn**-0.5)
+            sh[p + "attention_norm.weight"] = ones(d)
+            sh[p + "ffn_norm.weight"] = ones(d)
+            if lcfg.qk_normalization:
+                for x in "qk":
+                    sh[p + f"attention.{x}_normalization.weight"] = ones(hd)
+                    sh[p + f"attention.{x}_normalization.bias"] = torch.zeros(hd, dtype=torch.bfloat16)
+    return shards
+
+
+def chameleon_reference_vqgan(vq_cfg, device, seed: int) -> dict:
+    """A random ``vqgan.ckpt`` state dict (float32, taming's names) of
+    ``vq_cfg``, from the port's random tokenizer."""
+    from wmar_tpu_torch.models import init_taming_vqgan
+    from wmar_tpu_torch.sync.wam_exact import taming_name
+
+    vq = init_taming_vqgan(vq_cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    out = {}
+    for k, t in vq.state_dict().items():
+        part, rest = k.split(".", 1)
+        key = f"{part}.{taming_name(rest)}" if part in ("encoder", "decoder") else k
+        out["quantize.embedding.weight" if key == "quantize.embedding" else key] = t.detach().float().cpu()
+    return out
+
+
+def _peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # kB on Linux
+
+
+def _rss_gib() -> float:
+    """The process's resident set now (``/proc/self/statm``), GiB."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def rss_during(fn) -> tuple:
+    """(``fn()``, the process's resident GiB just before it, the most seen
+    while it ran): a thread reads the resident set every 5 ms, so a step's
+    own peak shows even under a higher one earlier in the process."""
+    import threading
+
+    before, seen, done = _rss_gib(), [0.0], threading.Event()
+
+    def watch():
+        while not done.wait(0.005):
+            seen[0] = max(seen[0], _rss_gib())
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        thread.join()
+    return out, before, max(seen[0], _rss_gib())
+
+
+@contextlib.contextmanager
+def chameleon_depth(n_layers: int):
+    """``CHAMELEON_7B`` at ``n_layers`` layers (the port's modules look it
+    up when they convert and load), restored after."""
+    import dataclasses
+
+    from wmar_tpu_torch import models
+    from wmar_tpu_torch.models import llama
+
+    full = models.CHAMELEON_7B
+    models.CHAMELEON_7B = llama.CHAMELEON_7B = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield models.CHAMELEON_7B
+    finally:
+        models.CHAMELEON_7B = llama.CHAMELEON_7B = full
+
+
+def build_chameleon_from_files(device, workdir: str, n_layers: int = CHAMELEON_FILE_LAYERS) -> tuple:
+    """Chameleon through the reference's files: a random ``CHAMELEON_7B``
+    (its first ``n_layers`` layers, full width) written as two bf16
+    tensor-parallel shards, a random ``CHAMELEON_F16`` ``vqgan.ckpt``
+    and a synthetic 65,536-entry ``tokenizer/text_tokenizer.json``; the
+    port's tool converts them (``convert_ckpt.main``: ``chameleon_llama``
+    over the shards' glob, ``chameleon_vqgan``), and
+    ``generate.load_wrapper`` loads the directory (``--modelpath``, bf16)
+    on ``device``; int8 linears, the packed4 cache and the watermark as in
+    :func:`build_chameleon`. Prints each file's bytes and seconds (the
+    draw, each write, each conversion, the load), the prompts' ids, the
+    host RSS in each conversion (:func:`rss_during`) and the process's
+    peak host RSS. Returns (wrapper, report)."""
+    from wmar_tpu_torch.core import WatermarkSpec
+    from wmar_tpu_torch.generate import get_parser, load_wrapper
+    from wmar_tpu_torch.models import CHAMELEON_F16, quantize_llama_params_int8
+    from wmar_tpu_torch.tools import convert_ckpt
+
+    src, out = os.path.join(workdir, "anole"), os.path.join(workdir, "chameleon")
+    os.makedirs(os.path.join(out, "tokenizer"), exist_ok=True)
+    os.makedirs(src, exist_ok=True)
+    report = {"files": {}, "seconds": {}, "convert_rss_gib": {}}
+
+    def sizes(d, names):
+        for name in names:
+            report["files"][name] = os.path.getsize(os.path.join(d, name))
+
+    def save(obj, path):
+        t0 = time.perf_counter()
+        if path.endswith(".json"):
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        else:
+            torch.save(obj, path)
+        report["seconds"][f"write {os.path.basename(path)}"] = time.perf_counter() - t0
+
+    with chameleon_depth(n_layers) as cfg:
+        t0 = time.perf_counter()
+        shards = chameleon_reference_shards(cfg, 2, device, SEED + 30)
+        vq_sd = chameleon_reference_vqgan(CHAMELEON_F16, device, SEED + 31)
+        tokenizer = synthetic_text_tokenizer(cfg.vocab_size, CHAMELEON_F16.n_embed, SEED)
+        report["seconds"]["draw"] = time.perf_counter() - t0
+        for r in range(len(shards)):
+            save(shards.pop(0), os.path.join(src, f"consolidated.{r:02d}.pth"))
+        save({"state_dict": vq_sd}, os.path.join(src, "vqgan.ckpt"))
+        save(tokenizer, os.path.join(out, "tokenizer", "text_tokenizer.json"))
+        del vq_sd, tokenizer
+        sizes(src, sorted(os.listdir(src)))
+        sizes(out, ["tokenizer/text_tokenizer.json"])
+        for kind, ckpt, name in (("chameleon_llama", "consolidated.*.pth", "llama7b.msgpack"),
+                                 ("chameleon_vqgan", "vqgan.ckpt", "vqgan.msgpack")):
+            t0 = time.perf_counter()
+            _, before, peak = rss_during(lambda: convert_ckpt.main([kind, "--ckpt", os.path.join(src, ckpt),
+                                                                     "--outdir", out]))
+            report["seconds"][f"convert {kind}"] = time.perf_counter() - t0
+            report["convert_rss_gib"][kind] = {"before": before, "peak": peak}
+            sizes(out, [name])
+        for name in os.listdir(src):  # the sources are not needed any more: free the disk
+            os.remove(os.path.join(src, name))
+        t0 = time.perf_counter()
+        args = get_parser().parse_args(["--model", "chameleon7b", "--modelpath", out, "--device", str(device),
+                                        "--outdir", os.path.join(workdir, "unused")])
+        wrapper = load_wrapper(args, torch.device(device))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        report["seconds"]["load"] = time.perf_counter() - t0
+    loaded = wrapper.llama_params["blocks"][0]["wq"]
+    if wrapper.llama_cfg.n_layers != n_layers or loaded.dtype != torch.bfloat16 or len(wrapper.llama_params["blocks"]) \
+            != n_layers:
+        raise AssertionError(f"Chameleon files: loaded {len(wrapper.llama_params['blocks'])} layers of {loaded.dtype}")
+    wrapper.llama_params = quantize_llama_params_int8(wrapper.llama_params, compute_dtype=torch.bfloat16)
+    wrapper.cache_dtype = "packed4"
+    wrapper.set_watermarker(WatermarkSpec.from_string(WATERMARK, vocab_size=wrapper.get_total_vocab_size(),
+                                                      spatial_dim=wrapper.codes_size))
+    report["prompt_ids"] = wrapper.tokenize_prompts(PROMPTS)
+    report["peak_rss_gib"] = _peak_rss_gib()
+    if len({len(ids) for ids in report["prompt_ids"]}) < 2:
+        raise AssertionError(f"Chameleon files: the prompts' ids are not ragged: {report['prompt_ids']}")
+    print(f"Chameleon files: {n_layers} of 32 layers at width {wrapper.llama_cfg.dim}, 2 bf16 shards; "
+          f"bytes {report['files']}; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in report["seconds"].items())
+          + "; host RSS in the conversions (GiB before, peak) " + ", ".join(
+              f"{k} {v['before']:.2f} -> {v['peak']:.2f}" for k, v in report["convert_rss_gib"].items())
+          + f"; the process's peak host RSS {report['peak_rss_gib']:.1f} GiB after the load; "
+          f"prompt ids {report['prompt_ids']}")
+    return wrapper, report
+
+
 def phase_chameleon(device, wrapper, prompts=PROMPTS) -> dict:
     """The Chameleon path: a warm-up batch on the int8 packed cache (kernel
     #3), then a timed one on the packed4 cache (kernel #4)."""
@@ -1355,7 +1601,7 @@ def phase_interleaved_4k(device, wrapper, prompt: str = "a cat", cache_budget: i
 def first_layers(wrapper, n_layers: int):
     """A view of a Chameleon wrapper that runs its first ``n_layers``
     decoder layers only (the same tensors): the Chameleon path runs
-    ``CHAMELEON_T2I_LAYERS`` of them and both interleaved phases half, so
+    ``CHAMELEON_RUN_LAYERS`` of the files' ``CHAMELEON_FILE_LAYERS``, so
     that the script keeps its time."""
     import copy
     import dataclasses
@@ -2987,10 +3233,10 @@ def _f32_ulps(n: int):
 
 
 def phase_rcc_finetune(device, workdir: str, tiny: bool = False, rows: int = 72, batch: int = 8,
-                       bench_batches=(4, 8), bench_iters: int = 10) -> dict:
+                       bench_batches=(4, 8), bench_iters: int = 10, runs=RCC_RUNS) -> dict:
     """RCC finetuning through the entry point ``python -m
     wmar_tpu_torch.finetune`` (``finetune.cli.main``), for each of
-    ``RCC_RUNS``: the tokenizer of the wrapper ``generate.load_wrapper``
+    ``runs`` (of ``RCC_RUNS``): the tokenizer of the wrapper ``generate.load_wrapper``
     builds (seed ``SEED``, full size: Taming-1.4B's f16 VQGAN, RAR-XL's
     MaskGit-VQGAN, bf16) written in float32 as ``<modelpath>/<file>``, then
     four epochs (warmup, weak, medium, strong) on ``rows`` synthetic code
@@ -3013,12 +3259,12 @@ def phase_rcc_finetune(device, workdir: str, tiny: bool = False, rows: int = 72,
         torch.cuda.synchronize(device)  # the context exists before the peak-memory resets
     saved = set_precision()
     try:
-        return _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda)
+        return _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda, runs)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda) -> dict:
+def _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cuda, runs) -> dict:
     import math
     import os
     from argparse import Namespace
@@ -3032,7 +3278,7 @@ def _rcc_runs(device, workdir, tiny, rows, batch, bench_batches, bench_iters, cu
     print(f"RCC finetune: tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
     out = {"launches": {name: 0 for name, _, _, _ in _kernels()}, "runs": {},
            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}}
-    for label, model, fname, flags in RCC_RUNS:
+    for label, model, fname, flags in runs:
         t0 = time.perf_counter()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
@@ -3559,21 +3805,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths = [{"launches": micro["launches"]}, timed("RAR path", lambda: phase_main_path(device, build_rar(device)))]
     torch.cuda.empty_cache()
-    chameleon = build_chameleon(device)
-    paths.append(timed("Chameleon path", phase_chameleon, device, first_layers(chameleon, CHAMELEON_T2I_LAYERS)))
-    paths.append(timed("interleaved path", phase_interleaved, device,
-                       first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
-    paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device,
-                       first_layers(chameleon, chameleon.llama_cfg.n_layers // 2)))
-    del chameleon
+    with tempfile.TemporaryDirectory() as files:
+        chameleon, files_report = timed("Chameleon files", build_chameleon_from_files, device, files)
+        run = first_layers(chameleon, CHAMELEON_RUN_LAYERS)
+        paths.append(timed("Chameleon path", phase_chameleon, device, run))
+        paths.append(timed("interleaved path", phase_interleaved, device, run))
+        paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, run))
+    del chameleon, run
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        rcc = timed("RCC finetune", phase_rcc_finetune, device, workdir)
+        # the script's time: past ~1,100 s on slow hosts, the MaskGit run (~5 s) goes, then half the
+        # sweep's RAR-XL classes (~25 s); the CPU tests run both tokenizers and any class count
+        rcc = timed("RCC finetune", lambda: phase_rcc_finetune(device, workdir, runs=RCC_RUNS[:1]))
         paths.append(rcc)
         tuned = [f"--{part}_ft_ckpt={rcc['runs']['Taming']['deltas'][part]}" for part in ("encoder", "decoder")]
-        paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, taming_extra=tuned,
+        paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, n_rar=8, taming_extra=tuned,
                                                                       inspect=check_tuned_tokenizer(rcc),
                                                                       neural_compress=True)))
         timed("neural codecs", phase_neural_codecs, device, paths[-1].pop("bank"))
@@ -3597,7 +3845,10 @@ def main() -> int:
     if never:
         raise AssertionError(f"kernels never launched on a main path: {never}")
     print(f"card: {bench_attention.card_line()}; phases {json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
-          f"total {time.perf_counter() - t0:.1f} s")
+          f"total {time.perf_counter() - t0:.1f} s; Chameleon files: seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in files_report['seconds'].items()})}, bytes "
+          f"{json.dumps(files_report['files'])}, host RSS in the conversions (GiB) "
+          f"{json.dumps(files_report['convert_rss_gib'])}, the process's peak {files_report['peak_rss_gib']:.1f} GiB")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

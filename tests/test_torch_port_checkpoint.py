@@ -152,6 +152,28 @@ def test_codec_chunked_leaves(monkeypatch, chunk):
     _assert_tree_equal(fs.msgpack_restore(got), fs.msgpack_restore(want))
 
 
+@pytest.mark.parametrize("chunk", [1000, 4096])
+def test_codec_dump_writes_the_bytes_of_serialize(monkeypatch, tmp_path, chunk):
+    """``dump`` streams to a file what ``serialize`` returns (chunked leaves,
+    bf16, numpy scalars, strings), and ``save_pytree`` writes flax's
+    ``to_bytes`` through it."""
+    import io
+
+    monkeypatch.setattr(fs, "MAX_CHUNK_SIZE", chunk)
+    monkeypatch.setattr(codec, "MAX_CHUNK_SIZE", chunk)
+    rng = np.random.default_rng(4)
+    tree = {"big": rng.normal(size=(70, 100)).astype(np.float32),
+            "bf": np.asarray(jnp.asarray(rng.normal(size=(3000,)), jnp.bfloat16)),
+            "blocks": [{"w": rng.normal(size=(3, 2)).astype(np.float32), "n": np.int32(7)}] * 2,
+            "name": "x", "empty": np.zeros((0, 3), np.float32)}
+    as_torch = jax.tree.map(lambda x: bridge.to_tensor(x) if isinstance(x, np.ndarray) else x, tree)
+    f = io.BytesIO()
+    codec.dump(as_torch, f, sort_keys=False)
+    assert f.getvalue() == codec.serialize(as_torch, sort_keys=False)
+    tckpt.save_pytree(str(tmp_path / "t.msgpack"), as_torch)
+    assert (tmp_path / "t.msgpack").read_bytes() == fs.to_bytes(jax.device_get(tree))
+
+
 @pytest.mark.parametrize("value", [0, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**64 - 1, -1, -32, -33,
                                    -128, -129, -32768, -32769, -2**31, -2**31 - 1, -2**63, 0.5, -1e300, True, False,
                                    None, "", "a" * 31, "a" * 32, "a" * 255, "a" * 256, "é" * 40000, b"", b"x" * 300,

@@ -217,7 +217,8 @@ def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
     # sync is ported: without a checkpoint it is refused as JAX's SyncManager refuses it
     with pytest.raises(ValueError, match="WAM sync needs the wam_mit.pth checkpoint"):
         tgen.main(base + ["--device", "cpu", "--sync", "true"])
-    with pytest.raises(SystemExit, match="ROADMAP"):  # --modelpath is ported for rar and taming only
+    with pytest.raises(SystemExit, match="text_tokenizer.json not found"):  # Chameleon's --modelpath is ported:
+        # a directory without the tokenizer JSON is refused by name
         tgen.main(["--model", "chameleon7b", "--modelpath", "ckpt", "--device", "cpu", "--outdir", str(tmp_path)])
     with pytest.raises(SystemExit, match="chameleon7b"):  # ported, but a Chameleon path, as in generate.py
         tgen.main(base + ["--device", "cpu", "--interleaved", "prompts.txt"])

@@ -471,7 +471,7 @@ def convert_moshi_depformer(sd, dep_layers: int, dep_dim: int, dep_q: int, prefi
 
 def convert_moshi_lm(sd, cfg: MoshiConfig) -> dict:
     """A Moshi ``LMModel`` state dict (tensors or numpy arrays, e.g. from
-    :func:`wmar_tpu_torch.sync.manager.read_safetensors`) -> the parameter
+    :func:`wmar_tpu_torch.utils.convert.read_safetensors`) -> the parameter
     tree of :class:`MoshiGen`, equal to ``wmar_tpu.utils.convert.
     convert_moshi_lm``'s: text_emb, the ``emb.{k}`` input audio embeddings,
     the temporal layers, out_norm and text_linear, the per-codebook

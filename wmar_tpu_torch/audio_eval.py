@@ -123,7 +123,7 @@ def load_moshi_params(path: str, cfg, device):
     dict (:func:`wmar_tpu_torch.audio.lm.convert_moshi_lm`)."""
     from wmar_tpu_torch import bridge
     from wmar_tpu_torch.audio.lm import convert_moshi_lm, init_moshi_params
-    from wmar_tpu_torch.sync.manager import read_safetensors
+    from wmar_tpu_torch.utils.convert import read_safetensors
     from wmar_tpu_torch.utils.checkpoint import load_pytree
 
     if path.endswith(".msgpack"):
@@ -138,7 +138,7 @@ def load_mimi_model(path: str, cfg, device):
     ``.safetensors`` (:func:`wmar_tpu_torch.audio.mimi.convert_mimi`)."""
     from wmar_tpu_torch import bridge
     from wmar_tpu_torch.audio.mimi import Mimi, convert_mimi
-    from wmar_tpu_torch.sync.manager import read_safetensors
+    from wmar_tpu_torch.utils.convert import read_safetensors
     from wmar_tpu_torch.utils.checkpoint import load_pytree
 
     variables = load_pytree(path) if path.endswith(".msgpack") else convert_mimi(read_safetensors(path), cfg)

@@ -282,19 +282,13 @@ def random_tree(key, draw):
 
 
 def read_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """A checkpoint's state dict as float32 / integer numpy arrays:
-    ``.safetensors`` through the port's reader, else ``torch.load(...,
-    weights_only=True)`` (unwrapping ``state_dict`` / ``model``)."""
-    if path.endswith(".safetensors"):
-        from wmar_tpu_torch.sync.manager import read_safetensors
+    """A checkpoint's state dict as float32 / integer numpy arrays, read by
+    :func:`wmar_tpu_torch.utils.convert.load_torch_state_dict` with
+    ``weights_only=True``: the codecs' files are third-party plain state
+    dicts, so a pickle that would run code is refused, not unpickled."""
+    from wmar_tpu_torch.utils.convert import load_torch_state_dict
 
-        sd = read_safetensors(path)
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if "state_dict" in sd:
-            sd = sd["state_dict"]
-        if isinstance(sd.get("model"), dict):
-            sd = sd["model"]
+    sd = load_torch_state_dict(path, weights_only=True)
     return {k: (v.float() if v.is_floating_point() else v).numpy() for k, v in sd.items()}
 
 

@@ -176,7 +176,7 @@ def save_resume(path: str, state) -> None:
     tree = {"step": state.step, "trainable": state.trainable.state_dict(), "optimizer": opt,
             "scheduler": state.scheduler.state_dict()}
     with open(path, "wb") as f:
-        f.write(msgpack_codec.serialize(tree, sort_keys=False))
+        msgpack_codec.dump(tree, f, sort_keys=False)
 
 
 def load_resume(path: str, state) -> None:

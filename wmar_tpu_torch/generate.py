@@ -63,13 +63,17 @@ codes in a 65536-entry table) and a synthetic tokenizer, as the JAX bench
 runs it. ``--weight_dtype int8|int4`` quantizes the generator's linears for
 every model; int4 linears run the w4a16 kernel.
 
-``--modelpath`` (``rar``, ``taming``) reads the JAX package's files, flax
-msgpack, through the port's own reader: ``config.json``'s meta (``gpt``
-geometry, ``alive_ids``), ``maskgit_vqgan.msgpack`` and
-``<rar_size>.msgpack``, or ``vqgan.msgpack`` and ``gpt.msgpack``. The
-generator keeps the files' dtype, the tokenizer is float32; the KV cache
-takes the wrapper's default dtype (bf16 for RAR, float32 for Taming), as in
-JAX, whatever the files hold.
+``--modelpath`` reads the files that ``python -m
+wmar_tpu_torch.tools.convert_ckpt`` (or the JAX tool) writes, flax msgpack,
+through the port's own reader: ``config.json``'s meta (``gpt`` geometry,
+``alive_ids``), then ``maskgit_vqgan.msgpack`` and ``<rar_size>.msgpack``
+(``rar``), ``vqgan.msgpack`` and ``gpt.msgpack`` (``taming``), or
+``llama7b.msgpack``, ``vqgan.msgpack`` and ``tokenizer/text_tokenizer.json``
+(``chameleon7b``: the vocabulary, and the prompts' ids from the port's BPE
+reader; a directory without the JSON is refused). RAR and Taming keep the
+files' dtype, Chameleon's Llama is cast to bf16; the tokenizer is float32;
+the KV cache takes the wrapper's default dtype (bf16 for RAR and Chameleon,
+float32 for Taming), as in JAX, whatever the files hold.
 ``--encoder_ft_ckpt`` / ``--decoder_ft_ckpt`` add RCC deltas (as
 ``python -m wmar_tpu_torch.finetune`` writes them) to the tokenizer's
 encoder / decoder, in float32, cast back to its dtype, whatever built the
@@ -236,10 +240,43 @@ def _load_alive_ids(path):
     return np.asarray(ids)
 
 
+def load_chameleon_files(modelpath: str, device: torch.device):
+    """Chameleon-7B from a ``--modelpath`` directory: ``tokenizer/
+    text_tokenizer.json`` (the vocabulary and the prompts' BPE encoder,
+    :class:`~wmar_tpu_torch.models.text_tokenizer.TextTokenizer`),
+    ``llama7b.msgpack`` at ``CHAMELEON_7B`` (bf16 on ``device``),
+    ``vqgan.msgpack`` at ``CHAMELEON_F16`` (float32) and the alive ids of
+    ``config.json``'s ``alive_ids`` file (``assets/chameleon_all_ids.txt``
+    by default). A directory without the tokenizer JSON is refused."""
+    from wmar_tpu_torch.models import (
+        CHAMELEON_7B,
+        CHAMELEON_F16,
+        ChameleonARMM,
+        ChameleonVocab,
+        TamingVQGAN,
+        init_llama_params,
+    )
+    from wmar_tpu_torch.models.text_tokenizer import TextTokenizer
+    from wmar_tpu_torch.utils.checkpoint import load_pytree
+
+    tok_path = os.path.join(modelpath, "tokenizer", "text_tokenizer.json")
+    if not os.path.exists(tok_path):
+        raise SystemExit(f"--modelpath for chameleon7b: {tok_path} not found (the vocabulary and the prompts' "
+                         "tokenizer come from it)")
+    vocab = ChameleonVocab.from_tokenizer_json(tok_path)
+    tokenizer = TextTokenizer.from_file(tok_path)
+    like = init_llama_params(CHAMELEON_7B, None, device="meta")
+    params = bridge.load_llama(load_pytree(os.path.join(modelpath, "llama7b.msgpack"), like=like, dtypes=False),
+                               dtype=torch.bfloat16, device=device)
+    vq = bridge.load_flax_file(TamingVQGAN, CHAMELEON_F16, os.path.join(modelpath, "vqgan.msgpack"), device)
+    alive = _load_alive_ids(_read_meta(modelpath).get("alive_ids", "assets/chameleon_all_ids.txt"))
+    return ChameleonARMM(params, CHAMELEON_7B, vocab, vq, tokenizer=tokenizer.encode, alive_ids=alive,
+                         image_seq_len=CHAMELEON_F16.codes_per_side**2, device=device)
+
+
 def load_chameleon(args, device: torch.device):
     if getattr(args, "modelpath", None) and not args.tiny:
-        raise SystemExit("--modelpath for chameleon7b: the tokenizer JSON, the 7B tree and "
-                         "assets/chameleon_all_ids.txt (ROADMAP queue 1, item 14a) are not ported yet")
+        return load_chameleon_files(args.modelpath, device)
     from wmar_tpu_torch.models import (
         CHAMELEON_7B,
         CHAMELEON_F16,

@@ -362,9 +362,9 @@ class SyncSealRef(nn.Module):
         archive or ``.safetensors``): ``embedder.unet.*`` and
         ``extractor.{convnext,head}.*`` keys, or the bare ``unet.*`` /
         ``convnext.*`` / ``head.*`` ones. Other keys are not read."""
-        from wmar_tpu_torch.sync.manager import load_state_dict_file
+        from wmar_tpu_torch.utils.convert import load_torch_state_dict
 
-        sd = load_state_dict_file(path)
+        sd = load_torch_state_dict(path)
         unet = "embedder.unet." if any(k.startswith("embedder.unet.") for k in sd) else "unet."
         ext = "extractor." if any(k.startswith("extractor.") for k in sd) else ""
         model = SyncSealRef(cfg, device="meta", **cfgs)

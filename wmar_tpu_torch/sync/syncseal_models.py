@@ -306,6 +306,53 @@ class SyncSealDiscriminator(nn.Module):
         return self.main(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def _res_block_tree(sd, p: str) -> dict:
+    from wmar_tpu_torch.utils.convert import _conv, _ln
+
+    return {"conv1": _conv(sd, p + ".double_conv.0"), "norm1": _ln(sd, p + ".double_conv.1"),
+            "conv2": _conv(sd, p + ".double_conv.3"), "norm2": _ln(sd, p + ".double_conv.4"),
+            "res": _conv(sd, p + ".res_conv")}
+
+
+def convert_unet(sd, cfg: UNetConfig = UNET_SMALL2_YUV, prefix: str = "") -> dict:
+    """A ``unet.*`` (or ``embedder.unet.*``) state dict -> the JAX package's
+    ``unet_forward`` tree (``wmar_tpu.sync.syncseal_models.convert_unet``)."""
+    from wmar_tpu_torch.utils.convert import _conv, _ln
+
+    p, nlev = prefix, len(cfg.z_channels_mults)
+    return {
+        "inc": _res_block_tree(sd, p + "inc"),
+        "downs": [{"down": _conv(sd, f"{p}downs.{i}.down"), "conv": _res_block_tree(sd, f"{p}downs.{i}.conv")}
+                  for i in range(nlev - 1)],
+        "bottleneck": [_res_block_tree(sd, f"{p}bottleneck.model.{j}") for j in range(cfg.num_blocks)],
+        "ups": [{"up": {"conv": _conv(sd, f"{p}ups.{i}.up.upsample_block.2"),
+                        "ln": _ln(sd, f"{p}ups.{i}.up.upsample_block.3")},
+                 "conv": _res_block_tree(sd, f"{p}ups.{i}.conv")} for i in range(nlev - 1)],
+        "outc": _conv(sd, p + "outc"),
+    }
+
+
+def convert_convnext(sd, cfg: ConvNeXtConfig = CONVNEXT_TINY, prefix: str = "convnext.",
+                     head_prefix: str = "head.") -> dict:
+    """A ConvNeXt extractor state dict -> the JAX package's tree
+    (``wmar_tpu.sync.syncseal_models.convert_convnext``): Linear layers as
+    ``{"w", "b"}``, GRN's gamma and beta as ``[1, 1, 1, C]``."""
+    from wmar_tpu_torch.utils.convert import _conv, _lin, _ln, _t
+
+    downsample = []
+    for i in range(len(cfg.depths)):
+        dp = f"{prefix}downsample_layers.{i}."
+        conv, norm = ("0", "1") if i == 0 else ("1", "0")
+        downsample.append({"conv": _conv(sd, dp + conv), "norm": _ln(sd, dp + norm)})
+    stages = [[{"dwconv": _conv(sd, f"{prefix}stages.{i}.{j}.dwconv"), "norm": _ln(sd, f"{prefix}stages.{i}.{j}.norm"),
+                "pwconv1": _lin(sd, f"{prefix}stages.{i}.{j}.pwconv1"),
+                "grn": {"gamma": _t(sd[f"{prefix}stages.{i}.{j}.grn.gamma"]).reshape(1, 1, 1, -1),
+                        "beta": _t(sd[f"{prefix}stages.{i}.{j}.grn.beta"]).reshape(1, 1, 1, -1)},
+                "pwconv2": _lin(sd, f"{prefix}stages.{i}.{j}.pwconv2")} for j in range(depth)]
+              for i, depth in enumerate(cfg.depths)]
+    return {"downsample": downsample, "stages": stages, "head": _lin(sd, head_prefix + "linear")}
+
+
 def hinge_d_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor) -> torch.Tensor:
     return 0.5 * (F.relu(1.0 - logits_real).mean() + F.relu(1.0 + logits_fake).mean())
 

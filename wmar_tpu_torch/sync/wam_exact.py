@@ -323,10 +323,10 @@ class WamExact(nn.Module):
     @staticmethod
     def load(path: str, device=None, **cfg) -> "WamExact":
         """``wam_mit.pth`` (or a file in its layout) on ``device``."""
-        from wmar_tpu_torch.sync.manager import load_state_dict_file
+        from wmar_tpu_torch.utils.convert import load_torch_state_dict
 
         model = WamExact(device="meta", **cfg)
-        model.load_state_dict(from_wam_state_dict(load_state_dict_file(path), model), strict=True, assign=True)
+        model.load_state_dict(from_wam_state_dict(load_torch_state_dict(path), model), strict=True, assign=True)
         return model.to(device).eval()
 
 
@@ -381,6 +381,72 @@ def to_wam_state_dict(model: WamExact) -> Dict[str, torch.Tensor]:
     """``model``'s tensors under ``wam_mit.pth``'s keys (the inverse of
     :func:`from_wam_state_dict`)."""
     return {_wam_key(k): t for k, t in model.state_dict().items()}
+
+
+def convert_vit(sd, vit_cfg: SAMViTConfig, prefix: str) -> dict:
+    """A ViTDet ``ImageEncoderViT`` state dict -> the JAX package's
+    ``sam_encoder`` tree (``wmar_tpu.sync.wam_exact.convert_vit``; WAM's
+    detector and SyncSeal's ``SegmentationExtractor`` share it)."""
+    from wmar_tpu_torch.utils.convert import _conv, _hwio, _ln, _t
+
+    def lin(p):  # a Linear, its bias only where the state dict has one
+        out = {"w": _t(sd[p + ".weight"]).T.contiguous()}
+        if p + ".bias" in sd:
+            out["b"] = _t(sd[p + ".bias"])
+        return out
+
+    blocks = []
+    for i in range(vit_cfg.depth):
+        p = f"{prefix}blocks.{i}."
+        blocks.append({
+            "norm1": _ln(sd, p + "norm1"),
+            "norm2": _ln(sd, p + "norm2"),
+            "attn": {"qkv": lin(p + "attn.qkv"), "proj": lin(p + "attn.proj"),
+                     "rel_pos_h": _t(sd[p + "attn.rel_pos_h"]), "rel_pos_w": _t(sd[p + "attn.rel_pos_w"])},
+            "mlp_lin1": lin(p + "mlp.lin1"),
+            "mlp_lin2": lin(p + "mlp.lin2"),
+        })
+    return {
+        "patch_embed": {"kernel": _hwio(sd[prefix + "patch_embed.proj.weight"]),
+                        "bias": _t(sd[prefix + "patch_embed.proj.bias"])},
+        "pos_embed": _t(sd[prefix + "pos_embed"]),
+        "blocks": blocks,
+        "neck0": _conv(sd, prefix + "neck.0"),
+        "neck1": _ln(sd, prefix + "neck.1"),
+        "neck2": _conv(sd, prefix + "neck.2"),
+        "neck3": _ln(sd, prefix + "neck.3"),
+    }
+
+
+def convert_pixel_decoder(sd, upscale_stages, prefix: str) -> list:
+    """A ``PixelDecoder`` state dict -> the JAX ``pixel_decoder`` list (each
+    upscaling stage with its ``factor``, then the last conv)."""
+    from wmar_tpu_torch.utils.convert import _conv, _ln
+
+    pd = []
+    for si, factor in enumerate(upscale_stages):
+        p = f"{prefix}output_upscaling.{si}.upsample_block."
+        pd.append({"factor": factor, "conv": _conv(sd, p + "2"), "ln": _ln(sd, p + "3")})
+    pd.append(_conv(sd, prefix + "last_layer"))
+    return pd
+
+
+def convert_wam(sd, vit_cfg: SAMViTConfig = SAM_BASE, upscale_stages=(4, 2, 2), enc_cfg: VQGANConfig = WAM_ENC_CFG,
+                dec_cfg: VQGANConfig = WAM_DEC_CFG) -> dict:
+    """``wam_mit.pth`` -> the JAX package's WamExact tree (``wmar_tpu.sync.
+    wam_exact.convert_wam``): the embedder's VAE through the Taming
+    converters, the detector through :func:`convert_vit` and
+    :func:`convert_pixel_decoder`. The fixed attenuation kernels and the
+    training-only augmenter are not read."""
+    from wmar_tpu_torch.utils.convert import _convert_taming_decoder, _convert_taming_encoder, _t
+
+    return {
+        "vae_encoder": _convert_taming_encoder(sd, enc_cfg, "embedder.encoder."),
+        "msg_embeddings": _t(sd["embedder.msg_processor.msg_embeddings.weight"]),
+        "vae_decoder": _convert_taming_decoder(sd, dec_cfg, "embedder.decoder."),
+        "vit": convert_vit(sd, vit_cfg, "detector.image_encoder."),
+        "pixel_decoder": convert_pixel_decoder(sd, upscale_stages, "detector.pixel_decoder."),
+    }
 
 
 def init_wam(seed: int, device=None, **cfg) -> WamExact:

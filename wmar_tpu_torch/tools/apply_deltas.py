@@ -46,7 +46,7 @@ def apply_deltas(base_path: str, delta_specs, output_path: str) -> dict:
         print(f"applied {_n_leaves(delta)} delta leaves from {path}" + (f" at {subtree!r}" if subtree else ""))
     os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
     with open(output_path, "wb") as f:
-        f.write(msgpack_codec.serialize(tree))
+        msgpack_codec.dump(tree, f)
     print(f"reconstructed checkpoint saved at: {output_path}")
     return tree
 

@@ -45,8 +45,8 @@ def to_bytes(tree: Any) -> bytes:
 
 def save_pytree(path: str, tree: Any) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(to_bytes(tree))
+    with open(path, "wb") as f:  # streamed: no bytes object of the whole tree
+        msgpack_codec.dump(to_state_dict(tree), f, sort_keys=False)
 
 
 def _like(like: Any, state: Any, path: str, dtypes: bool) -> Any:

@@ -27,7 +27,7 @@ pickle anywhere.
 from __future__ import annotations
 
 import struct
-from typing import Any, List
+from typing import Any, BinaryIO, Callable, List
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ _TORCH_DTYPES = {
     "complex128": torch.complex128, "uint16": torch.uint16, "uint32": torch.uint32, "uint64": torch.uint64,
 }
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+Writer = Callable[[Any], Any]  # takes each piece of the output in order
 
 
 # ---------------------------------------------------------------------------
@@ -50,72 +51,76 @@ _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 # ---------------------------------------------------------------------------
 
 
-def _pack_int(out: List[bytes], v: int) -> None:
+def _pack_int(write: Writer, v: int) -> None:
     if 0 <= v < 0x80:
-        out.append(bytes((v,)))
+        write(bytes((v,)))
     elif -32 <= v < 0:
-        out.append(struct.pack("b", v))
+        write(struct.pack("b", v))
     elif v >= 0:
         for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF), (0xCE, ">I", 0xFFFFFFFF),
                                (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
             if v <= top:
-                out.append(bytes((code,)) + struct.pack(fmt, v))
+                write(bytes((code,)) + struct.pack(fmt, v))
                 return
         raise OverflowError(f"int {v} does not fit msgpack's uint64")
     else:
         for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000), (0xD2, ">i", -0x80000000),
                                (0xD3, ">q", -0x8000000000000000)):
             if v >= low:
-                out.append(bytes((code,)) + struct.pack(fmt, v))
+                write(bytes((code,)) + struct.pack(fmt, v))
                 return
         raise OverflowError(f"int {v} does not fit msgpack's int64")
 
 
-def _pack_len(out: List[bytes], n: int, fix_base, fix_max, codes) -> None:
+def _pack_len(write: Writer, n: int, fix_base, fix_max, codes) -> None:
     """The header of a str, bin, array or map of ``n`` items: the fix form
     where ``fix_base`` is given and ``n <= fix_max``, else the 8/16/32-bit
     length forms in ``codes``."""
     if fix_base is not None and n <= fix_max:
-        out.append(bytes((fix_base | n,)))
+        write(bytes((fix_base | n,)))
         return
     for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
         if code is not None and n <= top:
-            out.append(bytes((code,)) + struct.pack(fmt, n))
+            write(bytes((code,)) + struct.pack(fmt, n))
             return
     raise OverflowError(f"msgpack length {n} past 2**32 - 1")
 
 
-def _pack_bin(out: List[bytes], data) -> None:
-    _pack_len(out, len(data), None, 0, (0xC4, 0xC5, 0xC6))
-    out.append(data)
+def _pack_bin(write: Writer, data) -> None:
+    _pack_len(write, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+    write(data)
 
 
-def _pack_ext(out: List[bytes], code: int, data: bytes) -> None:
-    n = len(data)
+def _pack_ext(write: Writer, code: int, parts) -> None:
+    """An ext of type ``code`` whose data is ``parts`` joined (each written
+    as it is, so an array's buffer is never copied into a larger one)."""
+    n = sum(len(p) for p in parts)
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixed:
-        out.append(bytes((fixed[n], code)))
+        write(bytes((fixed[n], code)))
     else:
-        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
-        out.append(bytes((code,)))
-    out.append(data)
+        _pack_len(write, n, None, 0, (0xC7, 0xC8, 0xC9))
+        write(bytes((code,)))
+    for p in parts:
+        write(p)
 
 
-def _array_payload(shape, dtype_name: str, data) -> bytes:
-    """The nested msgpack of an array: ``[shape, dtype name, bytes]``."""
+def _array_parts(shape, dtype_name: str, data) -> tuple:
+    """The nested msgpack of an array, ``[shape, dtype name, bytes]``, as
+    (its head, the bytes)."""
     out: List[bytes] = [b"\x93"]
-    _pack_len(out, len(shape), 0x90, 15, (None, 0xDC, 0xDD))
+    _pack_len(out.append, len(shape), 0x90, 15, (None, 0xDC, 0xDD))
     for d in shape:
-        _pack_int(out, int(d))
-    _pack_str(out, dtype_name)
-    _pack_bin(out, data)
-    return b"".join(out)
+        _pack_int(out.append, int(d))
+    _pack_str(out.append, dtype_name)
+    _pack_len(out.append, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+    return b"".join(out), data
 
 
-def _pack_str(out: List[bytes], s: str) -> None:
+def _pack_str(write: Writer, s: str) -> None:
     b = s.encode("utf-8")
-    _pack_len(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
-    out.append(b)
+    _pack_len(write, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+    write(b)
 
 
 def _tensor_bytes(t: torch.Tensor):
@@ -142,45 +147,45 @@ def _chunk(x) -> dict:
             "chunks": {str(j): flat[i: i + size] for j, i in enumerate(range(0, n, size))}}
 
 
-def _pack(out: List[bytes], x: Any, sort_keys: bool) -> None:
+def _pack(write: Writer, x: Any, sort_keys: bool) -> None:
     if x is None:
-        out.append(b"\xc0")
+        write(b"\xc0")
     elif x is True:
-        out.append(b"\xc3")
+        write(b"\xc3")
     elif x is False:
-        out.append(b"\xc2")
+        write(b"\xc2")
     elif isinstance(x, (torch.Tensor, np.ndarray)):
         if _leaf_nbytes(x) > MAX_CHUNK_SIZE:
-            _pack(out, _chunk(x), sort_keys=False)
+            _pack(write, _chunk(x), sort_keys=False)
         elif isinstance(x, torch.Tensor):
             if x.dtype not in _DTYPE_NAMES:
                 raise TypeError(f"no msgpack dtype name for {x.dtype}")
-            _pack_ext(out, _EXT_NDARRAY, _array_payload(x.shape, _DTYPE_NAMES[x.dtype], _tensor_bytes(x)))
+            _pack_ext(write, _EXT_NDARRAY, _array_parts(x.shape, _DTYPE_NAMES[x.dtype], _tensor_bytes(x)))
         else:
-            _pack_ext(out, _EXT_NDARRAY, _array_payload(x.shape, x.dtype.name, np.ascontiguousarray(x).tobytes()))
+            _pack_ext(write, _EXT_NDARRAY, _array_parts(x.shape, x.dtype.name, np.ascontiguousarray(x).tobytes()))
     elif isinstance(x, np.generic):
         a = np.asarray(x)
-        _pack_ext(out, _EXT_NPSCALAR, _array_payload(a.shape, a.dtype.name, a.tobytes()))
+        _pack_ext(write, _EXT_NPSCALAR, _array_parts(a.shape, a.dtype.name, a.tobytes()))
     elif isinstance(x, int):
-        _pack_int(out, x)
+        _pack_int(write, x)
     elif isinstance(x, float):
-        out.append(b"\xcb" + struct.pack(">d", x))
+        write(b"\xcb" + struct.pack(">d", x))
     elif isinstance(x, str):
-        _pack_str(out, x)
+        _pack_str(write, x)
     elif isinstance(x, (bytes, bytearray, memoryview)):
-        _pack_bin(out, x)
+        _pack_bin(write, x)
     elif isinstance(x, (list, tuple)):
-        _pack_len(out, len(x), 0x90, 15, (None, 0xDC, 0xDD))
+        _pack_len(write, len(x), 0x90, 15, (None, 0xDC, 0xDD))
         for v in x:
-            _pack(out, v, sort_keys)
+            _pack(write, v, sort_keys)
     elif isinstance(x, dict):
-        _pack_len(out, len(x), 0x80, 15, (None, 0xDE, 0xDF))
+        _pack_len(write, len(x), 0x80, 15, (None, 0xDE, 0xDF))
         items = x.items()
         if sort_keys and all(isinstance(k, str) for k in x):
             items = sorted(items)
         for k, v in items:
-            _pack(out, k, sort_keys)
-            _pack(out, v, sort_keys)
+            _pack(write, k, sort_keys)
+            _pack(write, v, sort_keys)
     else:
         raise TypeError(f"cannot write a {type(x).__name__} as msgpack")
 
@@ -191,8 +196,15 @@ def serialize(tree: Any, sort_keys: bool = True) -> bytes:
     msgpack_serialize`` writes them: dict keys sorted (``sort_keys=False``
     keeps insertion order), arrays over ``MAX_CHUNK_SIZE`` bytes chunked."""
     out: List[bytes] = []
-    _pack(out, tree, sort_keys)
+    _pack(out.append, tree, sort_keys)
     return b"".join(out)
+
+
+def dump(tree: Any, f: BinaryIO, sort_keys: bool = True) -> None:
+    """:func:`serialize`'s bytes written to the binary file ``f`` piece by
+    piece: each array's buffer goes to the file as it is, so writing holds
+    no second copy of the tree."""
+    _pack(f.write, tree, sort_keys)
 
 
 # ---------------------------------------------------------------------------
