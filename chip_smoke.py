@@ -84,11 +84,11 @@ phases:
    peak host RSS. Then 8 prompts of distinct lengths (24 CFG rows),
    temperature 0.9, top-p 0.9, the same watermark and one round trip,
    through ``generate_and_evaluate``: a warm-up batch on the packed cache
-   (kernel #3), a timed one on the packed4 cache (kernel #4), at a quarter
-   of its depth (the first 8 of the files' 16 layers, ``CHAMELEON_RUN_LAYERS``,
+   (kernel #3), a timed one on the packed4 cache (kernel #4), at a
+   eighth of its depth (the first 4 of the files' 16 layers, ``CHAMELEON_RUN_LAYERS``,
    :func:`first_layers`, for the script's time; #3 and #4 keep their
    full-depth shapes in phase 2), 1023
-   steps x 8 layers each; checks image tokens, 512 px images in [-1, 1], p-values,
+   steps x 4 layers each; checks image tokens, 512 px images in [-1, 1], p-values,
    the green fraction and the launch counts, and prints peak memory;
 6. interleaved path: the same Chameleon wrapper through the entry point
    ``generate --interleaved <prompts file> --max_images 2``
@@ -97,10 +97,10 @@ phases:
    behind the live ``key_mask``; with two images that cache passes 2048
    slots, so every forward after the prefill takes the flash-decode
    kernels: once on the bf16 cache (kernel #5) and once on the int8 cache
-   (kernel #6), at a quarter of its depth (the same 8 layers, for the
+   (kernel #6), at an eighth of its depth (the same 4 layers, for the
    script's time; #5 and #6 keep their full-depth shapes in phase 2),
-   exactly 2243 forwards x 8 layers =
-   17,944 launches each and none of any other attention kernel; checks the
+   exactly 2243 forwards x 4 layers =
+   8,972 launches each and none of any other attention kernel; checks the
    tree the run wrote
    (``p=0,idx=0/`` with ``prompt.txt``, ``seg<k>_text.{txt,npy}``,
    ``seg<k>_img.{png,npy,json}``): text segments of text tokens, each whole
@@ -109,9 +109,9 @@ phases:
 7. interleaved sampler at the reference's 4096-slot cache, which no flag of
    the entry point sets: ``sample_interleaved_fused(cache_budget=4096)``,
    one prompt, one image, on the bf16, the int8 and the packed4 cache
-   (kernel #4's ``key_mask`` route), at the same 8 layers, for the
+   (kernel #4's ``key_mask`` route), at the same 4 layers, for the
    script's time: exactly 1153
-   forwards x 8 layers = 9,224 launches each, one image segment of 1024
+   forwards x 4 layers = 4,612 launches each, one image segment of 1024
    image tokens;
 8. Taming path: the 1.4B cin_transformer at full width and depth with
    grouped-int4 weights (every linear and the head on kernel #8), random
@@ -145,7 +145,8 @@ phases:
    re-tokenize, detect, write. (a) RAR-XL, int8 weights, packed4 cache
    (kernel #1), 8 classes (16 before, cut for the script's time), the
    device JPEG; (b) Taming-1.4B, grouped-int4
-   weights (kernel #8), packed4 cache (kernel #1), 8 classes, ``--exact_jpeg
+   weights (kernel #8), packed4 cache (kernel #1), 2 classes (8 before, cut
+   for the script's time), ``--exact_jpeg
    true --wm_torch_compat true`` (PIL's JPEG, the reference's greenlists
    from a table), ``--include_neural_compress true --nc_allow_random
    true`` (the reference's 22 neural codecs, random, at their published
@@ -253,10 +254,9 @@ phases:
    finite, in [0, 1], different from the input and from each other,
    exactly 660 UNet calls, kernel #1's exact launches, the analyzer's
    "Adversarial Purification" column; the ``.msgpack`` route's UNet equal
-   bit for bit; with TF32 off, one UNet call and a 2-step chain at 64 px,
-   fed the same noise, within 1e-3 of a CPU copy (the CPU takes seconds a
-   call at full width: the chain was cut from 10 steps for the script's
-   time). Prints ms a UNet call at batch 1, 2 and 8 (CUDA events, eager)
+   bit for bit; with TF32 off, one UNet call at 64 px within 1e-3 of a CPU
+   copy (the CPU takes seconds a call at full width: the CPU chain, 10
+   steps, then 2, was cut for the script's time; the CPU tests run it). Prints ms a UNet call at batch 1, 2 and 8 (CUDA events, eager)
    and at the run's batch replayed from DiffPure's CUDA graph, launches an
    eager call, seconds a cell, peak GiB;
 16. FID (``phase_fid``): the entry point ``python -m
@@ -280,6 +280,31 @@ phases:
    wmar_tpu_torch.audio.token_match`` in mimi mode (8 wavs of 4 s, the whole
    grid, the finetuned Mimi against the original) and in moshi mode
    (MOSHI_V01, 64 steps, batch 8). It launches no kernel.
+
+18. multi-rank (``phase_multirank``), run right after phase 7 on phase 5's
+   files: (a) kernels #1-#4 through the sharded dispatch
+   (``sharded_packed_decode_attention``) on each rank's shard of a
+   ``tp_groups`` = 2 and 4 cache at RAR-XL's shape (128 rows, 258 slots, 16
+   x 80) and Chameleon's (24 rows, 1043 slots, 32 x 128, ragged ``start``
+   and a ``key_mask``), put together against the plain version over all
+   heads, one rank's call timed beside the unsharded call; (b) two ranks
+   (``parallel.launch.spawn_ranks``), NCCL with one card each where the
+   machine has two cards or more, else gloo with both on ``cuda:0`` (NCCL
+   refuses two ranks on one card; the phase prints which): ``generate.main
+   --dp 2`` on RAR-XL (int8, packed4, 8 classes: kernel #1 on each rank's 4
+   rows), then Chameleon text-to-image at ``--tp 2`` (phase 5's 4 layers,
+   int8, packed4, one prompt: kernel #4 on each rank's 16 heads, the
+   wrapper rebuilt in the rank from this process's tensors by CUDA IPC and
+   cut to its Megatron shard), while this process runs ``--dp 1``. Gates:
+   each rank's launches exact; ``--dp 2``'s tree equal to ``--dp 1``'s
+   (codes, l0, p-values to 1e-6: rows are independent); the ``--tp 2``
+   ranks' teacher-forced logits over their own codes, in float32
+   activations, within 1e-4 of the largest of the one-rank float32 forward's
+   (``SHARDED_F32_REL``). In bf16, the row-parallel sums round apart and a
+   ``--tp 2`` run draws other tokens than ``--tp 1`` within a few steps, so
+   its bf16 teacher-forced distance and the first step whose argmax parts
+   are printed, not gated. Prints seconds, peak GiB and launches per rank
+   and the transport. The ranks' launches join the kernels line.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -317,7 +342,7 @@ WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
 # the layers of the random Chameleon-7B written as the reference's files (of 32)
 CHAMELEON_FILE_LAYERS = 16
 # the first of them that phases 5-7 run: the script's time, not the kernels' shapes
-CHAMELEON_RUN_LAYERS = 8
+CHAMELEON_RUN_LAYERS = 4
 # 8 prompts whose first 16 characters differ in length, so the CFG rows are ragged
 PROMPTS = ["a cat", "a red fox", "a bowl of soup", "a lighthouse", "a dog in snow", "two owls",
            "a tall ship", "an old bridge at night"]
@@ -1610,6 +1635,363 @@ def first_layers(wrapper, n_layers: int):
     view.llama_params = {**wrapper.llama_params, "blocks": wrapper.llama_params["blocks"][:n_layers]}
     view.llama_cfg = dataclasses.replace(wrapper.llama_cfg, n_layers=n_layers)
     return view
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank serving: --dp and --tp (phase "multi-rank")
+# ---------------------------------------------------------------------------
+
+MULTIRANK_SHAPES = (("RAR-XL", 128, 258, 16, 80), ("Chameleon-7B", 24, 1043, 32, 128))  # (rows, slots, heads, D)
+MULTIRANK_TP = (2, 4)
+MULTIRANK_CLASSES = 8
+MULTIRANK_PROMPT = "a lighthouse"
+CHAMELEON_GEN = dict(temperature=0.9, top_k=None, top_p=0.9)
+# --tp 2's teacher-forced logits against the one-rank forward's, both in float32 activations over a float32
+# cache, relative to the largest |logit|: only the order of the row-parallel sums differs (~1e-6 measured on the
+# CPU); a dropped part of a sum, a wrong head or a wrong vocabulary shard moves them by the logits' own size
+SHARDED_F32_REL = 1e-4
+
+
+def _median_event_ms(fn, reps: int) -> float:
+    """Median CUDA-event ms of ``fn()`` over ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_sharded_kernels(device, shapes=MULTIRANK_SHAPES, tps=MULTIRANK_TP, reps: int = 20) -> dict:
+    """(a) of the multi-rank phase: kernels #1-#4 through the sharded
+    dispatch. At RAR-XL's decode shape (kernels #1, #2) and Chameleon's
+    (#3, #4, with a ragged CFG ``start`` and a random ``key_mask``), one
+    layer of a ``tp_groups = tp`` cache is cut into each rank's shard as a
+    rank of a tp grid holds it (``parallel.apply_specs``), and each shard
+    goes through ``cached_decode_attention`` (the sharded entry point, one
+    launch on the rank's heads); put together, the outputs are held against
+    the plain version over all heads of the plain cache of the same writes.
+    Times (CUDA events, median) one rank's call beside the unsharded call."""
+    from wmar_tpu_torch.engine.attention import cached_decode_attention
+    from wmar_tpu_torch.engine.kvcache import KVCache
+    from wmar_tpu_torch.ops import flash_decode as fd
+    from wmar_tpu_torch.parallel import apply_specs, kvcache_tp_specs, make_mesh
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for label, b, t, h, d in shapes:
+        gen = torch.Generator(device=device).manual_seed(SEED + 40 + t)
+        k, v = (torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16) for _ in range(2))
+        q = torch.randn((b, h, 1, d), generator=gen, device=device, dtype=torch.bfloat16)
+        lens = torch.tensor([t], dtype=torch.int32, device=device)
+        start = km = None
+        if t >= 1024:
+            start = cfg_starts(b, 130).to(device)
+            km = torch.rand((b, t), generator=gen, device=device) < 0.9
+            km[:, 140] = True
+        for kind in ("packed4", "packed"):
+            whole = KVCache.zeros(1, b, h, t, d, kind, device=device).write(0, 0, k, v)
+            plain = fd.packed4_decode_attention_plain if kind == "packed4" else fd.packed_decode_attention_q8_plain
+            want = plain(q, whole.kv, whole.scale, 0, lens, start, km)
+            unsharded = lambda: cached_decode_attention(q, whole, 0, lens, start=start, key_mask=km)  # noqa: E731
+            err = _check_close(f"sharded kernels, {label} {kind} whole", unsharded(), want, q.dtype)
+            row = {"unsharded_ms": _median_event_ms(unsharded, reps) if cuda else float("nan")}
+            for tp in tps:
+                grouped = type(whole).zeros(1, b, h, t, d, device=device, tp_groups=tp).write(0, 0, k, v)
+                hl = h // tp
+                got = torch.empty_like(q)
+                calls = []
+                for r in range(tp):
+                    local = apply_specs(make_mesh(dp=1, tp=tp, rank=r), grouped, kvcache_tp_specs(grouped))
+                    ql = q[:, r * hl:(r + 1) * hl].contiguous()
+                    calls.append(lambda ql=ql, local=local: cached_decode_attention(ql, local, 0, lens, start=start,
+                                                                                     key_mask=km))
+                    got[:, r * hl:(r + 1) * hl] = calls[-1]()
+                err = max(err, _check_close(f"sharded kernels, {label} {kind} tp={tp}", got, want, q.dtype))
+                row[f"tp{tp}_rank_ms"] = _median_event_ms(calls[0], reps) if cuda else float("nan")
+                del grouped
+            out[f"{label} {kind}"] = {**row, "max_abs_err": err}
+            print(f"sharded kernels: {label} ({b} rows, {t} slots, {h} heads of {d}), {kind}"
+                  f"{', ragged start and key_mask' if start is not None else ''}: max abs err {err:.3e} against "
+                  f"the plain version over all heads; ms (events, median of {reps}): unsharded "
+                  f"{row['unsharded_ms']:.4f}, " + ", ".join(f"one rank of tp={tp} {row[f'tp{tp}_rank_ms']:.4f}"
+                                                              for tp in tps))
+        del k, v
+    return out
+
+
+def chameleon_parts(wrapper, modelpath: str) -> dict:
+    """What a rank needs to rebuild ``wrapper``: its Llama tree and VQGAN
+    (CUDA tensors reach a spawned rank by CUDA IPC, without copies), the
+    files' directory (the tokenizer JSON, read again: the BPE reader holds
+    closures that do not pickle) and the rest of its settings."""
+    return {"params": wrapper.llama_params, "cfg": wrapper.llama_cfg, "vq": wrapper.vq, "modelpath": modelpath,
+            "alive_ids": wrapper.alive_ids, "image_seq_len": wrapper.image_seq_len}
+
+
+def chameleon_from_parts(parts: dict, device):
+    """A Chameleon wrapper on ``device`` from :func:`chameleon_parts`: the
+    same tensors where they lie on ``device`` already, int8 linears, the
+    packed4 cache and the watermark of the Chameleon path."""
+    from wmar_tpu_torch.core import WatermarkSpec
+    from wmar_tpu_torch.models import ChameleonARMM, ChameleonVocab
+    from wmar_tpu_torch.models.text_tokenizer import TextTokenizer
+    from wmar_tpu_torch.parallel.mesh import _map
+
+    tok_path = os.path.join(parts["modelpath"], "tokenizer", "text_tokenizer.json")
+    params = _map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, parts["params"])
+    wrapper = ChameleonARMM(params, parts["cfg"], ChameleonVocab.from_tokenizer_json(tok_path), parts["vq"],
+                            tokenizer=TextTokenizer.from_file(tok_path).encode, alive_ids=parts["alive_ids"],
+                            image_seq_len=parts["image_seq_len"], cache_dtype="packed4", device=device)
+    wrapper.set_watermarker(WatermarkSpec.from_string(WATERMARK, vocab_size=wrapper.get_total_vocab_size(),
+                                                      spatial_dim=wrapper.codes_size))
+    return wrapper
+
+
+def teacher_forced_logits(wrapper, prompt: str, codes: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The combined (instruct-CFG) logits over the image tokens of every
+    step of ``codes [1, N]``, fed as the tokens: the prompt's CFG rows and
+    ``codes[:, :-1]`` in one forward through a cache of the wrapper's kind
+    (and its tp shard, where it has one). With ``dtype`` the float weights
+    are cast to it (a copy), and so the forward, over a float cache of that
+    dtype (no quantized K/V to round apart). Returns ``[N, image tokens]``
+    float32, on every tp rank the same."""
+    import dataclasses
+
+    from wmar_tpu_torch.core.sampling import instruct_cfg_combine
+    from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache
+    from wmar_tpu_torch.models.chameleon import build_cfg_prompts
+    from wmar_tpu_torch.models.llama import llama_forward
+    from wmar_tpu_torch.ops.wquant import cast_float_leaves
+
+    dev, cfg = wrapper.device, wrapper.llama_cfg
+    prompts, start, _ = build_cfg_prompts(wrapper.vocab, wrapper.tokenize_prompts([prompt]))
+    prompts = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev)
+    lp, n = prompts.shape[1], codes.shape[1]
+    tokens = torch.cat([prompts, codes[:, :-1].to(dev).expand(3, n - 1)], dim=1)
+    positions = torch.clamp_min(torch.arange(tokens.shape[1], device=dev)[None, :] - start[:, None], 0)
+    kind = wrapper._cache_dtype()
+    if dtype is not None:
+        kind = dataclasses.replace(kind, dtype=dtype) if isinstance(kind, CacheSpec) else dtype
+    cache = KVCache.zeros(cfg.n_layers, 3, cfg.n_heads, lp + n, cfg.head_dim, kind, device=dev)
+    with torch.inference_mode():
+        params = wrapper.llama_params if dtype is None else cast_float_leaves(wrapper.llama_params, dtype)
+        logits, _ = llama_forward(params, cfg, tokens, cache, 0, positions, start=start, mesh=wrapper.mesh)
+        full, img, uncond = logits[:, lp - 1:].chunk(3, dim=0)
+        combined = instruct_cfg_combine(full, img, uncond, wrapper.cfg_opts.guidance_scale_text,
+                                        wrapper.cfg_opts.guidance_scale_image)
+    image_ids = torch.as_tensor(wrapper.vocab.image_tokens, device=dev)
+    return combined[0][:, image_ids].float()
+
+
+def _multirank_rar_argv(n_classes: int, device) -> list:
+    """``generate.main``'s flags of the RAR-XL run (``--tiny`` on the CPU)."""
+    cpu = torch.device(device).type == "cpu"
+    return ["--model", "rar", "--weight_dtype", "int8", "--cache_dtype", "packed4", "--no_augs", "--seed", str(SEED),
+            "--conditioning", ",".join(str(c) for c in range(n_classes)), "--batch_size", str(n_classes),
+            "--device", "cpu" if cpu else "cuda"] + (["--tiny"] if cpu else [])
+
+
+def multirank_rank(rank: int, spec: dict) -> None:
+    """(b) of the multi-rank phase, in each of the two ranks (spawned by
+    :func:`phase_multirank`): ``generate.main --dp 2`` on RAR-XL, then
+    Chameleon text-to-image at ``--tp 2`` (the wrapper rebuilt from the
+    parent's tensors, its Llama cut to this rank's shard by
+    ``generate.make_run_mesh``) through ``generate_and_evaluate``, then the
+    teacher-forced logits over the codes it drew, in bf16 and in float32
+    activations. Writes ``rank<r>.json`` (seconds, peak GiB, launches of
+    each run, the backend) and, on rank 0, the codes and the logits."""
+    import types
+
+    import torch.distributed as dist
+
+    from wmar_tpu_torch import generate
+    from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
+    from wmar_tpu_torch.models import GenParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = spec["device_type"] == "cuda"
+    device = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    if not cuda:
+        torch.set_num_threads(1)  # two ranks' thread pools on one CPU would fight
+    report = {"rank": rank, "device": str(device), "backend": dist.get_backend(), "world": dist.get_world_size()}
+
+    def run(name, fn):
+        reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+        report[name] = {"seconds": time.perf_counter() - t0, "launches": launches(), "peak_gib": _peak_gib(device)}
+        return out
+
+    run("rar", lambda: generate.main(spec["rar_argv"] + ["--dp", "2", "--outdir", spec["rar_out"]]))
+    wrapper = chameleon_from_parts(spec["chameleon"], device)
+    mesh = generate.make_run_mesh(types.SimpleNamespace(dp=1, tp=2), wrapper)
+    rec = _Recording(wrapper)
+    run("chameleon", lambda: generate_and_evaluate(
+        spec["chameleon_out"], rec, [spec["prompt"]], GenParams(**CHAMELEON_GEN), EvalParams(max_roundtrips=1), None,
+        batch_size=1, seed=SEED, mesh=mesh, log_fn=lambda s: print(f"  [rank {rank}, tp=2] {s}")))
+    codes = rec.sampled[-1]
+    forced = {"bf16": teacher_forced_logits(wrapper, spec["prompt"], codes),
+              "f32": teacher_forced_logits(wrapper, spec["prompt"], codes, torch.float32)}
+    if rank == 0:
+        torch.save({"codes": codes.cpu(), **{k: v.cpu() for k, v in forced.items()}},
+                   os.path.join(spec["reports"], "chameleon_tp2.pt"))
+    with open(os.path.join(spec["reports"], f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def _tree_codes(outdir: str) -> dict:
+    import glob
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(outdir, "c=*", "*.json"))):
+        rel = os.path.relpath(path, outdir)
+        with open(path) as f:
+            rec = json.load(f)
+        out[rel] = (rec["pvalue"], rec["l0"], np.load(path[:-5] + ".npy").ravel())
+    return out
+
+
+def _first_divergence(a: np.ndarray, b: np.ndarray):
+    """The first step (index of the flattened codes) where two code arrays differ, or None."""
+    diff = np.flatnonzero(np.asarray(a).ravel() != np.asarray(b).ravel())
+    return int(diff[0]) if diff.size else None
+
+
+def _compare_trees(label: str, ref: dict, got: dict) -> dict:
+    """Hold a sharded run's result tree to the one-rank run's: the same
+    files, codes, l0 and p-values (rtol 1e-6); raises at the first
+    difference, naming the first diverging step of the codes."""
+    if not ref or ref.keys() != got.keys():
+        raise AssertionError(f"multi-rank, {label}: trees differ in files: {sorted(ref)[:4]} vs {sorted(got)[:4]}")
+    for k, (p, l0, codes) in ref.items():
+        step = _first_divergence(codes, got[k][2])
+        if step is not None:
+            raise AssertionError(f"multi-rank, {label}: {k} draws other codes than the one-rank run from step {step}")
+        if l0 != got[k][1] or not np.isclose(p, got[k][0], rtol=1e-6):
+            raise AssertionError(f"multi-rank, {label}: {k} p-value / l0 {got[k][:2]} != {(p, l0)}")
+    return {"records": len(ref), "tokens_equal": True}
+
+
+def sharded_logit_gate(label: str, got: dict, want: dict) -> dict:
+    """Hold a ``--tp`` run's teacher-forced logits ``got["f32"]`` (float32
+    activations) to the one-rank forward's ``want["f32"]``: within
+    ``SHARDED_F32_REL`` of the largest |logit|. The bf16 forwards' distance,
+    bf16's own distance from float32 (one rank), the share of steps whose
+    bf16 argmax agrees and the first step where it parts are returned, not
+    gated: in bf16 each rank rounds its half of a row-parallel sum."""
+    scale = float(want["f32"].abs().max())
+    agree = got["bf16"].argmax(-1) == want["bf16"].argmax(-1)
+    parted = torch.nonzero(~agree).flatten()
+    out = {"forced_f32_rel": float((got["f32"] - want["f32"]).abs().max()) / scale,
+           "forced_bf16_rel": float((got["bf16"] - want["bf16"]).abs().max()) / scale,
+           "bf16_vs_f32_rel": float((want["bf16"] - want["f32"]).abs().max()) / scale,
+           "bf16_argmax_agree": float(agree.float().mean()),
+           "bf16_argmax_first_parts": int(parted[0]) if parted.numel() else None}
+    if not out["forced_f32_rel"] <= SHARDED_F32_REL:
+        raise AssertionError(f"multi-rank, {label}: float32 teacher-forced logits {out['forced_f32_rel']:.3e} of the "
+                             f"largest from the one-rank forward's, past {SHARDED_F32_REL}")
+    return out
+
+
+def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: int = MULTIRANK_CLASSES,
+                    prompt: str = MULTIRANK_PROMPT, shapes=MULTIRANK_SHAPES) -> dict:
+    """The multi-rank phase: (a) :func:`phase_sharded_kernels`; (b) two
+    ranks (:func:`multirank_rank`), spawned with NCCL, one card each, where
+    the machine has two cards or more, else with gloo, both on ``cuda:0``
+    (NCCL refuses two ranks on one card): ``generate.main --dp 2`` on RAR-XL
+    (int8, packed4, ``n_classes`` classes, so kernel #1 on each rank's 4
+    rows) and Chameleon text-to-image at ``--tp 2`` from phase 5's files
+    at ``chameleon``'s depth (int8, packed4, one prompt: kernel #4 on each
+    rank's 16 heads). Beside them, on the same card, this process runs
+    ``generate.main --dp 1`` (the ranks' seconds include that); after them,
+    the one-rank teacher-forced forwards of ``chameleon`` over the ``--tp
+    2`` codes. Gates: every rank's launches exact; ``--dp 2``'s tree equal
+    to ``--dp 1``'s (:func:`_compare_trees`); ``--tp 2``'s float32
+    teacher-forced logits by :func:`sharded_logit_gate`. The kernel on a
+    rank's shard is held to its plain version in (a); a teacher-forced
+    forward is one prefill, on the plain path. ``shapes``: (a)'s. Returns
+    the launches of both ranks and of ``--dp 1``."""
+    from wmar_tpu_torch import generate
+    from wmar_tpu_torch.parallel.launch import spawn_ranks, wait
+
+    sharded = phase_sharded_kernels(device, shapes)
+    cuda = torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    backend, devices = ("nccl", [0, 1]) if cards >= 2 else ("gloo", [0, 0] if cuda else None)
+    transport = ("NCCL, one card a rank" if backend == "nccl" else
+                 f"gloo, both ranks on cuda:0 ({cards} card: NCCL refuses two ranks on one card)" if cuda else
+                 "gloo on the CPU")
+    print(f"multi-rank: 2 ranks, {transport}")
+    reports = os.path.join(workdir, "reports")
+    os.makedirs(reports, exist_ok=True)
+    chameleon.cache_dtype = "packed4"
+    spec = {"rar_argv": _multirank_rar_argv(n_classes, device), "rar_out": os.path.join(workdir, "rar_dp2"),
+            "device_type": "cuda" if cuda else "cpu",
+            "chameleon": chameleon_parts(chameleon, modelpath), "chameleon_out": os.path.join(workdir, "cham_tp2"),
+            "prompt": prompt, "reports": reports}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(multirank_rank, 2, backend, args=(spec,), devices=devices, join=False)
+    try:  # the one-rank run beside the ranks, for the script's time
+        reset_launches()
+        t1 = time.perf_counter()
+        generate.main(spec["rar_argv"] + ["--outdir", os.path.join(workdir, "rar_dp1")])
+        ref = {"rar": {"seconds": time.perf_counter() - t1, "launches": launches()}}
+    finally:
+        wait(ranks)
+    seconds = time.perf_counter() - t0
+    per_rank = []
+    for r in range(2):
+        with open(os.path.join(reports, f"rank{r}.json")) as f:
+            per_rank.append(json.load(f))
+    rar_steps = 255 * 32  # RAR-XL: 255 decode steps x 32 layers a batch
+    cham_steps = (chameleon.image_seq_len - 1) * chameleon.llama_cfg.n_layers
+    _check_launches(device, ref["rar"]["launches"], {"packed4_decode_attention": rar_steps},
+                    "multi-rank, RAR-XL, --dp 1")
+    for r in per_rank:
+        _check_launches(device, r["rar"]["launches"], {"packed4_decode_attention": rar_steps},
+                        f"multi-rank, RAR-XL, rank {r['rank']}")
+        _check_launches(device, r["chameleon"]["launches"], {"packed4_decode_attention_chunked": cham_steps},
+                        f"multi-rank, Chameleon, rank {r['rank']}")
+    rar = _compare_trees("RAR-XL --dp 2", _tree_codes(os.path.join(workdir, "rar_dp1")), _tree_codes(spec["rar_out"]))
+    tp2 = torch.load(os.path.join(reports, "chameleon_tp2.pt"))
+    codes = tp2["codes"].to(device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32, as in the ranks
+    try:
+        one = {"bf16": teacher_forced_logits(chameleon, prompt, codes).cpu(),
+               "f32": teacher_forced_logits(chameleon, prompt, codes, torch.float32).cpu()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tree = _tree_codes(spec["chameleon_out"])
+    if not tree or not all(0.0 <= p <= 1.0 for p, _, _ in tree.values()):
+        raise AssertionError(f"multi-rank, Chameleon --tp 2: no records or a p-value out of [0, 1]: {tree}")
+    cham = {"records": len(tree), **sharded_logit_gate("Chameleon --tp 2", tp2, one)}
+    counts = {name: ref["rar"]["launches"][name] + sum(r["rar"]["launches"][name] + r["chameleon"]["launches"][name]
+                                                       for r in per_rank)
+              for name, _, _, _ in _kernels()}
+    print(f"multi-rank: {transport}; {seconds:.1f} s; RAR-XL --dp 2 ({n_classes} classes, int8, packed4) against "
+          f"--dp 1: {rar}; Chameleon t2i --tp 2 ({chameleon.llama_cfg.n_layers} layers, int8, packed4, 1 prompt), "
+          f"teacher-forced against one rank: {cham}; "
+          + "; ".join(f"rank {r['rank']} ({r['device']}): RAR {r['rar']['seconds']:.1f} s, peak "
+                      f"{r['rar']['peak_gib']:.2f} GiB, launches #1 {r['rar']['launches']['packed4_decode_attention']}"
+                      f"; Chameleon {r['chameleon']['seconds']:.1f} s, peak {r['chameleon']['peak_gib']:.2f} GiB, "
+                      f"launches #4 {r['chameleon']['launches']['packed4_decode_attention_chunked']}" for r in per_rank)
+          + f"; --dp 1 (this process, beside the ranks): RAR {ref['rar']['seconds']:.1f} s")
+    return {"launches": counts, "sharded_kernels": sharded, "backend": backend, "transport": transport,
+            "seconds": seconds, "ranks": per_rank, "references": ref, "rar": rar, "chameleon": cham}
 
 
 def build_taming(device, gpt_cfg=None, vq_cfg=None):
@@ -3490,8 +3872,8 @@ def phase_diffpure(device, workdir: str, tiny: bool = False, time_batches=(1, 2,
     each of ``time_batches`` (CUDA events), launches a call
     (``torch.profiler``), seconds a cell, peak GiB; the ``.msgpack`` route's
     UNet equal bit for bit; with TF32 off, one UNet call and a
-    ``chain_steps`` chain at ``check_size`` px, fed the same noise, within
-    ``DIFFPURE_REL_TOL`` of a CPU copy. ``tiny`` runs the CLI's tiny RAR on
+    ``chain_steps`` chain at ``check_size`` px (0: none), fed the same
+    noise, within ``DIFFPURE_REL_TOL`` of a CPU copy. ``tiny`` runs the CLI's tiny RAR on
     the CPU (the caller patches the ADM config). The tree stays in
     ``workdir/diffpure`` for the FID phase."""
     from wmar_tpu_torch.finetune.cli import set_precision
@@ -3631,11 +4013,13 @@ def _diffpure_run(device, workdir, tiny, time_batches, check_size, chain_steps) 
         want_out = cpu(xc.permute(0, 3, 1, 2) * 2 - 1, tc)
         got_out = unet(xc.permute(0, 3, 1, 2).to(device) * 2 - 1, tc.to(device))
     out["unet_err"] = _codec_rel(got_out, want_out)
-    t_star = max(1, int(chain_steps * cfg.diffusion_steps))
-    noise = torch.randn((t_star, *xc.shape), generator=gen)
-    want_chain = tdp.DiffPure(cpu)(xc, chain_steps, noise=noise)
-    got_chain = tdp.DiffPure(unet)(xc.to(device), chain_steps, noise=noise)
-    out["chain_err"] = _codec_rel(got_chain, want_chain)
+    t_star, out["chain_err"] = 0, 0.0
+    if chain_steps:
+        t_star = max(1, int(chain_steps * cfg.diffusion_steps))
+        noise = torch.randn((t_star, *xc.shape), generator=gen)
+        want_chain = tdp.DiffPure(cpu)(xc, chain_steps, noise=noise)
+        got_chain = tdp.DiffPure(unet)(xc.to(device), chain_steps, noise=noise)
+        out["chain_err"] = _codec_rel(got_chain, want_chain)
     out["unet_scale"] = float(want_out.abs().max())
     out["cpu_check_s"] = time.perf_counter() - t1
     if not (out["unet_err"] <= DIFFPURE_REL_TOL and out["chain_err"] <= DIFFPURE_REL_TOL):
@@ -3811,17 +4195,23 @@ def main() -> int:
         paths.append(timed("Chameleon path", phase_chameleon, device, run))
         paths.append(timed("interleaved path", phase_interleaved, device, run))
         paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, run))
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as ranks_dir:
+            paths.append(timed("multi-rank", phase_multirank, device, run, os.path.join(files, "chameleon"),
+                               ranks_dir))
     del chameleon, run
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        # the script's time: past ~1,100 s on slow hosts, the MaskGit run (~5 s) goes, then half the
-        # sweep's RAR-XL classes (~25 s); the CPU tests run both tokenizers and any class count
+        # the script's time: past ~1,100 s on slow hosts, the MaskGit run (~5 s) went, then half the
+        # sweep's RAR-XL classes (~25 s); for the multi-rank phase the sweep's Taming classes (8 -> 2), the
+        # DiffPure phase's CPU chain and the Chameleon phases' depth (8 -> 4 layers); the CPU tests run both
+        # tokenizers, any class count and the chain
         rcc = timed("RCC finetune", lambda: phase_rcc_finetune(device, workdir, runs=RCC_RUNS[:1]))
         paths.append(rcc)
         tuned = [f"--{part}_ft_ckpt={rcc['runs']['Taming']['deltas'][part]}" for part in ("encoder", "decoder")]
-        paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, n_rar=8, taming_extra=tuned,
+        paths.append(timed("attack sweep", lambda: phase_attack_sweep(device, n_rar=8, n_taming=2, taming_extra=tuned,
                                                                       inspect=check_tuned_tokenizer(rcc),
                                                                       neural_compress=True)))
         timed("neural codecs", phase_neural_codecs, device, paths[-1].pop("bank"))
@@ -3837,7 +4227,7 @@ def main() -> int:
         paths.append(timed("Mimi RCC and token match", phase_mimi_rcc, device, workdir, audio_models))
         del audio_models
         torch.cuda.empty_cache()
-        paths.append(timed("DiffPure", phase_diffpure, device, workdir))
+        paths.append(timed("DiffPure", lambda: phase_diffpure(device, workdir, chain_steps=0)))
         torch.cuda.empty_cache()
         timed("FID", phase_fid, device, workdir, paths[-1]["outdir"])
     counts = {name: sum(p["launches"][name] for p in paths) for name, _, _, _ in _kernels()}

@@ -196,7 +196,7 @@ def test_chip_smoke_attack_sweep_on_cpu(one_torch_thread):
 
 
 def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
-    """What is still unported (multi-GPU) exits with its ROADMAP item; the
+    """What is still unported (the sequence-parallel prefill) exits with its ROADMAP item; the
     clustering split, a run with the attack grid (no ``--no_augs``), the
     neural-compression and the DiffPure flags, which this test once saw
     refused, now run: with ``--no_augs`` those flags are accepted and
@@ -206,7 +206,7 @@ def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
     with pytest.raises(SystemExit, match="ROADMAP"):
-        tgen.main(base + ["--device", "cpu", "--dp", "2"])
+        tgen.main(base + ["--device", "cpu", "--sp", "2"])
     for extra in (["--include_diffpure", "true"], ["--diffpure_weights", "w.pt"]):
         assert len(tgen.main(base + ["--device", "cpu"] + extra)) == 2
     with pytest.raises(SystemExit, match="--include_diffpure requires --diffpure_weights"):

@@ -1223,3 +1223,52 @@ def test_audio_models_on_the_card_match_the_cpu(device, kind):
         _within_scale(card.decode(codes.to(device)), cpu.decode(codes))
         if torch.equal(got, codes):
             _within_scale(card(x.to(device)), cpu(x))
+
+
+@pytest.mark.parametrize("kind", ["packed", "packed4"])
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("t", [258, 1043], ids=["short", "chunked"])
+def test_sharded_dispatch_on_each_lane_group(device, kind, groups, t):
+    """Kernels #1-#4 through the sharded dispatch: each lane group of a
+    ``tp_groups`` cache, cut as a rank of a tp grid holds it
+    (``parallel.apply_specs``), run by ``cached_decode_attention`` on that
+    rank's heads; put together, the outputs equal the plain version over all
+    heads of the plain cache of the same writes (f32 q: 1e-5 of the largest
+    output), with ``start`` and ``key_mask`` from 1024 slots on (#3, #4). Each
+    rank's call is one launch of the length's kernel."""
+    from wmar_tpu_torch.engine.attention import cached_decode_attention
+    from wmar_tpu_torch.parallel import apply_specs, kvcache_tp_specs, make_mesh
+
+    b, h, d = 6, 8, 128
+    cls = PackedQuantKVCache if kind == "packed" else Packed4QuantKVCache
+    grouped = cls.zeros(2, b, h, t, d, device=device, tp_groups=groups)
+    plain_cache = cls.zeros(2, b, h, t, d, device=device)
+    g = torch.Generator(device=device).manual_seed(groups + t)
+    for li in range(2):
+        k, v = (torch.randn((b, h, t, d), generator=g, device=device) for _ in range(2))
+        grouped.write(li, 0, k, v)
+        plain_cache.write(li, 0, k, v)
+    q = torch.randn((b, h, 1, d), generator=g, device=device)
+    start = km = None
+    if t >= 1024:
+        start = torch.tensor([0, 5, 130, 1, 0, 77], dtype=torch.int32, device=device)
+        km = torch.rand((b, t), generator=g, device=device) < 0.7
+        km[:, 140] = True
+    plain = fd.packed_decode_attention_q8_plain if kind == "packed" else fd.packed4_decode_attention_plain
+    want = plain(q, plain_cache.kv, plain_cache.scale, 1, t - 3, start, km)
+    name = {("packed", False): "packed_decode_attention_q8", ("packed", True): "packed_decode_attention_q8_chunked",
+            ("packed4", False): "packed4_decode_attention", ("packed4", True): "packed4_decode_attention_chunked"}
+    counter = getattr(fd, name[kind, t >= 1024])
+    got = torch.empty_like(q)
+    hl = h // groups
+    for r in range(groups):
+        view = make_mesh(dp=1, tp=groups, rank=r)
+        local = apply_specs(view, grouped, kvcache_tp_specs(grouped))
+        before = counter.launches
+        got[:, r * hl:(r + 1) * hl] = cached_decode_attention(
+            q[:, r * hl:(r + 1) * hl].contiguous(), local, 1, torch.tensor([t - 3], dtype=torch.int32, device=device),
+            start=start, key_mask=km)
+        assert counter.launches == before + 1
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale + 1e-6

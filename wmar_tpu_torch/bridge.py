@@ -340,14 +340,14 @@ def quant_cache(k, v, k_scale, v_scale, device=None) -> QuantKVCache:
     return QuantKVCache(*(to_tensor(x, device=device) for x in (k, v, k_scale, v_scale)))
 
 
-def packed_cache(kv, scale, head_dim: int, device=None) -> PackedQuantKVCache:
+def packed_cache(kv, scale, head_dim: int, device=None, tp_groups: int = 1) -> PackedQuantKVCache:
     """A JAX ``PackedQuantKVCache``'s ``kv`` and ``scale`` as the port's cache."""
-    return PackedQuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim)
+    return PackedQuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim, tp_groups)
 
 
-def packed4_cache(kv, scale, head_dim: int, device=None) -> Packed4QuantKVCache:
+def packed4_cache(kv, scale, head_dim: int, device=None, tp_groups: int = 1) -> Packed4QuantKVCache:
     """A JAX ``Packed4QuantKVCache``'s ``kv`` and ``scale`` as the port's cache."""
-    return Packed4QuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim)
+    return Packed4QuantKVCache(to_tensor(kv, device=device), to_tensor(scale, device=device), head_dim, tp_groups)
 
 
 # ---------------------------------------------------------------------------

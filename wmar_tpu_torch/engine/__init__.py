@@ -2,9 +2,10 @@
 
 from wmar_tpu_torch.engine.attention import cached_decode_attention, decode_attention, prefill_attention
 from wmar_tpu_torch.engine.decode import SamplerConfig, WatermarkRuntime, decode_tokens
-from wmar_tpu_torch.engine.kvcache import KVCache, Packed4QuantKVCache, PackedQuantKVCache, QuantKVCache
+from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache, Packed4QuantKVCache, PackedQuantKVCache, QuantKVCache
 
 __all__ = [
+    "CacheSpec",
     "KVCache",
     "Packed4QuantKVCache",
     "PackedQuantKVCache",

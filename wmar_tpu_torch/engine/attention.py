@@ -5,9 +5,12 @@ against the padded cache with a length mask (masked slots get -1e30, as in
 the JAX package). Single-token steps on the packed caches
 (``PackedQuantKVCache``, ``Packed4QuantKVCache``) go to the hand-written
 CUDA kernels (:mod:`wmar_tpu_torch.ops.flash_decode`); calls with ``start``
-or ``key_mask`` only where the cache has 1024 slots or more, as in JAX.
-Every other case runs the plain torch path on the dequantized
-``cache.layer()``.
+or ``key_mask`` only where the cache has 1024 slots or more, as in JAX. A
+rank's shard of a multi-GPU packed cache goes to
+:func:`~wmar_tpu_torch.ops.flash_decode.sharded_packed_decode_attention`;
+a cache in the grouped (``tp_groups > 1``) lane order without a rank's
+context never reaches a kernel. Every other case runs the plain torch path
+on the dequantized ``cache.layer()``.
 """
 
 from __future__ import annotations
@@ -35,10 +38,17 @@ def cached_decode_attention(q, cache, layer: int, valid_len, start=None, key_mas
     # start/key_mask are taken only by the chunked kernels (T >= 1024)
     masks_ok = (start is None and key_mask is None) or (packed and cache.max_len >= 1024)
     if packed and q.shape[2] == 1 and q.shape[1] == cache.n_heads and masks_ok:
-        from wmar_tpu_torch.ops.flash_decode import packed4_decode_attention, packed_decode_attention_q8
+        from wmar_tpu_torch.ops import flash_decode as fd
 
-        kernel = packed4_decode_attention if isinstance(cache, Packed4QuantKVCache) else packed_decode_attention_q8
-        return kernel(q, cache.kv, cache.scale, layer, valid_len, start=start, key_mask=key_mask)
+        if cache.mesh is not None and (cache.dp_axis or cache.tp_axis):
+            # a rank's shard of a multi-GPU cache: the kernel on its rows and heads
+            return fd.sharded_packed_decode_attention(q, cache, layer, valid_len, start=start, key_mask=key_mask)
+        # a grouped layout is a kernel input only as a rank's shard; in one
+        # process it takes the plain path below, which reads the groups
+        if cache.tp_groups == 1:
+            kernel = fd.packed4_decode_attention if isinstance(cache, Packed4QuantKVCache) \
+                else fd.packed_decode_attention_q8
+            return kernel(q, cache.kv, cache.scale, layer, valid_len, start=start, key_mask=key_mask)
     k_all, v_all = cache.layer(layer)
     return decode_attention(q, k_all, v_all, valid_len, start=start, key_mask=key_mask)
 

@@ -9,16 +9,22 @@ The engine owns the watermark bias, the top-k/top-p warps and the draw,
 and the past-token buffer that is the watermark's context. The Gumbel
 noise of the draw comes from an explicit ``torch.Generator`` or, for tests
 that hold the port against JAX, from a ``noise [num_steps, B, k]`` tensor.
+
+A data-parallel rank samples its rows of a batch inside
+:func:`batch_rows`: each step it draws the whole batch's noise from the
+generator and keeps its rows, so the generator advances as in a one-rank
+run and every row gets the noise it would get there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from wmar_tpu_torch.core.sampling import apply_watermark_bias, context_keys_at_step, warp_and_sample
+from wmar_tpu_torch.core.sampling import apply_watermark_bias, context_keys_at_step, gumbel_noise, warp_and_sample
 from wmar_tpu_torch.core.spec import WatermarkSpec
 
 
@@ -42,6 +48,22 @@ class WatermarkRuntime:
     def bias(self, logits, buffer, length, image_pos):
         keys, valid = context_keys_at_step(self.spec, buffer, length, image_pos)
         return apply_watermark_bias(self.spec, self.greenlist, logits, keys, valid)
+
+
+_BATCH_ROWS = None  # (rows of the whole batch, this rank's row indices) inside batch_rows
+
+
+@contextlib.contextmanager
+def batch_rows(n_rows: int, rows):
+    """Sample, within the block, rows ``rows`` (their indices, one a row
+    of the local batch) of a batch of ``n_rows``: the generator's noise is
+    drawn at ``[n_rows, k]`` each step and cut to ``rows``."""
+    global _BATCH_ROWS
+    outer, _BATCH_ROWS = _BATCH_ROWS, (int(n_rows), rows)
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = outer
 
 
 # step_fn: (cache, tokens [B], step index as a 0-d device tensor) -> (logits [B, V], cache)
@@ -84,6 +106,20 @@ def decode_tokens(
     if cond_tokens is not None:
         buffer[:, :c] = cond_tokens
     steps = torch.arange(num_steps, device=dev)  # steps[s] is a 0-d device view
+    share = _BATCH_ROWS
+    if share is not None:
+        rows = torch.as_tensor(share[1], dtype=torch.int64, device=dev)
+        if rows.shape != (b,):
+            raise ValueError(f"batch_rows names {rows.shape[0]} rows for a batch of {b}")
+
+    def step_noise(logits, s: int):
+        if noise is not None:
+            return noise[s]
+        if share is None or sampler.greedy:
+            return None  # drawn by the sampler, or no draw at all
+        v = logits.shape[-1]
+        k = min(sampler.top_k, v) if sampler.top_k else v
+        return gumbel_noise((share[0], k), generator, dev)[rows]
 
     def sample_one(logits, s: int):
         logits = logits.to(torch.float32)
@@ -95,7 +131,7 @@ def decode_tokens(
             top_k=sampler.top_k,
             top_p=sampler.top_p,
             greedy=sampler.greedy,
-            noise=None if noise is None else noise[s],
+            noise=step_noise(logits, s),
             generator=generator,
         )
 

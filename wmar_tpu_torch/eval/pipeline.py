@@ -9,7 +9,11 @@ device (PIL's JPEG under ``exact_jpeg`` on the host), each (attack, param)
 cell with a generator of its own.
 
 Conditionings are class ids (RAR) or prompt strings (Chameleon); either
-names its result directory. Results go to the same on-disk tree as the JAX
+names its result directory. On a multi-GPU grid (``mesh``) every rank
+samples: under dp its rows of the batch (:func:`sample_maybe_sharded`),
+under tp its shard of the model; rank 0 gathers the codes, runs the round
+trips, attacks and detection over the whole batch and alone writes files,
+so the records equal a one-rank run's. Results go to the same on-disk tree as the JAX
 package's, so either package's ``eval/analyzer.py`` reads them:
 
     outdir/c={cond},idx={k}/{k:04}_{method}_{transform}_{param}.{png,npy,json}
@@ -151,6 +155,32 @@ def compute_and_save_batch(
     return records
 
 
+def sample_maybe_sharded(wrapper, batch, gen_params, apply_watermark: bool, generator, mesh=None) -> torch.Tensor:
+    """Sample one batch; with a dp axis in ``mesh`` each rank samples its
+    rows and the codes are gathered, JAX's ``_sample_maybe_sharded``.
+
+    Integer (class) conditionings only. The rows are padded to a multiple
+    of the dp size by repeating the last one, then trimmed. Every rank draws
+    the unpadded batch's noise each step and keeps its rows
+    (:func:`~wmar_tpu_torch.engine.decode.batch_rows`), so the codes equal
+    the one-rank run's."""
+    if mesh is None or mesh.dp == 1:
+        return wrapper.sample(list(batch), gen_params, apply_watermark=apply_watermark, generator=generator)
+    if not all(isinstance(c, (int, np.integer)) for c in batch):
+        raise ValueError("--dp sharding requires integer (class) conditionings")
+    from wmar_tpu_torch.engine.decode import batch_rows
+    from wmar_tpu_torch.parallel import all_gather
+
+    dp, n = mesh.dp, len(batch)
+    ids = list(batch) + [batch[-1]] * ((-n) % dp)
+    per = len(ids) // dp
+    mine = range(mesh.axis_index("dp") * per, (mesh.axis_index("dp") + 1) * per)
+    with batch_rows(n, [min(i, n - 1) for i in mine]):  # a padded row repeats the last row, noise and all
+        codes = wrapper.sample([ids[i] for i in mine], gen_params, apply_watermark=apply_watermark,
+                               generator=generator)
+    return all_gather(codes, mesh, "dp", dim=0)[:n]
+
+
 def batch_seed(seed: int, chunk_id: int, batch_index: int) -> int:
     """The generator seed of one batch, from (seed, chunk, batch): the chunk
     id enters as ``seed + 1000 * chunk_id``, as in JAX, so one batch draws
@@ -172,10 +202,14 @@ def generate_and_evaluate(
     apply_watermark: bool = True,
     sync_manager=None,
     log_fn=print,
+    mesh=None,
 ) -> List[dict]:
     """The reference's ``generate()`` driver: batch striping for chunk
     parallelism, a seed per batch, and per batch sample -> log (round trips
-    and attacks) -> metrics -> save."""
+    and attacks) -> metrics -> save. On a multi-GPU ``mesh`` every rank
+    samples and rank 0 alone does the rest; the other ranks return no
+    records."""
+    lead = mesh is None or mesh.rank == 0
     batches = [all_conditionings[i: i + batch_size] for i in range(0, len(all_conditionings), batch_size)]
     method = str(wrapper.watermark_spec) if (apply_watermark and wrapper.watermark_spec) else "none"
 
@@ -191,10 +225,12 @@ def generate_and_evaluate(
         bseed = batch_seed(seed, chunk_id, bi)
         gen = torch.Generator(device=wrapper.device).manual_seed(bseed)
         t0 = time.perf_counter()
-        codes = wrapper.sample(list(batch), gen_params, apply_watermark=apply_watermark, generator=gen)
+        codes = sample_maybe_sharded(wrapper, batch, gen_params, apply_watermark, gen, mesh)
         if codes.is_cuda:
             torch.cuda.synchronize(codes.device)
         t1 = time.perf_counter()
+        if not lead:
+            continue
         log_fn(f"batch {bi}: sampling took {t1 - t0:.2f}s")
         log = fill_batch_log(wrapper, codes, aug_manager, eval_params, bseed,
                              sync_manager)  # host copies: waits for the card

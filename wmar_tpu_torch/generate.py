@@ -52,9 +52,26 @@ slots) the plain attention runs.
 
 The flags keep ``generate.py``'s names. ``--device`` (default ``cuda``)
 names the device outright: without a CUDA card the default fails rather
-than moving to the CPU, and the tests pass ``--device cpu``. Multi-GPU
-flags, which are not ported yet, exit with the ROADMAP item that ports
-them.
+than moving to the CPU, and the tests pass ``--device cpu``.
+
+Multi-GPU runs take one process a rank, launched by ``torchrun`` or SLURM,
+NCCL with one card a rank (``cuda:LOCAL_RANK``)::
+
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.generate --model rar \
+        --weight_dtype int8 --cache_dtype packed4 --conditioning 0,1,2 --dp 2 --outdir out/
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.generate --model chameleon7b \
+        --weight_dtype int8 --cache_dtype packed4 --conditioning prompts.txt --tp 2 --outdir out/
+
+``--dp N`` shards each batch's rows over N ranks (``--dp 0``: the world
+size over ``--tp``; integer conditionings only) and gives the codes, and so
+the records, of ``--dp 1``: every rank draws the whole batch's noise and
+keeps its rows. ``--tp N`` (chameleon7b) runs the Llama as Megatron shards
+over N ranks, each with a cache of its heads. The ranks' packed caches run
+the unchanged decode kernels on their rows and heads. Rank 0 decodes,
+attacks and scores the gathered codes and alone writes files. A process
+group that is up already (``torch.distributed``) is used as it is.
+``--sp``/``--pp``, int4 weights and the interleaved path under ``--tp`` are
+refused with the ROADMAP item that ports them.
 Without ``--tiny`` or ``--modelpath`` the model runs at its published widths
 with random weights drawn from ``--seed``. For Taming that means the 1.4B
 cin_transformer (48 layers, width 1664) and the f16 ImageNet VQGAN; for
@@ -125,8 +142,13 @@ def get_parser():
     p.add_argument("--guidance_scale", type=float, default=4.0)
     p.add_argument("--chunk_id", type=int, default=0)
     p.add_argument("--num_chunks", type=int, default=1)
-    for flag in ("dp", "tp", "sp", "pp"):
-        p.add_argument(f"--{flag}", type=int, default=1, help="multi-GPU: not ported yet")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard each batch over this many ranks (0: the world size over --tp); the codes of --dp 1; "
+                        "integer conditionings only")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (chameleon7b: Megatron sharding of the Llama; composes with --dp)")
+    for flag in ("sp", "pp"):
+        p.add_argument(f"--{flag}", type=int, default=1, help="not ported yet (ROADMAP queue 1, item 14.3)")
     p.add_argument("--orig_only", type=str2bool, default=False)
     p.add_argument("--include_neural_compress", type=str2bool, default=False)
     p.add_argument("--nc_weights_dir", type=str, default=None)
@@ -215,8 +237,48 @@ def run_interleaved(args, wrapper, apply_wm: bool):
 
 
 def _refuse_unported(args) -> None:
-    if any(getattr(args, f) != 1 for f in ("dp", "tp", "sp", "pp")):
-        raise SystemExit("--dp/--tp/--sp/--pp: multi-GPU runs are not ported yet (ROADMAP queue 1, item 14)")
+    if args.sp != 1 or args.pp != 1:
+        raise SystemExit("--sp/--pp: the sequence- and pipeline-parallel prefill are not ported yet "
+                         "(ROADMAP queue 1, item 14.3)")
+    if args.tp > 1:
+        from wmar_tpu_torch.models.chameleon import TP_INT4, TP_INTERLEAVED
+
+        if args.model != "chameleon7b":
+            raise SystemExit("--tp > 1 is the chameleon7b TP path")
+        if args.weight_dtype == "int4":
+            raise SystemExit(TP_INT4)
+        if args.interleaved:
+            raise SystemExit(TP_INTERLEAVED)
+
+
+def _multi_rank(args) -> bool:
+    return args.dp != 1 or args.tp > 1
+
+
+def make_run_mesh(args, wrapper):
+    """The ``(dp, tp)`` grid of a ``--dp``/``--tp`` run over the process
+    group, with the wrapper made ready for it: a packed cache dtype wrapped
+    in a :class:`~wmar_tpu_torch.engine.kvcache.CacheSpec` (the kernels on
+    this rank's rows and heads) and, under ``--tp``, the Llama cut to this
+    rank's shard."""
+    import torch.distributed as dist
+
+    from wmar_tpu_torch.engine.kvcache import CacheSpec
+    from wmar_tpu_torch.parallel import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dp = max(1, world // args.tp) if args.dp == 0 else args.dp
+    if dp * args.tp != world:
+        raise SystemExit(f"--dp {dp} x --tp {args.tp} needs {dp * args.tp} ranks, this run has {world}: launch it "
+                         f"with torchrun --nproc_per_node {dp * args.tp}")
+    mesh = make_mesh(dp=dp, tp=args.tp)
+    print(f"sharded generation: dp={dp} tp={args.tp}, rank {mesh.rank} of {world}")
+    if str(wrapper.cache_dtype).startswith("packed"):
+        wrapper.cache_dtype = CacheSpec(wrapper.cache_dtype, mesh, "dp" if dp > 1 else None,
+                                        "tp" if args.tp > 1 else None)
+    if args.tp > 1:
+        wrapper.shard(mesh)
+    return mesh
 
 
 def synthetic_tokenizer(n_chars: int):
@@ -430,6 +492,12 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA card is visible; pass --device cpu to run on the CPU")
+    if _multi_rank(args):
+        from wmar_tpu_torch.parallel import init_distributed
+
+        init_distributed("nccl" if device.type == "cuda" else "gloo")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())  # the rank's card
 
     from wmar_tpu_torch.augmentations import AugmentationManager
     from wmar_tpu_torch.core import WatermarkSpec
@@ -455,6 +523,8 @@ def main(argv=None):
         else:
             quantize_rar_params_int8(wrapper.rar, compute_dtype=torch.bfloat16, bits=bits)
 
+    mesh = make_run_mesh(args, wrapper) if _multi_rank(args) else None
+
     apply_wm = args.wm_method == "gentime"
     if apply_wm:
         method = (f"{args.wm_seed_strategy}-{args.wm_split_strategy}-"
@@ -476,7 +546,8 @@ def main(argv=None):
                     guidance_scale=args.guidance_scale, guidance_scale_pow=0.0)
     eval_params = EvalParams(max_roundtrips=args.max_roundtrips, orig_only=args.orig_only)
     aug_manager = None
-    if not (args.orig_only or args.no_augs):
+    lead = mesh is None or mesh.rank == 0  # the other ranks only sample
+    if lead and not (args.orig_only or args.no_augs):
         nc_models = None
         if args.include_neural_compress:
             from wmar_tpu_torch.augmentations.neural import build_codec_bank
@@ -499,16 +570,17 @@ def main(argv=None):
             diffpure = DiffPure(load_adm_weights(args.diffpure_weights, GUIDED_DIFFUSION_256_UNCOND, device))
         aug_manager = AugmentationManager(exact_jpeg=args.exact_jpeg, nc_models=nc_models, diffpure=diffpure)
     sync_manager = None
-    if args.sync:
+    if lead and args.sync:
         from wmar_tpu_torch.sync.manager import SyncManager
 
         sync_manager = SyncManager.from_path(args.syncpath, image_size=wrapper.image_size, device=device)
     records = generate_and_evaluate(
         args.outdir, wrapper, all_inputs, gen, eval_params, aug_manager,
         batch_size=args.batch_size, seed=args.seed, chunk_id=args.chunk_id,
-        num_chunks=args.num_chunks, apply_watermark=apply_wm, sync_manager=sync_manager,
+        num_chunks=args.num_chunks, apply_watermark=apply_wm, sync_manager=sync_manager, mesh=mesh,
     )
-    print(f"wrote {len(records)} records to {args.outdir}")
+    if lead:
+        print(f"wrote {len(records)} records to {args.outdir}")
     return records
 
 

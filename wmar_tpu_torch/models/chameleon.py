@@ -19,9 +19,15 @@ as in the reference; translation to VQGAN codebook ids happens inside
 ``codes_to_images``/``images_to_codes``.
 
 The interleaved text-and-image frontend is
-:mod:`wmar_tpu_torch.models.chameleon_interleaved`. Not ported yet:
-sequence- and pipeline-parallel prefill and tensor parallelism (ROADMAP
-queue 1, item 14).
+:mod:`wmar_tpu_torch.models.chameleon_interleaved`.
+
+Tensor parallelism (``generate --tp``): :meth:`ChameleonARMM.shard` keeps
+this rank's Megatron shard of the Llama (:func:`llama_tp_specs`); the
+sampler then runs the rank's heads over a cache of those heads and gets the
+whole vocabulary's logits from the forward, so every tp rank draws the same
+tokens. Refused under tensor parallelism, each naming its ROADMAP item:
+int4 weights and the interleaved entry point (queue 1, item 14.2).
+Sequence- and pipeline-parallel prefill are not ported yet (item 14.3).
 """
 
 from __future__ import annotations
@@ -35,9 +41,21 @@ import torch
 from wmar_tpu_torch.core.greenlist import VQInfo
 from wmar_tpu_torch.core.sampling import instruct_cfg_combine
 from wmar_tpu_torch.engine.decode import SamplerConfig, decode_tokens
-from wmar_tpu_torch.engine.kvcache import KVCache
+from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache
 from wmar_tpu_torch.models.armm import ARMMWrapper, GenParams
-from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward
+from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_tp_specs
+
+TP_INT4 = ("--tp with int4 weights is not ported yet: a row-parallel int4 matrix splits its within-group byte "
+           "axis, so w1 and w3 must take the same strided hidden units (ROADMAP queue 1, item 14.2)")
+TP_INTERLEAVED = "--tp on the interleaved path is not ported yet (ROADMAP queue 1, item 14.2)"
+
+
+def refuse_tp_interleaved(wrapper) -> None:
+    """Raise where ``wrapper`` holds a tensor-parallel shard: the interleaved
+    samplers run the whole model."""
+    mesh = getattr(wrapper, "mesh", None)
+    if mesh is not None and mesh.tp > 1:
+        raise NotImplementedError(TP_INTERLEAVED)
 from wmar_tpu_torch.models.vqgan import TamingVQGAN
 
 
@@ -146,7 +164,7 @@ class ChameleonT2ISampler:
 
     def __init__(self, params, cfg: LlamaConfig, image_token_mask: torch.Tensor, prompts: torch.Tensor,
                  start: torch.Tensor, cfg_opts: ImageCFGOptions, image_seq_len: int = 1024,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, mesh=None):
         self.params = params
         self.cfg = cfg
         self.image_token_mask = image_token_mask
@@ -155,6 +173,7 @@ class ChameleonT2ISampler:
         self.opts = cfg_opts
         self.image_seq_len = image_seq_len
         self.cache_dtype = cache_dtype
+        self.mesh = mesh
         self.prompt_len = prompts.shape[1]
 
     def _combine(self, logits: torch.Tensor) -> torch.Tensor:
@@ -171,14 +190,16 @@ class ChameleonT2ISampler:
         cache = KVCache.zeros(self.cfg.n_layers, self.prompts.shape[0], self.cfg.n_heads, max_len,
                               self.cfg.head_dim, self.cache_dtype, device=dev)
         positions = torch.clamp_min(torch.arange(self.prompt_len, device=dev)[None, :] - self.start[:, None], 0)
-        logits, cache = llama_forward(self.params, self.cfg, self.prompts, cache, 0, positions, start=self.start)
+        logits, cache = llama_forward(self.params, self.cfg, self.prompts, cache, 0, positions, start=self.start,
+                                      mesh=self.mesh)
         return self._combine(logits[:, -1]), cache
 
     def step_fn(self, cache, prev: torch.Tensor, step: torch.Tensor):
         tokens = prev.repeat(3)[:, None]  # the drawn token to all three CFG rows
         write_pos = self.prompt_len + step - 1
         positions = (write_pos - self.start)[:, None]
-        logits, cache = llama_forward(self.params, self.cfg, tokens, cache, write_pos, positions, start=self.start)
+        logits, cache = llama_forward(self.params, self.cfg, tokens, cache, write_pos, positions, start=self.start,
+                                      mesh=self.mesh)
         return self._combine(logits[:, -1]), cache
 
 
@@ -220,6 +241,25 @@ class ChameleonARMM(ARMMWrapper):
         self._bpe2img = vocab.bpe2img_table.to(self.device)
         self._img2bpe = vocab.img2bpe_table.to(self.device)
         self._image_mask = vocab.image_token_mask.to(self.device)
+        self.mesh = None
+
+    def shard(self, mesh) -> None:
+        """Keep only this rank's tensor-parallel shard of the Llama (``mesh``
+        a ``parallel.Mesh``); the tokenizer stays whole. int4 weights are
+        refused (:data:`TP_INT4`)."""
+        from wmar_tpu_torch.parallel import apply_specs
+
+        if mesh.tp > 1:
+            if any("q4" in blk[k] for blk in self.llama_params["blocks"] for k in blk if isinstance(blk[k], dict)):
+                raise NotImplementedError(TP_INT4)
+            self.llama_params = apply_specs(mesh, self.llama_params, llama_tp_specs(self.llama_params))
+        self.mesh = mesh
+
+    def _cache_dtype(self):
+        """The cache dtype, as a :class:`CacheSpec` of this rank's heads under tensor parallelism."""
+        if self.mesh is None or self.mesh.tp == 1 or isinstance(self.cache_dtype, CacheSpec):
+            return self.cache_dtype
+        return CacheSpec(self.cache_dtype, self.mesh, "dp" if self.mesh.dp > 1 else None, "tp")
 
     def get_vq(self) -> VQInfo:
         emb = self.vq.quantize.embedding.detach().float().cpu().numpy()
@@ -256,7 +296,7 @@ class ChameleonARMM(ARMMWrapper):
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         start = torch.as_tensor(start, dtype=torch.int32, device=self.device)
         sampler = ChameleonT2ISampler(self.llama_params, self.llama_cfg, self._image_mask, prompts, start,
-                                      self.cfg_opts, self.image_seq_len, self.cache_dtype)
+                                      self.cfg_opts, self.image_seq_len, self._cache_dtype(), self.mesh)
         init_logits, cache = sampler.prefill()
 
         def masked_step(cache, prev, step):

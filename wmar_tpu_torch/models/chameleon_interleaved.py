@@ -42,7 +42,7 @@ from wmar_tpu_torch.core.sampling import (
     warp_and_sample,
 )
 from wmar_tpu_torch.engine.kvcache import KVCache
-from wmar_tpu_torch.models.chameleon import ChameleonVocab
+from wmar_tpu_torch.models.chameleon import ChameleonVocab, refuse_tp_interleaved
 from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward
 
 NEG = -1e10
@@ -231,7 +231,8 @@ def sample_interleaved_fused(
     count is exact. Slot indices are Python ints of the loop counter.
     """
     if sp_mesh is not None:
-        raise NotImplementedError("the sequence-parallel prefill is not ported yet (ROADMAP queue 1, item 14)")
+        raise NotImplementedError("the sequence-parallel prefill is not ported yet (ROADMAP queue 1, item 14.3)")
+    refuse_tp_interleaved(wrapper)
     text_opts = text_opts or TextGenOptions()
     vocab, cfg, opts = wrapper.vocab, wrapper.llama_cfg, wrapper.cfg_opts
     dev = wrapper.device
@@ -376,6 +377,7 @@ def sample_interleaved(
     """Interleaved output for one prompt by a host-driven loop of segments,
     each with a fresh prefill over the whole history. Returns the
     ``[(kind, tokens)]`` segment list."""
+    refuse_tp_interleaved(wrapper)
     text_opts = text_opts or TextGenOptions()
     vocab = wrapper.vocab
     history = list(wrapper.tokenize_prompts([prompt])[0])

@@ -18,8 +18,20 @@ on a float or int8 cache of 2048 slots or more it goes to the flash-decode
 kernels (:func:`wmar_tpu_torch.ops.flash_decode.flash_decode_attention` and
 ``..._q8``), as in JAX: that is the interleaved path, whose three CFG rows
 share one long cache behind a per-row ``key_mask``. ``USE_FLASH_DECODE``
-forces that route on or off. Not ported yet: the sequence-parallel prefill
-and the tensor-parallel specs (ROADMAP queue 1, item 14).
+forces that route on or off.
+
+Tensor parallelism is Megatron's, as JAX's ``llama_tp_specs`` shards it:
+:func:`llama_tp_specs` gives the specs, ``parallel.apply_specs`` cuts a
+rank's shard, and :func:`llama_forward` with ``mesh`` runs that shard with
+the collectives the reference issues (``deps/chameleon/inference/
+transformer.py:159,220``): wq/wk/wv/w1/w3 column-parallel (this rank's
+heads and hidden units), wo and w2 row-parallel with an all-reduce after
+each, the embedding vocab-parallel (ids outside this rank's rows masked,
+then an all-reduce) and the vocab head column-parallel, its logits
+all-gathered, so the sampler sees the whole vocabulary. The qk-norms are
+per head over ``head_dim`` and replicate. Not ported yet: the sequence-
+and pipeline-parallel prefill (ROADMAP queue 1, item 14.3) and int4
+weights under tensor parallelism (item 14.2).
 
 Chameleon-7B config: dim 4096, 32 layers/heads, ffn 11008, qk_normalization,
 vocab 65536.
@@ -37,6 +49,7 @@ from wmar_tpu_torch.engine.attention import cached_decode_attention, decode_atte
 from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCache, QuantKVCache
 from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_attention_q8
+from wmar_tpu_torch.parallel.mesh import P, all_gather, all_reduce
 
 # The flash-decode kernels for single-token steps over a float or int8
 # cache. None = auto: the kernels when the cache has >= 2048 slots, the
@@ -165,11 +178,12 @@ def block_attn_inputs(blk, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
     head repeat. ``x [B, t, dim]`` -> ``q, k, v [B, H, t, D]``. ``rope``:
     the ``(cos, sin)`` of :func:`rope_angles`, shared by a forward's layers."""
     b, t = x.shape[:2]
-    n_rep = cfg.n_heads // cfg.kv_heads
     h = _rms(x, blk["attention_norm"], cfg.norm_eps)
-    q = wquant.matmul(h, blk["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = wquant.matmul(h, blk["wk"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = wquant.matmul(h, blk["wv"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    # head counts from the projections: a tensor-parallel rank holds its share
+    q = wquant.matmul(h, blk["wq"]).reshape(b, t, -1, cfg.head_dim)
+    k = wquant.matmul(h, blk["wk"]).reshape(b, t, -1, cfg.head_dim)
+    v = wquant.matmul(h, blk["wv"]).reshape(b, t, -1, cfg.head_dim)
+    n_rep = q.shape[2] // k.shape[2]
     if cfg.qk_normalization:
         q = _ln(q, blk["q_norm"], cfg.norm_eps)
         k = _ln(k, blk["k_norm"], cfg.norm_eps)
@@ -182,16 +196,33 @@ def block_attn_inputs(blk, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def block_finish(blk, cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+def block_finish(blk, cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor, mesh=None) -> torch.Tensor:
     """Post-attention half of one block: output projection, residuals,
-    SwiGLU FFN, optional LayerScale. ``attn [B, H, t, D]`` -> new ``x``."""
+    SwiGLU FFN, optional LayerScale. ``attn [B, H, t, D]`` -> new ``x``.
+    With a tensor-parallel ``mesh`` the two row-parallel products are summed
+    over the tp ranks before their residual."""
     b, t = x.shape[:2]
-    attn = attn.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    attn_out = wquant.matmul(attn, blk["wo"])
+    attn = attn.transpose(1, 2).reshape(b, t, -1)
+    attn_out = all_reduce(wquant.matmul(attn, blk["wo"]), mesh)
     x = x + (blk["ls1"] * attn_out if cfg.layer_scale else attn_out)
     h2 = _rms(x, blk["ffn_norm"], cfg.norm_eps)
     ffn_out = wquant.matmul(F.silu(wquant.matmul(h2, blk["w1"])) * wquant.matmul(h2, blk["w3"]), blk["w2"])
+    ffn_out = all_reduce(ffn_out, mesh)
     return x + (blk["ls2"] * ffn_out if cfg.layer_scale else ffn_out)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``table[tokens]``; on a tensor-parallel rank ``table`` holds its rows
+    of the vocabulary: ids outside them give zeros, and the sum over the tp
+    ranks (one rank contributes each row) is the lookup."""
+    if mesh is None or mesh.tp == 1:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - mesh.axis_index("tp") * n
+    mine = (local >= 0) & (local < n)
+    x = torch.where(mine[..., None], table[local.clamp(0, n - 1)], torch.zeros((), dtype=table.dtype,
+                                                                              device=table.device))
+    return all_reduce(x, mesh)
 
 
 def _cache_attention(q, cache, li, valid_len, start, key_mask):
@@ -215,6 +246,7 @@ def llama_forward(
     positions: torch.Tensor,
     start: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, object]:
     """Forward ``tokens [B, t]`` written into the cache at ``write_pos`` (an
     int or a 0-d device tensor).
@@ -223,9 +255,13 @@ def llama_forward(
     ``start [B]``: first valid cache index per row (left-pad masking).
     ``key_mask [B, T_max]``: optional per-slot validity. The cache is
     updated in place. Returns ``(logits [B, t, vocab] float32, cache)``.
+    With a tensor-parallel ``mesh`` (``parallel.Mesh``), ``params`` are
+    this rank's shard (:func:`llama_tp_specs`) and ``cache`` holds this
+    rank's heads; every tp rank calls this with the same tokens and gets
+    the whole vocabulary's logits.
     """
     t = tokens.shape[1]
-    x = params["tok_embeddings"][tokens]
+    x = embed_tokens(params["tok_embeddings"], tokens, mesh)
     valid_len = write_pos + t
     if isinstance(valid_len, torch.Tensor):
         valid_len = valid_len.to(torch.int32)  # one cast per forward, read by every layer's kernel
@@ -234,9 +270,9 @@ def llama_forward(
         q, k, v = block_attn_inputs(blk, cfg, x, positions, rope)
         cache = cache.write(li, write_pos, k, v)
         attn = _cache_attention(q.contiguous(), cache, li, valid_len, start, key_mask)
-        x = block_finish(blk, cfg, x, attn)
+        x = block_finish(blk, cfg, x, attn, mesh)
     x = _rms(x, params["norm"], cfg.norm_eps)
-    return wquant.matmul(x, params["output"]).to(torch.float32), cache
+    return all_gather(wquant.matmul(x, params["output"]).to(torch.float32), mesh), cache
 
 
 WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
@@ -260,3 +296,49 @@ def quantize_llama_params_int8(params, compute_dtype=None, bits: int = 8) -> dic
         out["norm"] = params["norm"].to(compute_dtype)
         out["blocks"] = wquant.cast_float_leaves(out["blocks"], compute_dtype)
     return out
+
+
+def llama_tp_specs(params: dict) -> dict:
+    """Megatron specs of a llama tree, JAX's ``llama_tp_specs``:
+    column-parallel wq/wk/wv/w1/w3 and vocab head, row-parallel wo/w2, the
+    embedding's rows sharded. A weight-only-int8 ``{"q", "s"}`` leaf shards
+    ``q`` as the matrix and ``s`` with the output dim (replicated where the
+    input dim is sharded); a grouped-int4 ``{"q4", "s4"}`` leaf shards its
+    within-group byte axis where the input dim is sharded, as in JAX (which
+    the forward does not take yet: ROADMAP queue 1, item 14.2)."""
+
+    def mat_spec(w, spec: P):
+        if isinstance(w, dict):
+            in_axis, out_axis = spec[0], spec[1]
+            if "q4" in w:  # grouped int4: [gc, G/2, n_out] + [gc, n_out]
+                return {"q4": P(None, in_axis, out_axis), "s4": P(None, out_axis)}
+            return {"q": spec, "s": P(out_axis)}
+        return spec
+
+    def block_spec(blk):
+        spec = {
+            "attention_norm": P(),
+            "ffn_norm": P(),
+            "wq": P(None, "tp"),
+            "wk": P(None, "tp"),
+            "wv": P(None, "tp"),
+            "wo": P("tp", None),
+            "w1": P(None, "tp"),
+            "w3": P(None, "tp"),
+            "w2": P("tp", None),
+        }
+        spec = {k: (mat_spec(blk[k], v) if k in WEIGHT_KEYS else v) for k, v in spec.items()}
+        if "q_norm" in blk:
+            spec["q_norm"] = {"scale": P(), "bias": P()}
+            spec["k_norm"] = {"scale": P(), "bias": P()}
+        if "ls1" in blk:
+            spec["ls1"] = P()
+            spec["ls2"] = P()
+        return spec
+
+    return {
+        "tok_embeddings": P("tp", None),
+        "blocks": [block_spec(b) for b in params["blocks"]],
+        "norm": P(),
+        "output": mat_spec(params["output"], P(None, "tp")),
+    }

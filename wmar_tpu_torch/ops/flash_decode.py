@@ -496,6 +496,29 @@ def packed4_decode_attention(q, kv_all, scale_all, layer: int, valid_len, start=
     return out
 
 
+def sharded_packed_decode_attention(q, cache, layer: int, valid_len, start=None, key_mask=None) -> torch.Tensor:
+    """Decode attention over one rank's shard of a multi-GPU packed cache,
+    the counterpart of JAX's ``shard_map`` wrapper
+    (``wmar_tpu/ops/flash_decode.py:602-674``).
+
+    Each rank runs the unchanged kernel (#1 or #2 below 1024 slots, #3 or
+    #4 from 1024 on) on its own rows and heads: ``q [B_local, H_local, 1,
+    D]``, ``start`` and ``key_mask`` of its rows, and the cache's arrays,
+    which on a rank of a tp grid hold one lane group, a plain packed cache
+    of its heads. Decode attention is pointwise over rows and heads, so
+    there is no collective. Raises, as JAX does, where the cache's
+    ``tp_groups`` is not the grid's tp size (its lanes would split K from
+    V)."""
+    from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache
+
+    ntp = cache.mesh.shape[cache.tp_axis] if cache.tp_axis else 1
+    if cache.tp_groups != ntp:
+        raise ValueError(f"cache tp_groups={cache.tp_groups} != mesh tp={ntp}; build the cache with "
+                         "KVCache.zeros(..., CacheSpec(dtype, mesh, tp_axis='tp'))")
+    kernel = packed4_decode_attention if isinstance(cache, Packed4QuantKVCache) else packed_decode_attention_q8
+    return kernel(q, cache.kv, cache.scale, layer, valid_len, start=start, key_mask=key_mask)
+
+
 packed4_decode_attention.launches = 0
 packed4_decode_attention_chunked.launches = 0
 packed_decode_attention_q8.launches = 0
