@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only dp_finetune   # part (c) of phase 18 alone
 
 Drives the port's main paths once at full width and checks them, in
 phases:
@@ -218,12 +219,13 @@ phases:
    generation on the packed4 cache (kernel #1), Mimi decode, the whole
    audio grid (MP3 where libmp3lame loads, the Mimi, EnCodec and DAC round
    trips: 43 cells on the card), re-encode, scoring, ``results.json`` and
-   8 WAVs; (c) a ``--wm_method none``
-   control on the packed cache. Gates: exactly 32 layers x 65 loop frames
-   launches of the cache's kernel a generation and none of any other, every
-   watermarked audio stream's own tokens at Maryland p < 1e-6 in (a) and
-   (b), the control's median p above 0.01, cells x 8 rows x 8 streams
-   finite records. Prints frames/s of each generation, host and device ms
+   8 WAVs (the ``--wm_method none`` control generation went for the
+   script's time; the CPU tests hold the unwatermarked generation to
+   JAX's). Gates: exactly 32 layers x 65 loop frames launches of the
+   cache's kernel a generation and none of any other, every watermarked
+   audio stream's own tokens at Maryland p < 1e-6 in (a) and (b), (a)'s
+   tokens scored with another key (the control) at a median p above 0.01,
+   cells x 8 rows x 8 streams finite records. Prints frames/s of each generation, host and device ms
    a frame (``torch.profiler`` over 8 frames), the launches, whether MP3
    ran and the record count; then ``python -m wmar_tpu_torch.audio_eval
    --tiny`` once on the card;
@@ -304,7 +306,26 @@ phases:
    ``--tp 2`` run draws other tokens than ``--tp 1`` within a few steps, so
    its bf16 teacher-forced distance and the first step whose argmax parts
    are printed, not gated. Prints seconds, peak GiB and launches per rank
-   and the transport. The ranks' launches join the kernels line.
+   and the transport. The ranks' launches join the kernels line. (c) Then,
+   in the same two ranks, data-parallel finetuning (``phase_dp_finetune``'s
+   work): ``finetune.cli.main`` at Taming's full f16 VQGAN (random, from a
+   file; the random discriminator, level strong, whose noise branch the
+   seed draws at epochs 0 and 1) and ``finetune_mimi.main`` at MIMI_V0_1
+   (10 s clips, ``mrstft``, white and pink noise), a global batch of 8 as 4
+   a rank. This process first trains each one's first epochs at batch 8 (at
+   step 0 the trainable decoder is the frozen one, and the drift, the GAN
+   weight and Mimi's audio loss are 0), gives the ranks and itself a copy of
+   the resume files, trains the next epochs at 8 from its copy beside the
+   ranks' generation, frees its cache, and the ranks then resume from
+   theirs (the entry points' flags; float32, TF32 off on both sides).
+   Gates: the first resumed step's ``loss``, ``vqgan_gan_weight``,
+   ``grad_norm`` and Mimi ``audio_loss`` within 1e-4 relative of the one
+   process's, every logged number after it (the eval's too) within 1e-3;
+   the trained parameters within 2 lr a step at most, at most 0.2% of them
+   more than 0.01 lr apart;
+   rank 1 changes no file.
+   Prints each trainer's seconds a step, peak GiB and bytes all-reduced a
+   step per rank.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -1848,6 +1869,9 @@ def multirank_rank(rank: int, spec: dict) -> None:
     if rank == 0:
         torch.save({"codes": codes.cpu(), **{k: v.cpu() for k, v in forced.items()}},
                    os.path.join(spec["reports"], "chameleon_tp2.pt"))
+    if spec.get("finetune"):
+        del wrapper, mesh, rec, forced
+        report["finetune"] = dp_finetune_rank(rank, spec["finetune"])
     with open(os.path.join(spec["reports"], f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
 
@@ -1906,8 +1930,378 @@ def sharded_logit_gate(label: str, got: dict, want: dict) -> dict:
     return out
 
 
+# Data-parallel finetuning (part (c) of the multi-rank phase): each trainer's flags (the entry points' own, no
+# precision flag), a global batch of 8, two ranks of 4 against one process of 8, both sides resumed from one
+# checkpoint. This process trains the first epochs at 8 (the start) and gives each side a copy of its resume files:
+# at step 0 the trainable decoder is the frozen one, so the drift, the GAN weight and Mimi's audio loss are 0 and the
+# drift's |x_orig - x| sits on its kink (one ulp between a rank's trainable and frozen decodes moves the gradient's
+# norm 3x), while from the first resumed step on none of them is 0. The data's rows differ as real data's do
+# (:func:`_write_dp_data`): on alike rows a rank's batch statistics are the global batch's, and a rank-local GAN
+# weight or spectral convergence would give the global numbers. RCC: Taming's f16 VQGAN, 8 code rows (a step an
+# epoch), no validation, level strong; the start is epoch 0, the sides train epochs 1 and 2; seed 12 draws the noise
+# branch (0.08) at epochs 0 and 1. Mimi: 16 clips of 10 s (2 held out), a step an epoch; the start is epochs 0 (at
+# rate 0, the warmup's first step) and 1, the sides train epoch 2 and run the eval after it; mrstft (its spectral
+# convergence sums over the batch), white and pink noise drawn at the global shape. The start runs fewer epochs:
+# Mimi's schedule follows --epochs, but not at steps 0 and 1 (0, then the peak).
+DP_RCC_LR, DP_MIMI_LR = 1e-4, 1e-5
+DP_RCC_FLAGS = ("--model", "taming", "--no_validate", "--lr", str(DP_RCC_LR),
+                "--idempotence_loss_weight", "1.0", "--log_every", "1", "--disc_init", "random", "--seed", "12")
+DP_MIMI_FLAGS = ("--num_valid", "2", "--batch_size", "8", "--target_duration", "10.0",
+                 "--steps_per_epoch", "1", "--warmup_epochs", "0", "--eval_freq", "3", "--val_token_match", "none",
+                 "--learning_rate", str(DP_MIMI_LR), "--audio_loss_type", "mrstft",
+                 "--augs", "{'noise_injection': 1, 'pink_noise': 1}", "--augmentation_start", "0")
+DP_EPOCHS = {"rcc": (1, 3), "mimi": (2, 3)}  # (the start's epochs, the sides' epochs)
+DP_RESUME_FILES = ("checkpoint.msgpack", "checkpoint_meta.json")
+# The first resumed step's loss, vqgan_gan_weight, grad_norm (RCC) and audio_loss (Mimi), two ranks against one
+# process, relative: from the same weights, in float32 with TF32 off, only the order of the sums differs
+DP_FIRST_REL = 1e-4
+# Every number logged from the resumed steps on (the eval's too), relative: these follow weights that the first
+# step's reduction order parted (2.9e-5 on an H100 80GB); a rank-local term or draw moves them by its own size
+DP_LOGGED_REL = 1e-3
+# The trained parameters after the last step, in units of the learning rate: Adam moves an entry by about lr whatever
+# its gradient, so the few entries whose gradient is near 0 may part by up to 2 lr a step (the largest distance is
+# held to that), while a wrong gradient moves most entries a little. So at most DP_PARAMS_SHARE of the entries may
+# lie more than DP_PARAMS_APART_LR apart (on an H100 80GB: 9e-6-2e-5 of RCC's, none of Mimi's; 7.9e-3 of RCC's with
+# a rank-local GAN weight; the CPU tests' tiny RCC 7.7e-4)
+DP_PARAMS_APART_LR = 1e-2
+DP_PARAMS_SHARE = 2e-3
+
+
+@contextlib.contextmanager
+def float32_trainers():
+    """Both trainers in float32 with TF32 off: their ``set_precision`` (cuDNN
+    TF32 on, the entry point's) replaced by one that turns both switches
+    off; the switches and the function put back after."""
+    from wmar_tpu_torch.finetune import cli
+
+    def off():
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        return prev
+
+    real, prev = cli.set_precision, (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    cli.set_precision = off
+    try:
+        yield
+    finally:
+        cli.set_precision = real
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def dp_finetune_spec(device, workdir: str, tiny: bool = False) -> dict:
+    """The trainers' argv for part (c) of the multi-rank phase; their
+    weights, written by :func:`dp_reference` before the runs, are a random
+    Taming f16 VQGAN (``<workdir>/taming/vqgan.msgpack``, float32) and a
+    random MIMI_V0_1 (``<workdir>/mimi_v0_1.msgpack``); ``tiny``: the CLIs'
+    tiny models (``--tiny``, no files). The data (:func:`_write_dp_data`):
+    ``<out>/codes.npy`` and ``<out>/clips/``."""
+    device_type = torch.device(device).type
+    out = os.path.join(workdir, "dp_finetune")
+    dev = ["--device", device_type]
+    rcc = list(DP_RCC_FLAGS) + dev + ["--datapath", os.path.join(out, "codes.npy")]
+    mimi = list(DP_MIMI_FLAGS) + dev + ["--audio_dir", os.path.join(out, "clips")]
+    files = None
+    if tiny:
+        rcc.append("--tiny")
+        mimi.append("--tiny")
+    else:
+        files = {"vqgan": os.path.join(workdir, "taming", "vqgan.msgpack"),
+                 "mimi": os.path.join(workdir, "mimi_v0_1.msgpack")}
+        rcc += ["--modelpath", os.path.dirname(files["vqgan"])]
+        mimi += ["--mimi_weights", files["mimi"]]
+    os.makedirs(out, exist_ok=True)
+    return {"rcc": rcc, "mimi": mimi, "out": out, "device_type": device_type, "go": os.path.join(out, "go"),
+            "files": files, "tiny": tiny,
+            "models": "the CLIs' tiny models" if tiny else "Taming's f16 VQGAN, MIMI_V0_1 on 8 x 10 s"}
+
+
+def _write_dp_data(out: str, tiny: bool) -> None:
+    """The trainers' data, from seed ``SEED``, its rows unalike as real
+    data's: ``codes.npy``, 8 rows of 256 codes, 4 uniform over the codebook
+    and 4 over its first 4 codes (flat images); ``clips/``, 16 clips (10 s,
+    or 1 s with ``tiny``, at 24 kHz) of band-limited noise at gains spread
+    over 30 dB, in shuffled order."""
+    from wmar_tpu_torch.finetune_mimi import synthetic_clips
+
+    rng = np.random.default_rng(SEED)
+    vocab = 64 if tiny else 16384  # the tiny and the f16 Taming's codebooks; both have 16 x 16 codes
+    np.save(os.path.join(out, "codes.npy"),
+            np.concatenate([rng.integers(0, vocab, (4, 256)), rng.integers(0, 4, (4, 256))]).astype(np.int32))
+    os.makedirs(os.path.join(out, "clips"), exist_ok=True)
+    clips = synthetic_clips(16, 24000 * (1 if tiny else 10), SEED)[..., 0]
+    for i, (clip, gain) in enumerate(zip(clips, rng.permutation(np.geomspace(0.03, 1.0, len(clips))))):
+        np.save(os.path.join(out, "clips", f"clip{i:02d}.npy"), clip * np.float32(gain))
+
+
+def _write_dp_weights(files: dict, device) -> None:
+    """The random weights of :func:`dp_finetune_spec`'s files, from seed ``SEED``."""
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.audio.mimi import MIMI_V0_1, init_mimi
+    from wmar_tpu_torch.models import TAMING_IMAGENET_F16, init_taming_vqgan
+    from wmar_tpu_torch.utils.checkpoint import save_pytree
+
+    vq = init_taming_vqgan(TAMING_IMAGENET_F16, torch.Generator(device).manual_seed(SEED), device=device)
+    save_pytree(files["vqgan"], _as_f32_cpu(bridge.flax_tree(vq)))
+    del vq
+    model = init_mimi(MIMI_V0_1, torch.Generator(device).manual_seed(SEED), device=device)
+    save_pytree(files["mimi"], {"params": bridge.mimi_tree(model)})
+
+
+def _dp_train(spec: dict, name: str, out: str, batch_per_rank: int, start: bool) -> None:
+    """One trainer through its entry point, float32, into ``out``: the
+    start's epochs (``start``), or the sides' epochs resumed from ``out``'s
+    files. ``finetune_mimi``'s ``--batch_size`` is the global 8."""
+    from wmar_tpu_torch import finetune_mimi
+    from wmar_tpu_torch.finetune import cli
+
+    epochs = DP_EPOCHS[name][0 if start else 1]
+    with float32_trainers(), contextlib.redirect_stdout(io.StringIO()):
+        if name == "rcc":
+            cli.main(spec["rcc"] + ["--nb_epochs", str(epochs), "--augs_schedule", f"0,0,0,{epochs}",
+                                    "--batch_size_per_device", str(batch_per_rank), "--outdir", out]
+                     + ([] if start else ["--resume"]))
+        else:
+            finetune_mimi.main(spec["mimi"] + ["--epochs", str(epochs), "--output_dir", out])
+
+
+def _dp_runs(spec: dict, who: str, batch_per_rank: int, device) -> dict:
+    """Both trainers' resumed epochs at ``batch_per_rank`` rows, into
+    ``<out>/{rcc,mimi}_<who>``; their seconds, peak GiB and the dp
+    collectives' bytes a step. Empties the allocator's cache after."""
+    from wmar_tpu_torch.parallel import reset_traffic, traffic
+
+    cuda = torch.device(device).type == "cuda"
+    report = {}
+    for name in ("rcc", "mimi"):
+        steps = DP_EPOCHS[name][1] - DP_EPOCHS[name][0]
+        reset_traffic()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        _dp_train(spec, name, os.path.join(spec["out"], f"{name}_{who}"), batch_per_rank, start=False)
+        if cuda:
+            torch.cuda.synchronize(device)
+        moved = traffic()
+        report[name] = {"seconds": time.perf_counter() - t0, "peak_gib": _peak_gib(device) if cuda else None,
+                        "all_reduce_bytes_per_step": moved["all_reduce_bytes"] / steps,
+                        "all_gather_bytes_per_step": moved["all_gather_bytes"] / steps,
+                        "collectives_per_step": moved["collectives"] / steps}
+    if cuda:
+        torch.cuda.empty_cache()
+    return report
+
+
+def _seed_sides(out: str) -> dict:
+    """Copies of each start's resume files (in ``<out>/<name>_one``, where
+    this process goes on) for the ranks (``r0``, ``r1``); returns the size
+    and modification time of rank 1's copies."""
+    import shutil
+
+    stats = {}
+    for name in ("rcc", "mimi"):
+        for who in ("r0", "r1"):
+            os.makedirs(os.path.join(out, f"{name}_{who}"), exist_ok=True)
+            for f in DP_RESUME_FILES:
+                shutil.copyfile(os.path.join(out, f"{name}_one", f), os.path.join(out, f"{name}_{who}", f))
+        stats[name] = {f: [st.st_size, st.st_mtime_ns] for f in DP_RESUME_FILES
+                       for st in [os.stat(os.path.join(out, f"{name}_r1", f))]}
+    return stats
+
+
+def dp_reference(spec: dict, device) -> dict:
+    """The weights' and the data's files; the start (each trainer's first
+    epochs as one process at 8, in ``<out>/{rcc,mimi}_one``) and the
+    ranks' copies of its resume files (``seeded.json``: rank 1's copies'
+    sizes and times); the one process's resumed runs at 8 from its own
+    (:func:`_dp_runs`); then the signal the ranks wait for
+    (``spec["go"]``): they train after it, so that no two trainers share
+    the card's memory at once."""
+    try:
+        if spec["files"]:
+            _write_dp_weights(spec["files"], device)
+        _write_dp_data(spec["out"], spec["tiny"])
+        t0 = time.perf_counter()
+        for name in ("rcc", "mimi"):
+            _dp_train(spec, name, os.path.join(spec["out"], f"{name}_one"), 8, start=True)
+        with open(os.path.join(spec["out"], "seeded.json"), "w") as f:
+            json.dump(_seed_sides(spec["out"]), f)
+        start_s = time.perf_counter() - t0
+        report = _dp_runs(spec, "one", 8, device)
+        report["start_s"] = start_s
+        return report
+    finally:
+        with open(spec["go"], "w") as f:
+            f.write("go")
+
+
+def _wait_for(path: str, timeout: float = 1800.0) -> None:
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"dp finetune: no {path} after {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def dp_finetune_rank(rank: int, spec: dict) -> dict:
+    """Part (c) in a rank of the process group: both trainers' resumed
+    epochs at 4 rows a rank, in ``<out>/{rcc,mimi}_r<rank>``, once the one
+    process's runs are done (:func:`dp_reference`)."""
+    if spec["device_type"] == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)  # two ranks' thread pools on one CPU would fight
+    _wait_for(spec["go"])
+    return _dp_runs(spec, f"r{rank}", 4, device)
+
+
+def _trainable_leaves(path: str) -> dict:
+    from wmar_tpu_torch import bridge
+    from wmar_tpu_torch.utils.checkpoint import load_pytree
+
+    return {k: v.double().cpu() for k, v in bridge.flatten(load_pytree(path))}
+
+
+def _params_gate(label: str, got: dict, want: dict, lr: float, steps: int) -> dict:
+    """``got``'s entries against ``want``'s, in units of ``lr``: the largest
+    distance within 2 lr a step, the share of entries more than
+    ``DP_PARAMS_APART_LR`` apart within ``DP_PARAMS_SHARE``."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"dp finetune, {label}: other parameters: {sorted(set(got) ^ set(want))[:4]}")
+    diff = torch.cat([(got[k] - want[k]).flatten() for k in want]).abs_().div_(lr)
+    out = {"max_abs_lr": float(diff.max()), "rms_lr": float(diff.square().mean().sqrt()),
+           **{f"share_above_{t:g}_lr": float((diff > t).double().mean()) for t in (1e-3, DP_PARAMS_APART_LR, 1.0)},
+           "entries": diff.numel()}
+    share = out[f"share_above_{DP_PARAMS_APART_LR:g}_lr"]
+    if not (out["max_abs_lr"] <= 2 * steps and share <= DP_PARAMS_SHARE):
+        raise AssertionError(f"dp finetune, {label}: parameters of two ranks from one process's at most "
+                             f"{out['max_abs_lr']:.3e} lr (bound {2 * steps}), {share:.3e} of them more than "
+                             f"{DP_PARAMS_APART_LR:g} lr apart (bound {DP_PARAMS_SHARE})")
+    return out
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30) if got != want else 0.0
+
+
+def _resumed_logs(out: str, who: str) -> dict:
+    """The numbers each trainer logged from the resumed epochs on: RCC's
+    step metrics (``history.json``), Mimi's epoch lines (``log.txt``, the
+    eval's numbers in the last), each with its epoch's ``train_s``."""
+    first = {name: DP_EPOCHS[name][0] for name in DP_EPOCHS}
+    with open(os.path.join(out, f"rcc_{who}", "history.json")) as f:
+        rcc = [dict(m, train_s=e["train_s"] / len(e["metrics"])) for e in json.load(f)["epochs"]
+               if e["epoch"] >= first["rcc"] for m in e["metrics"]]
+    with open(os.path.join(out, f"mimi_{who}", "log.txt")) as f:
+        mimi = [lg for lg in map(json.loads, f) if lg["epoch"] >= first["mimi"]]
+    return {"rcc": rcc, "mimi": mimi}
+
+
+def dp_finetune_gates(spec: dict) -> dict:
+    """Hold part (c)'s two ranks to the one process: the first resumed
+    step's ``loss``, ``vqgan_gan_weight``, ``grad_norm`` (RCC) and
+    ``audio_loss`` (Mimi) within ``DP_FIRST_REL`` relative; every number
+    logged from the resumed epochs on (the eval's too) within
+    ``DP_LOGGED_REL``; the trained parameters after the last step (RCC:
+    ``epoch<last>_trainable.msgpack``; Mimi: that epoch's four deltas) by
+    :func:`_params_gate`; rank 1's directories holding only its copies of
+    the resume files, unchanged. Returns the distances."""
+    out = spec["out"]
+    with open(os.path.join(out, "seeded.json")) as f:
+        seeded = json.load(f)
+    for name, files in seeded.items():
+        path = os.path.join(out, f"{name}_r1")
+        now = {f: [st.st_size, st.st_mtime_ns] for f in os.listdir(path) for st in [os.stat(os.path.join(path, f))]}
+        if now != files:
+            raise AssertionError(f"dp finetune: rank 1 wrote in {path}: {sorted(now)} (copied: {sorted(files)})")
+    got, want = _resumed_logs(out, "r0"), _resumed_logs(out, "one")
+    steps = {name: a - b for name, (b, a) in DP_EPOCHS.items()}
+    if any(len(got[n]) != steps[n] or len(want[n]) != steps[n] for n in steps):
+        raise AssertionError(f"dp finetune: resumed steps logged {({n: (len(got[n]), len(want[n])) for n in steps})}, "
+                             f"not {steps}")
+    first = {f"rcc {k}": _rel(got["rcc"][0][k], want["rcc"][0][k]) for k in ("loss", "vqgan_gan_weight", "grad_norm")}
+    first["mimi audio_loss"] = _rel(got["mimi"][0]["audio_loss"], want["mimi"][0]["audio_loss"])
+    bad = {k: v for k, v in first.items() if not v <= DP_FIRST_REL}
+    if bad:
+        raise AssertionError(f"dp finetune: the first resumed step of two ranks off the one process's by {bad} "
+                             f"(relative; bound {DP_FIRST_REL})")
+    logged = {f"{n} step {i} {k}": _rel(g[k], w[k]) for n in ("rcc", "mimi") for i, (g, w) in
+              enumerate(zip(got[n], want[n])) for k in w if k not in ("train_s", "epoch")}
+    worst = max(logged, key=logged.get)
+    if not logged[worst] <= DP_LOGGED_REL:
+        raise AssertionError(f"dp finetune: {worst} of two ranks {logged[worst]:.3e} off the one process's "
+                             f"(relative; bound {DP_LOGGED_REL})")
+    last = {n: e - 1 for n, (_, e) in DP_EPOCHS.items()}
+
+    def rcc_weights(who):
+        return _trainable_leaves(os.path.join(out, f"rcc_{who}", f"epoch{last['rcc']}_trainable.msgpack"))
+
+    def mimi_deltas(who):
+        return {f"{part}.{k}": v for part in ("encoder", "enc_transformer", "decoder", "dec_transformer")
+                for k, v in _trainable_leaves(os.path.join(
+                    out, f"mimi_{who}", f"epoch{last['mimi']}_{part}_delta.msgpack")).items()}
+
+    params = {"rcc": _params_gate("RCC", rcc_weights("r0"), rcc_weights("one"), DP_RCC_LR, steps["rcc"]),
+              "mimi": _params_gate("Mimi", mimi_deltas("r0"), mimi_deltas("one"), DP_MIMI_LR, steps["mimi"])}
+    s_per_step = {f"{n}{suffix}": sum(lg["train_s"] for lg in logs[n]) / steps[n]
+                  for suffix, logs in (("", got), ("_one", want)) for n in steps}
+    return {"first_rel": first, "logged_max_rel": {worst: logged[worst]}, "params": params, "s_per_step": s_per_step,
+            "first_step": {"rcc": {k: got["rcc"][0][k] for k in ("loss", "rec_l1", "vqgan_gan_weight", "grad_norm")},
+                           "mimi audio_loss": got["mimi"][0]["audio_loss"]}}
+
+
+def _gib(x) -> str:
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+def dp_finetune_line(spec: dict, gates: dict, per_rank: list, reference: dict) -> str:
+    return (f"dp finetune ({spec['models']}; 2 ranks of 4 rows against one process of 8, float32, both resumed "
+            f"from this process's first epochs, {reference['start_s']:.1f} s): RCC "
+            f"{gates['s_per_step']['rcc']:.3f} s a step ({gates['s_per_step']['rcc_one']:.3f} one process), Mimi "
+            f"{gates['s_per_step']['mimi']:.3f} s a step ({gates['s_per_step']['mimi_one']:.3f}); the first resumed "
+            f"step relative {json.dumps({k: float(f'{v:.3e}') for k, v in gates['first_rel'].items()})} (its values "
+            f"{json.dumps(gates['first_step'])}), every logged number at most {json.dumps(gates['logged_max_rel'])}; "
+            f"parameters {json.dumps(gates['params'])}; "
+            + "; ".join(f"rank {r}: " + ", ".join(
+                f"{n} {v['seconds']:.1f} s, peak {_gib(v['peak_gib'])} GiB, all-reduce "
+                f"{v['all_reduce_bytes_per_step'] / 2**20:.1f} MiB a step, all-gather "
+                f"{v['all_gather_bytes_per_step'] / 2**20:.2f} MiB, {v['collectives_per_step']:.0f} collectives"
+                for n, v in rep.items()) for r, rep in enumerate(per_rank))
+            + "; one process: " + ", ".join(f"{n} {reference[n]['seconds']:.1f} s, peak {_gib(reference[n]['peak_gib'])} GiB"
+                                            for n in ("rcc", "mimi")))
+
+
+def _dp_finetune_only(rank: int, spec: dict) -> None:
+    report = dp_finetune_rank(rank, spec)
+    with open(os.path.join(spec["out"], f"report{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def phase_dp_finetune(device, workdir: str, tiny: bool = False) -> dict:
+    """Part (c) of the multi-rank phase on its own (the CPU tests): two
+    ranks (gloo) beside the one process, then :func:`dp_finetune_gates`."""
+    from wmar_tpu_torch.parallel.launch import spawn_ranks, wait
+
+    spec = dp_finetune_spec(device, workdir, tiny)
+    cuda = spec["device_type"] == "cuda"
+    ranks = spawn_ranks(_dp_finetune_only, 2, "gloo", args=(spec,), devices=[0, 0] if cuda else None, join=False)
+    try:
+        reference = dp_reference(spec, device)
+    finally:
+        wait(ranks)
+    per_rank = []
+    for r in range(2):
+        with open(os.path.join(spec["out"], f"report{r}.json")) as f:
+            per_rank.append(json.load(f))
+    gates = dp_finetune_gates(spec)
+    print(dp_finetune_line(spec, gates, per_rank, reference))
+    return {"gates": gates, "ranks": per_rank, "reference": reference, "spec": spec}
+
+
 def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: int = MULTIRANK_CLASSES,
-                    prompt: str = MULTIRANK_PROMPT, shapes=MULTIRANK_SHAPES) -> dict:
+                    prompt: str = MULTIRANK_PROMPT, shapes=MULTIRANK_SHAPES, finetune: bool = False) -> dict:
     """The multi-rank phase: (a) :func:`phase_sharded_kernels`; (b) two
     ranks (:func:`multirank_rank`), spawned with NCCL, one card each, where
     the machine has two cards or more, else with gloo, both on ``cuda:0``
@@ -1922,8 +2316,12 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     to ``--dp 1``'s (:func:`_compare_trees`); ``--tp 2``'s float32
     teacher-forced logits by :func:`sharded_logit_gate`. The kernel on a
     rank's shard is held to its plain version in (a); a teacher-forced
-    forward is one prefill, on the plain path. ``shapes``: (a)'s. Returns
-    the launches of both ranks and of ``--dp 1``."""
+    forward is one prefill, on the plain path. ``shapes``: (a)'s. With
+    ``finetune``, (c): after (b) the ranks run data-parallel finetuning
+    (:func:`dp_finetune_rank`), this process the start and the one-process
+    runs (:func:`dp_reference`) after its ``--dp 1``, and
+    :func:`dp_finetune_gates` holds them. Returns the
+    launches of both ranks and of ``--dp 1``."""
     from wmar_tpu_torch import generate
     from wmar_tpu_torch.parallel.launch import spawn_ranks, wait
 
@@ -1941,7 +2339,8 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     spec = {"rar_argv": _multirank_rar_argv(n_classes, device), "rar_out": os.path.join(workdir, "rar_dp2"),
             "device_type": "cuda" if cuda else "cpu",
             "chameleon": chameleon_parts(chameleon, modelpath), "chameleon_out": os.path.join(workdir, "cham_tp2"),
-            "prompt": prompt, "reports": reports}
+            "prompt": prompt, "reports": reports,
+            "finetune": dp_finetune_spec(device, workdir) if finetune else None}
     t0 = time.perf_counter()
     ranks = spawn_ranks(multirank_rank, 2, backend, args=(spec,), devices=devices, join=False)
     try:  # the one-rank run beside the ranks, for the script's time
@@ -1949,6 +2348,8 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
         t1 = time.perf_counter()
         generate.main(spec["rar_argv"] + ["--outdir", os.path.join(workdir, "rar_dp1")])
         ref = {"rar": {"seconds": time.perf_counter() - t1, "launches": launches()}}
+        if finetune:
+            ref["finetune"] = dp_reference(spec["finetune"], device)
     finally:
         wait(ranks)
     seconds = time.perf_counter() - t0
@@ -1979,6 +2380,7 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     if not tree or not all(0.0 <= p <= 1.0 for p, _, _ in tree.values()):
         raise AssertionError(f"multi-rank, Chameleon --tp 2: no records or a p-value out of [0, 1]: {tree}")
     cham = {"records": len(tree), **sharded_logit_gate("Chameleon --tp 2", tp2, one)}
+    tuned = dp_finetune_gates(spec["finetune"]) if finetune else None
     counts = {name: ref["rar"]["launches"][name] + sum(r["rar"]["launches"][name] + r["chameleon"]["launches"][name]
                                                        for r in per_rank)
               for name, _, _, _ in _kernels()}
@@ -1990,8 +2392,12 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
                       f"; Chameleon {r['chameleon']['seconds']:.1f} s, peak {r['chameleon']['peak_gib']:.2f} GiB, "
                       f"launches #4 {r['chameleon']['launches']['packed4_decode_attention_chunked']}" for r in per_rank)
           + f"; --dp 1 (this process, beside the ranks): RAR {ref['rar']['seconds']:.1f} s")
+    if finetune:
+        print("multi-rank: " + dp_finetune_line(spec["finetune"], tuned, [r["finetune"] for r in per_rank],
+                                                ref["finetune"]))
     return {"launches": counts, "sharded_kernels": sharded, "backend": backend, "transport": transport,
-            "seconds": seconds, "ranks": per_rank, "references": ref, "rar": rar, "chameleon": cham}
+            "seconds": seconds, "ranks": per_rank, "references": ref, "rar": rar, "chameleon": cham,
+            "finetune": tuned}
 
 
 def build_taming(device, gpt_cfg=None, vq_cfg=None):
@@ -2970,7 +3376,7 @@ AUDIO_STEPS = 64  # wmar_audio_eval.py's default: 5.1 s of audio at 12.5 fps
 AUDIO_FLAGS = ("--batch_size", str(AUDIO_BATCH), "--steps", str(AUDIO_STEPS), "--device", "cuda",
                "--mimi_compression", "--wm_method", "maryland", "--wm_delta", "4.0", "--wm_gamma", "0.25")
 AUDIO_P_MAX = 1e-6  # Maryland p-value of every watermarked stream's own tokens
-AUDIO_CONTROL_MEDIAN_P = 0.01  # the unwatermarked control's median p-value must lie above this
+AUDIO_CONTROL_MEDIAN_P = 0.01  # the median p-value of (a)'s tokens scored with another key must lie above this
 
 
 def moshi_decode_shape():
@@ -3037,11 +3443,11 @@ def phase_audio(device, workdir: str) -> dict:
     ``python -m wmar_tpu_torch.audio_eval --cache_dtype packed4
     --mimi_compression``: generation on the packed4 cache (kernel #1), Mimi
     decode, the whole audio grid (MP3 where libmp3lame loads, the Mimi
-    round trip), re-encode, scoring, results.json; (c) a ``--wm_method
-    none`` control on the packed cache. Gates: exactly 32 layers x 65 loop
-    frames launches of the cache's kernel in each generation and none of any
-    other; every watermarked audio stream's own tokens at Maryland p <
-    1e-6 in (a) and (b), the control's median p above 0.01; every record
+    round trip), re-encode, scoring, results.json. Gates: exactly 32
+    layers x 65 loop frames launches of the cache's kernel in each
+    generation and none of any other; every watermarked audio stream's own
+    tokens at Maryland p < 1e-6 in (a) and (b); (a)'s tokens scored with
+    another key (the control) at a median p above 0.01; every record
     finite. Then host and device time of a frame (``torch.profiler``), and
     ``python -m wmar_tpu_torch.audio_eval --tiny`` once on the card."""
     from wmar_tpu_torch import audio_eval, bridge
@@ -3092,17 +3498,18 @@ def phase_audio(device, workdir: str) -> dict:
     for k, n in counts.items():
         total[k] += n
     runs["packed4"] = ev["generate_s"]
-    _, audio_c, runs["control"] = generation("control", "packed", None, 43)
-    for label, audio in (("packed", audio_a), ("packed4", ev["audio"]), ("control", audio_c)):
+    for label, audio in (("packed", audio_a), ("packed4", ev["audio"])):
         if tuple(audio.shape) != (AUDIO_BATCH, cfg.n_audio_streams, AUDIO_STEPS) or \
                 not bool(((audio >= 0) & (audio < cfg.audio_vocab)).all()):
             raise AssertionError(f"audio {label}: tokens {tuple(audio.shape)} in [{audio.min()}, {audio.max()}]")
-    p_a, p_b, p_c = (_stream_pvalues(a, 0.25) for a in (audio_a, ev["audio"], audio_c))
+    p_a, p_b = (_stream_pvalues(a, 0.25) for a in (audio_a, ev["audio"]))
     if not (p_a.max() < AUDIO_P_MAX and p_b.max() < AUDIO_P_MAX):
         raise AssertionError(f"audio: watermarked streams' largest p-values {p_a.max()} / {p_b.max()} "
                              f"not below {AUDIO_P_MAX}")
+    p_c = _stream_pvalues(audio_a, 0.25, wm_seed=1)
     if not np.median(p_c) > AUDIO_CONTROL_MEDIAN_P:
-        raise AssertionError(f"audio control: median p-value {np.median(p_c)} not above {AUDIO_CONTROL_MEDIAN_P}")
+        raise AssertionError(f"audio control (another key): median p-value {np.median(p_c)} not above "
+                             f"{AUDIO_CONTROL_MEDIAN_P}")
     records = ev["records"]
     n_cells = ev["cells"]
     if len(records) != n_cells * AUDIO_BATCH * cfg.n_audio_streams or ev["augs"][-2:] != ["encodec-compression",
@@ -3144,7 +3551,8 @@ def phase_audio(device, workdir: str) -> dict:
           f"packed4, {profile['frames']} frames) " + (f"{dev_ms:.3f}" if dev_ms is not None else "not measured")
           + (f", {profile['launches_per_frame']:.0f} launches a frame" if dev_ms is not None else "")
           + f"; kernel launches {total} ({per_gen} a generation); largest p-value of the watermarked streams "
-          f"{out['max_p']}; control median p {out['control_median_p']:.3f}; grid + decode {ev['grid_s']:.1f} s, "
+          f"{out['max_p']}; control (another key) median p {out['control_median_p']:.3f}; grid + decode "
+          f"{ev['grid_s']:.1f} s, "
           f"{n_cells} cells with EnCodec and DAC (random files written in {files_s:.1f} s), {len(records)} records, "
           f"mp3 {'ran' if mp3 else 'did not run (libmp3lame did not load)'}; identity "
           f"token match median {out['median_identity_token_match']:.3f} (random Mimi); --tiny CLI on the card "
@@ -4151,7 +4559,7 @@ def phase_fid(device, workdir: str, image_dir: str, div: int = 1, n_synth: int =
     return out
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
@@ -4159,6 +4567,14 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    if list(argv) == ["--only", "dp_finetune"]:  # part (c) of the multi-rank phase alone, TF32 off; no last line
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        print(f"card: {bench_attention.card_line()}")
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            out = phase_dp_finetune(device, workdir)
+        print(json.dumps({"seconds": time.perf_counter() - t, **{k: out[k] for k in ("gates", "ranks", "reference")}}))
+        return 0
     t0 = time.perf_counter()
     phases = {}
 
@@ -4197,8 +4613,8 @@ def main() -> int:
         paths.append(timed("interleaved sampler, 4096 slots", phase_interleaved_4k, device, run))
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as ranks_dir:
-            paths.append(timed("multi-rank", phase_multirank, device, run, os.path.join(files, "chameleon"),
-                               ranks_dir))
+            paths.append(timed("multi-rank", lambda: phase_multirank(
+                device, run, os.path.join(files, "chameleon"), ranks_dir, finetune=True)))
     del chameleon, run
     torch.cuda.empty_cache()
     paths.append(timed("Taming path", lambda: phase_taming(device, build_taming(device))))
@@ -4261,4 +4677,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

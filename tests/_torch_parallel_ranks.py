@@ -69,3 +69,84 @@ def generate_rank(rank: int, workdir: str, cases: dict) -> None:
     torch.set_num_threads(1)
     for name, argv in cases.items():
         generate.main(list(argv) + ["--outdir", os.path.join(workdir, name)])
+
+
+def finetune_rank(rank: int, workdir: str, cases: list) -> None:
+    """The trainers under a launcher, in the process group it made: for
+    each ``(name, entry, argv)`` of ``cases`` in order, ``finetune.cli.main``
+    (``entry`` ``"rcc"``; handed the adapter ``adapters.pt`` holds under
+    ``name``, where it holds one) or ``finetune_mimi.main`` (``"mimi"``),
+    with ``{rank}`` in ``argv`` replaced by the rank, each case after the
+    last one's files are written. Then, where the test
+    left ``units.pt``, :func:`dp_units`."""
+    import torch.distributed as dist
+
+    from wmar_tpu_torch import finetune_mimi
+    from wmar_tpu_torch.finetune import cli
+
+    torch.set_num_threads(1)
+    path = os.path.join(workdir, "adapters.pt")
+    adapters = torch.load(path, weights_only=False) if os.path.exists(path) else {}
+    for name, entry, argv in cases:
+        argv = [a.replace("{rank}", str(rank)) for a in argv]
+        if entry == "rcc":
+            cli.main(argv, adapter=adapters.get(name))
+        else:
+            finetune_mimi.main(argv)
+        dist.barrier()  # the next case starts after the first rank's files, as a new launch would
+    if os.path.exists(os.path.join(workdir, "units.pt")):
+        torch.save(dp_units(torch.load(os.path.join(workdir, "units.pt"), weights_only=False)),
+                   os.path.join(workdir, f"rank{rank}_units.pt"))
+
+
+def dp_units(inputs: dict, mesh=None) -> dict:
+    """Each data-parallel piece on this rank's rows of ``inputs``' global
+    batch, computed two ways: ``"dp"`` as the trainers run it on a dp rank
+    of ``mesh`` (the run's grid when None) and ``"local"`` from this rank's
+    rows alone. Each entry is a value (the rank's) and, for a loss, its
+    gradient with respect to the rank's rows over dp (the rank's share of
+    the mean of the ranks' gradients). With ``mesh`` a one-rank grid, the
+    one process's numbers on the whole batch."""
+    import argparse
+
+    from wmar_tpu_torch.audio import augmentations as A
+    from wmar_tpu_torch.audio.losses import get_audio_loss
+    from wmar_tpu_torch.finetune import cli, gan, rcc
+    from wmar_tpu_torch.finetune.perceptual import PerceptualLoss
+    from wmar_tpu_torch.parallel import dp_size, make_mesh, rows_of
+
+    mesh = make_mesh(tp=1) if mesh is None else mesh
+    dp = dp_size(mesh)
+    out = {}
+
+    adapter = cli.build_adapter(argparse.Namespace(model="taming", tiny=True), torch.device("cpu"))
+    trainable = adapter.init_trainable()
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():  # a decoder past the first step, so that the drift has a gradient
+        for p in trainable["decoder"].parameters():
+            p.add_(1e-2 * torch.randn(p.shape, generator=g))
+    cfg = gan.GanConfig(gan.init_taming_discriminator(torch.Generator().manual_seed(1), ndf=16))
+    decoder, perceptual = trainable["decoder"], PerceptualLoss()
+    z_q = adapter.lookup(rows_of(mesh, inputs["codes"]))
+    xrec = adapter.decode(decoder, z_q)
+    with torch.no_grad():
+        xrec_orig = adapter.decode_orig(z_q)
+    out["gan_weight"] = {how: (gan.gan_generator_terms(
+        cfg, decoder, lambda params: adapter.decode_with(decoder, params, z_q), xrec,
+        lambda xr: (xrec_orig - xr).abs().mean() + perceptual(xrec_orig, xr).mean(), 0, m)["d_weight"], None)
+        for how, m in (("dp", mesh), ("local", None))}
+
+    for name in ("mrstft", "tf_loudness"):
+        out[name] = {}
+        for how, m in (("dp", mesh), ("local", None)):
+            x = rows_of(mesh, inputs["pred"]).clone().requires_grad_(True)
+            loss = get_audio_loss(name, 24000, m)(x, rows_of(mesh, inputs["target"]))
+            loss.backward()
+            out[name][how] = (loss.detach(), x.grad / dp)
+
+    out["noise"] = {}
+    for how, m in (("dp", mesh), ("local", None)):
+        image = rcc.AugBranch("noise", 0.1)(rows_of(mesh, inputs["images"]), torch.Generator().manual_seed(5), mesh=m)
+        pink = A.pink_noise(rows_of(mesh, inputs["audio"]), 0.02, torch.Generator().manual_seed(6), mesh=m)
+        out["noise"][how] = (image, pink)
+    return out

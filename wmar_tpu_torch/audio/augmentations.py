@@ -10,7 +10,9 @@ Everything but MP3 runs on the waveform's device.
 
 The stochastic attacks draw from a ``torch.Generator`` on that device, or
 take their draws as arguments (``noise``, ``white``, ``start``), so tests
-can feed JAX's. ``speed`` and ``updown_resample`` compute
+can feed JAX's. On a dp rank of a trainer's ``mesh``, white and pink noise
+are drawn at the global batch's shape (pink normalised over it) and the
+rank keeps its rows: the one process's values and generator state. ``speed`` and ``updown_resample`` compute
 ``jax.image.resize``'s linear (triangle) weights in float32 exactly as JAX
 does, but only over the band of inputs each output reaches, so a clip of
 any length resamples in ``O(T)`` memory.
@@ -25,26 +27,29 @@ import torch
 import torch.nn.functional as F
 
 from wmar_tpu_torch.native import mp3 as _mp3
+from wmar_tpu_torch.parallel.data import global_randn, rows_of
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
-def gaussian_noise(audio, std: float, generator=None, noise: Optional[torch.Tensor] = None):
+def gaussian_noise(audio, std: float, generator=None, noise: Optional[torch.Tensor] = None, mesh=None):
     if noise is None:
-        noise = torch.randn(audio.shape, generator=generator, device=audio.device)
+        noise = rows_of(mesh, global_randn(mesh, audio.shape, generator, device=audio.device))
     return torch.clamp(audio + noise.to(audio.device) * std, -1.0, 1.0)
 
 
-def pink_noise(audio, std: float, generator=None, white: Optional[torch.Tensor] = None):
-    """1/f-shaped noise by FFT filtering of white noise ``white [B, T, C]``."""
+def pink_noise(audio, std: float, generator=None, white: Optional[torch.Tensor] = None, mesh=None):
+    """1/f-shaped noise by FFT filtering of white noise ``white [B, T, C]``
+    (the global batch's on a dp rank of ``mesh``), normalised to unit std
+    over the whole batch."""
     b, t, c = audio.shape
     if white is None:
-        white = torch.randn((b, t, c), generator=generator, device=audio.device)
+        white = global_randn(mesh, (b, t, c), generator, device=audio.device)
     spec = torch.fft.rfft(white.to(audio.device, torch.float32), dim=1)
     freqs = torch.arange(spec.shape[1], dtype=torch.float32, device=audio.device)
     shape_ = 1.0 / torch.sqrt(torch.clamp_min(freqs, 1.0))
     pink = torch.fft.irfft(spec * shape_[None, :, None], n=t, dim=1)
-    pink = pink / (pink.std(correction=0) + 1e-8)
+    pink = rows_of(mesh, pink / (pink.std(correction=0) + 1e-8))
     return torch.clamp(audio + pink * std, -1.0, 1.0)
 
 

@@ -12,7 +12,10 @@ the branch's noise), or are fed: ``picks`` (one branch index per
 application) and ``noise`` (one draw per application: the Gaussian noise,
 the pink noise's white noise, the crop's start), so tests can hand in
 JAX's. MP3 runs on the host with a straight-through gradient, and
-configuring it where ``libmp3lame`` does not load raises.
+configuring it where ``libmp3lame`` does not load raises. With a trainer's
+``mesh``, each dp rank draws the noise branches' noise at the global
+batch's shape and keeps its rows, so the picks that follow on the same
+generator are the one process's.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class AugBranch:
     fn: Callable[..., torch.Tensor]
 
 
-def _expand(name: str, p: Dict[str, float], sr: int, n: int) -> List[AugBranch]:
+def _expand(name: str, p: Dict[str, float], sr: int, n: int, mesh=None) -> List[AugBranch]:
     """One configured augmentation -> its branches, one a parameter level."""
     if name == "identity":
         return [AugBranch(name, "identity", lambda x, g, z: x)]
@@ -77,10 +80,11 @@ def _expand(name: str, p: Dict[str, float], sr: int, n: int) -> List[AugBranch]:
                           lambda x, g, z, d=float(d), v=float(v): A.echo(x, d * sr / x.shape[1], v))
                 for d, v in zip(durs, vols)]
     if name == "noise_injection":
-        return [AugBranch(name, f"noise_{v:.4f}", lambda x, g, z, v=float(v): A.gaussian_noise(x, v, g, noise=z))
+        return [AugBranch(name, f"noise_{v:.4f}",
+                          lambda x, g, z, v=float(v): A.gaussian_noise(x, v, g, noise=z, mesh=mesh))
                 for v in _levels(p["min_noise_std"], p["max_noise_std"], n)]
     if name == "pink_noise":
-        return [AugBranch(name, f"pink_{v:.4f}", lambda x, g, z, v=float(v): A.pink_noise(x, v, g, white=z))
+        return [AugBranch(name, f"pink_{v:.4f}", lambda x, g, z, v=float(v): A.pink_noise(x, v, g, white=z, mesh=mesh))
                 for v in _levels(p["min_noise_std"], p["max_noise_std"], n)]
     if name == "lowpass_filter":
         return [AugBranch(name, f"lowpass_{v:.0f}", lambda x, g, z, v=float(v): A.lowpass(x, v / (sr / 2)))
@@ -131,10 +135,11 @@ class Augmenter:
         num_augs: augmentations applied one after the other per call.
         sample_rate: the audio's sample rate.
         n_levels: parameter levels per configured augmentation.
+        mesh: the trainer's rank grid (None: one process).
     """
 
     def __init__(self, augs: Dict[str, float], augs_params: Optional[Dict[str, Dict[str, float]]] = None,
-                 num_augs: int = 1, sample_rate: int = 24000, n_levels: int = 4):
+                 num_augs: int = 1, sample_rate: int = 24000, n_levels: int = 4, mesh=None):
         augs_params = augs_params or {}
         self.sample_rate = sample_rate
         self.num_augs = num_augs
@@ -147,7 +152,7 @@ class Augmenter:
                 raise ValueError(f"Augmentation {name} not found. Available: {sorted(_DEFAULTS)}")
             params = dict(_DEFAULTS[name])
             params.update(augs_params.get(name, {}))
-            expanded = _expand(name, params, sample_rate, n_levels)
+            expanded = _expand(name, params, sample_rate, n_levels, mesh)
             branches += expanded
             probs += [float(weight) / len(expanded)] * len(expanded)
         if not branches:  # identity alone, like the reference

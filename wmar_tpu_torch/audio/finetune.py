@@ -24,6 +24,13 @@ the count before each update, as ``optax.adamw(schedule)`` applies it;
 Parts left out of ``parts`` are frozen and not in the optimizer
 (``optax.set_to_zero`` on them). Randomness: a ``torch.Generator``, or fed
 draws through the augmentation callable.
+
+Data parallelism (``mesh``, None for one process): a dp rank takes its rows
+of the global batch; the losses that are not row means come over the
+gathered batch (:func:`~wmar_tpu_torch.audio.losses.get_audio_loss`,
+:func:`multi_res_stft_loss`), the noise at the global shape, the trainable
+gradients are averaged over the ranks before the update, and the metrics
+after it.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch import nn
 
 from wmar_tpu_torch.audio import augmentations as A
 from wmar_tpu_torch.audio.mimi import Mimi
+from wmar_tpu_torch.parallel import gather_rows, mean_grads, mean_metrics
 
 PARTS = ("encoder", "enc_transformer", "decoder", "dec_transformer")
 # optax.adamw's defaults, which torch.optim.AdamW does not share (its decay is 1e-2)
@@ -51,13 +59,14 @@ def _stft_mag(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return torch.abs(torch.fft.rfft(frames, dim=-1))
 
 
-def multi_res_stft_loss(a: torch.Tensor, b: torch.Tensor, fft_sizes=(256, 512, 1024)) -> torch.Tensor:
+def multi_res_stft_loss(a: torch.Tensor, b: torch.Tensor, fft_sizes=(256, 512, 1024), mesh=None) -> torch.Tensor:
     """The legacy step's drift term: spectral convergence + log-magnitude L1
     over unpadded symmetric-Hann STFTs at each size the clip fills, summed
     and divided by the number of sizes. The eps sits inside the square root
-    (the first step compares equal audio)."""
+    (the first step compares equal audio). On a dp rank of ``mesh``, over the
+    ranks' gathered rows: the convergence sums over the whole batch."""
     total = 0.0
-    x, y = a[..., 0], b[..., 0]
+    x, y = gather_rows(a, mesh)[..., 0], gather_rows(b, mesh)[..., 0]
     for n_fft in fft_sizes:
         if x.shape[-1] < n_fft:
             continue
@@ -68,18 +77,18 @@ def multi_res_stft_loss(a: torch.Tensor, b: torch.Tensor, fft_sizes=(256, 512, 1
     return total / len(fft_sizes)
 
 
-# The legacy step's bank: (name, fn(x, generator, noise)), one picked uniformly a step
+# The legacy step's bank: (name, fn(x, generator, noise, mesh)), one picked uniformly a step
 TRAIN_AUGS = [
-    ("identity", lambda x, g, z: x),
-    ("noise", lambda x, g, z: A.gaussian_noise(x, 0.01, g, noise=z)),
-    ("pink", lambda x, g, z: A.pink_noise(x, 0.02, g, white=z)),
-    ("lowpass", lambda x, g, z: A.lowpass(x, 0.5)),
-    ("smooth", lambda x, g, z: A.smooth(x, 5)),
-    ("echo", lambda x, g, z: A.echo(x, 0.05, 0.3)),
-    ("amplitude", lambda x, g, z: torch.clamp(x * 0.7, -1.0, 1.0)),
+    ("identity", lambda x, g, z, m=None: x),
+    ("noise", lambda x, g, z, m=None: A.gaussian_noise(x, 0.01, g, noise=z, mesh=m)),
+    ("pink", lambda x, g, z, m=None: A.pink_noise(x, 0.02, g, white=z, mesh=m)),
+    ("lowpass", lambda x, g, z, m=None: A.lowpass(x, 0.5)),
+    ("smooth", lambda x, g, z, m=None: A.smooth(x, 5)),
+    ("echo", lambda x, g, z, m=None: A.echo(x, 0.05, 0.3)),
+    ("amplitude", lambda x, g, z, m=None: torch.clamp(x * 0.7, -1.0, 1.0)),
 ]
 if A.mp3_available():
-    TRAIN_AUGS.append(("mp3", lambda x, g, z: A.mp3_compression_st(x, 64)))
+    TRAIN_AUGS.append(("mp3", lambda x, g, z, m=None: A.mp3_compression_st(x, 64)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,9 +294,10 @@ def init_state(wrapper: MimiFTWrapper, lr: float = 1e-5, schedule: Optional[Call
     return MimiFTState(wrapper, opt, sched)
 
 
-def _update(state: MimiFTState, loss: torch.Tensor) -> None:
+def _update(state: MimiFTState, loss: torch.Tensor, mesh=None) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    mean_grads([p for group in state.optimizer.param_groups for p in group["params"]], mesh)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -295,26 +305,31 @@ def _update(state: MimiFTState, loss: torch.Tensor) -> None:
 
 def make_rcc_train_step(state: MimiFTState, audio_loss_fn, code_loss_fn, audio_loss_weight: float,
                         code_loss_weight: float, aug_fn: Optional[AugFn] = None, audio_target_type: str = "replica",
-                        code_target_type: str = "pre_q"):
+                        code_target_type: str = "pre_q", mesh=None):
     """``train_step(audio, generator=None) -> metrics`` (detached): one RCC
-    forward, its loss and one AdamW update of ``state``."""
+    forward, its loss and one AdamW update of ``state``. On a dp rank of
+    ``mesh`` (``audio`` its rows; ``audio_loss_fn`` and ``aug_fn`` made for
+    that mesh) the trainable gradients and the metrics are the ranks'
+    means."""
 
     def train_step(audio, generator=None):
         out = rcc_forward(state.wrapper, audio, aug_fn, generator)
         loss, metrics = rcc_losses_and_metrics(out, audio, audio_loss_fn, code_loss_fn, audio_loss_weight,
                                                code_loss_weight, audio_target_type, code_target_type)
-        _update(state, loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        _update(state, loss, mesh)
+        return mean_metrics(metrics, mesh)
 
     return train_step
 
 
 def make_rcc_eval_step(wrapper: MimiFTWrapper, audio_loss_fn, code_loss_fn, aug_fn: Optional[AugFn] = None,
-                       audio_target_type: str = "replica", code_target_type: str = "pre_q"):
+                       audio_target_type: str = "replica", code_target_type: str = "pre_q", mesh=None):
     """``eval_step(audio, generator=None) -> (metrics, audio_recon,
     audio_recon_pred)``: the losses at weights 1 and 1 (without ``loss``)
     and the idempotence rates, with the reconstructions for the host's
-    SI-SNR / SNR / STOI / PESQ and the sample wavs."""
+    SI-SNR / SNR / STOI / PESQ and the sample wavs. On a dp rank of
+    ``mesh`` the metrics are the ranks' means and the reconstructions this
+    rank's rows."""
 
     @torch.no_grad()
     def eval_step(audio, generator=None):
@@ -322,18 +337,21 @@ def make_rcc_eval_step(wrapper: MimiFTWrapper, audio_loss_fn, code_loss_fn, aug_
         _, metrics = rcc_losses_and_metrics(out, audio, audio_loss_fn, code_loss_fn, 1.0, 1.0, audio_target_type,
                                             code_target_type)
         del metrics["loss"]
-        return metrics, out["audio_recon"], out["audio_recon_pred"]
+        return mean_metrics(metrics, mesh), out["audio_recon"], out["audio_recon_pred"]
 
     return eval_step
 
 
-def make_train_step(state: MimiFTState, cfg: MimiFTConfig):
+def make_train_step(state: MimiFTState, cfg: MimiFTConfig, mesh=None):
     """The legacy step on codes: ``train_step(codes, generator=None, gate=
     None, pick=None, noise=None) -> metrics``. Decode with the trainable
     decoder, the drift (L1 + :func:`multi_res_stft_loss`) against the frozen
     decode, one :data:`TRAIN_AUGS` branch (``pick``, uniform) applied when
     ``gate < cfg.aug_prob`` (``gate`` uniform in [0, 1)), re-encode, MSE to
-    the codes' latent."""
+    the codes' latent. On a dp rank of ``mesh`` (``codes`` its rows) the
+    gate and pick are drawn alike on every rank (the same generator seed),
+    the noise at the global batch's shape, the drift's STFT term over the
+    gathered batch, and the gradients and metrics are the ranks' means."""
     n_augs = len(TRAIN_AUGS)
     wrapper = state.wrapper
 
@@ -341,16 +359,16 @@ def make_train_step(state: MimiFTState, cfg: MimiFTConfig):
         z_q = wrapper.codes_to_latent(codes)
         audio = wrapper.decode(z_q)
         audio_orig = wrapper.decode_frozen(z_q)
-        drift = torch.abs(audio - audio_orig).mean() + multi_res_stft_loss(audio, audio_orig)
+        drift = torch.abs(audio - audio_orig).mean() + multi_res_stft_loss(audio, audio_orig, mesh=mesh)
         if gate is None:
             gate = float(torch.rand((), generator=generator, device=codes.device))
             pick = int(torch.randint(0, n_augs, (), generator=generator, device=codes.device))
-        a_aug = TRAIN_AUGS[pick][1](audio, generator, noise) if gate < cfg.aug_prob else audio
+        a_aug = TRAIN_AUGS[pick][1](audio, generator, noise, mesh) if gate < cfg.aug_prob else audio
         z_rec = wrapper.encode_latent(a_aug)
         idem = ((z_rec - z_q) ** 2).mean()
         loss = drift + cfg.code_loss_weight * idem
-        _update(state, loss)
-        return {"loss": loss.detach(), "drift": drift.detach(), "idem": idem.detach()}
+        _update(state, loss, mesh)
+        return mean_metrics({"loss": loss, "drift": drift, "idem": idem}, mesh)
 
     return train_step
 

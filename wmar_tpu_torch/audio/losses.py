@@ -15,6 +15,12 @@ torchaudio's:
 - :func:`get_audio_loss` / :func:`get_code_loss`.
 
 Every loss takes ``(pred, target)`` as ``[B, T, C]`` and returns a scalar.
+Three are not means over the batch's rows: the spectral convergence of
+``stft`` / ``mrstft`` sums over the whole batch, and ``tf_loudness``
+groups its ratios by the batch size. On a dp rank of a trainer's ``mesh``,
+:func:`get_audio_loss` computes those whole from the ranks' gathered
+predictions and targets (:class:`OverRanks`), their value on the global
+batch; the others are row means and stay on the rank's rows.
 Reflect padding follows numpy's rule, so a pad longer than the clip
 reflects again (the tiny CLI's 64-sample clips under a 2048-point STFT).
 """
@@ -23,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -388,15 +394,39 @@ def _l1(x, y):
     return torch.abs(x - y).mean()
 
 
-def get_audio_loss(loss_type: str, sample_rate: int = 24000):
+# the losses that are not means over the batch's rows
+BATCH_LOSSES = ("stft", "mrstft", "tf_loudness")
+
+
+@dataclasses.dataclass(frozen=True)
+class OverRanks:
+    """``loss`` of the ranks' gathered ``(pred, target)``: the global batch's
+    value on every dp rank. The gather's backward hands this rank's rows dp
+    times their gradient, which the gradients' mean over the ranks divides
+    back."""
+
+    loss: Callable
+    mesh: Any
+
+    def __call__(self, x, y):
+        from wmar_tpu_torch.parallel import gather_rows
+
+        return self.loss(gather_rows(x, self.mesh), gather_rows(y, self.mesh))
+
+
+def get_audio_loss(loss_type: str, sample_rate: int = 24000, mesh=None):
     """``mse``, ``l1``, ``sisnr``, ``multi_mel``, ``stft``, ``mrstft`` or
-    ``tf_loudness``."""
+    ``tf_loudness``; on a dp rank of ``mesh``, those of :data:`BATCH_LOSSES`
+    over the global batch."""
+    from wmar_tpu_torch.parallel import dp_size
+
     losses = {"mse": lambda: _mse, "l1": lambda: _l1, "sisnr": lambda: SISNR(sample_rate=sample_rate),
               "multi_mel": lambda: MultiScaleMelSpectrogramLoss(sample_rate=sample_rate), "stft": STFTLoss,
               "mrstft": MRSTFTLoss, "tf_loudness": lambda: TFLoudnessRatio(sample_rate=sample_rate)}
     if loss_type not in losses:
         raise ValueError(f"Unknown audio loss type: {loss_type}")
-    return losses[loss_type]()
+    loss = losses[loss_type]()
+    return OverRanks(loss, mesh) if loss_type in BATCH_LOSSES and dp_size(mesh) > 1 else loss
 
 
 def get_code_loss(loss_type: str):

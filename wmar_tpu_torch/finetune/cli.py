@@ -1,8 +1,10 @@
-"""RCC tokenizer finetuning on one CUDA card (PyTorch port of the root
+"""RCC tokenizer finetuning on CUDA cards (PyTorch port of the root
 ``finetune.py``).
 
     python -m wmar_tpu_torch.finetune --model taming --modelpath ckpts/taming \\
         --datapath codes/ --nb_epochs 10 --augs_schedule 1,1,4,4 --outdir out/
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.finetune --model taming \\
+        --modelpath ckpts/taming --datapath codes/ --outdir out/
     python -m wmar_tpu_torch.finetune --model rar --tiny --synthetic 64 \\
         --device cpu --nb_epochs 2 --augs_schedule 1,1,0,0 --outdir out/
 
@@ -27,8 +29,18 @@ one, and its ``history.json`` holds every epoch (JAX's resume reshuffles
 the resumed epochs as the first ones and drops the earlier history).
 ``--modelpath`` reads ``vqgan.msgpack`` (``taming``: TAMING_IMAGENET_F16;
 ``chameleon7b``: CHAMELEON_F16, Anole's 512 px 8192-code tokenizer) or
-``maskgit_vqgan.msgpack`` (``rar``). The GAN branch is Taming's only. One
-device: data parallelism is not ported. Precision: :func:`set_precision`.
+``maskgit_vqgan.msgpack`` (``rar``). The GAN branch is Taming's only.
+Precision: :func:`set_precision`.
+
+Data parallelism, as JAX's ``(dp, 1)`` mesh: under a launcher (``torchrun``,
+or SLURM) the dp size is the world size, NCCL with one card a rank (gloo
+with ``--device cpu``, or in a process group the caller made); without a
+launcher, one process. The global batch is ``--batch_size_per_device`` x
+dp: every rank draws the same permutation and trains its rows
+(:mod:`wmar_tpu_torch.finetune.rcc` makes the step the global batch's),
+validation pads the ragged tail to the global batch and averages the
+ranks' numbers, every rank reads ``--resume``'s file from its ``--outdir``,
+and the first rank alone writes files and logs.
 """
 
 from __future__ import annotations
@@ -165,6 +177,28 @@ def set_precision() -> tuple:
     return prev
 
 
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on the ranks that do not log."""
+
+
+def run_mesh(device_arg: str):
+    """The run's device and dp grid: joins a launcher's process group
+    (NCCL for ``cuda``, gloo for ``cpu``; a group the caller made is kept),
+    whose ranks form the ``(dp, 1)`` grid, the rank's card ``cuda:LOCAL_RANK``
+    where ``device_arg`` names none; without a launcher, ``device_arg`` and
+    no grid (None)."""
+    from wmar_tpu_torch.parallel import init_distributed, make_mesh
+
+    device = torch.device(device_arg)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device_arg}: no CUDA card is visible (pass --device cpu to run on the CPU)")
+    if not init_distributed("nccl" if device.type == "cuda" else "gloo"):
+        return device, None
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, make_mesh(tp=1)
+
+
 def save_resume(path: str, state) -> None:
     """The whole training state: trainable parts, Adam, schedule, step
     (Adam's per-parameter state keyed by the index as a string, so any
@@ -190,21 +224,21 @@ def load_resume(path: str, state) -> None:
     state.step = int(tree["step"])
 
 
-def _build_gan(args, device):
+def _build_gan(args, device, log=print):
     from wmar_tpu_torch.finetune.gan import GanConfig, discriminator_from_flax, init_taming_discriminator
     from wmar_tpu_torch.utils.checkpoint import load_pytree
 
     disc_path = args.disc_ckpt or (os.path.join(args.modelpath, "discriminator.msgpack") if args.modelpath else "")
     if disc_path and os.path.exists(disc_path):
         disc = discriminator_from_flax(load_pytree(disc_path), device=device)
-        print(f"GAN branch on: discriminator from {disc_path}")
+        log(f"GAN branch on: discriminator from {disc_path}")
     elif args.disc_init == "random":
         disc = init_taming_discriminator(torch.Generator().manual_seed(args.seed), device=device)
-        print("GAN branch on: RANDOM-INIT discriminator (smoke mode; convert the checkpoint's discriminator "
-              "for real runs)")
+        log("GAN branch on: RANDOM-INIT discriminator (smoke mode; convert the checkpoint's discriminator "
+            "for real runs)")
     else:
-        print("GAN branch requested but no discriminator checkpoint found; proceeding GAN-off "
-              "(pass --disc_init random or --disc_ckpt to enable)")
+        log("GAN branch requested but no discriminator checkpoint found; proceeding GAN-off "
+            "(pass --disc_init random or --disc_ckpt to enable)")
         return None
     return GanConfig(disc, disc_factor=args.disc_factor, disc_weight=args.disc_weight, disc_start=args.disc_start)
 
@@ -216,18 +250,20 @@ def main(argv=None, adapter=None):
     args = get_parser().parse_args(argv)
     if args.dataset != "codes-imagenet":
         raise ValueError(f"Dataset {args.dataset} not supported")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but no CUDA card is visible; pass --device cpu to run on the CPU")
+    device, mesh = run_mesh(args.device)
     set_precision()
 
     from wmar_tpu_torch import bridge
     from wmar_tpu_torch.finetune.perceptual import PerceptualLoss, load_lpips
     from wmar_tpu_torch.finetune.rcc import RCCConfig, expand_level, init_state, make_train_step, make_val_step
+    from wmar_tpu_torch.parallel import dp_size, is_lead, rows_of, same_on_all
     from wmar_tpu_torch.utils import checkpoint as ckpt
     from wmar_tpu_torch.utils.logging import encoder_drift
 
-    os.makedirs(args.outdir, exist_ok=True)
+    lead = is_lead(mesh)
+    log = print if lead else _quiet
+    if lead:
+        os.makedirs(args.outdir, exist_ok=True)
     if adapter is None:
         adapter = build_adapter(args, device)
     else:
@@ -242,9 +278,9 @@ def main(argv=None, adapter=None):
         codes = codes[perm0[val_rows:]]
     else:
         codes_val = codes[:0]
-    print(f"dataset: {codes.shape[0]} train / {codes_val.shape[0]} val rows of {codes.shape[1]} tokens")
+    log(f"dataset: {codes.shape[0]} train / {codes_val.shape[0]} val rows of {codes.shape[1]} tokens")
 
-    global_bs = args.batch_size_per_device
+    global_bs = args.batch_size_per_device * dp_size(mesh)
     steps_per_epoch = max(1, codes.shape[0] // global_bs)
     cfg = RCCConfig(lr=args.lr, idem_weight=args.idempotence_loss_weight)
     state = init_state(adapter, cfg, steps_per_epoch)
@@ -259,12 +295,13 @@ def main(argv=None, adapter=None):
         with open(meta_path) as f:
             meta = json.load(f)
         start_epoch, history = meta["next_epoch"], meta["history"]
-        print(f"resumed from {resume_path} at epoch {start_epoch}")
+        log(f"resumed from {resume_path} at epoch {start_epoch}")
+    same_on_all(mesh, start_epoch, "the epoch to resume at")
 
     lpips = load_lpips(args.lpips_weights, device) if args.lpips_weights and os.path.exists(args.lpips_weights) \
         else None
     perceptual = PerceptualLoss(lpips)
-    gan = _build_gan(args, device) if not args.disable_gan and args.model == "taming" else None
+    gan = _build_gan(args, device, log) if not args.disable_gan and args.model == "taming" else None
 
     if args.augs == "none":
         levels = ["warmup"] * args.nb_epochs
@@ -289,7 +326,7 @@ def main(argv=None, adapter=None):
         for branch in [None] + expand_level(level):
             key_name = "Identity_0" if branch is None else f"{branch.name}_{branch.param}"
             if (key_name, idem_w) not in val_steps:
-                val_steps[(key_name, idem_w)] = make_val_step(adapter, cfg_e, branch, perceptual)
+                val_steps[(key_name, idem_w)] = make_val_step(adapter, cfg_e, branch, perceptual, mesh)
             vfn = val_steps[(key_name, idem_w)]
             acc, cnt = {}, 0
             for bi in range(n_val):
@@ -300,17 +337,17 @@ def main(argv=None, adapter=None):
                 if rows < global_bs:  # tiled up to a full batch and weighted by true rows, as JAX does
                     vb = np.concatenate([vb] * -(-global_bs // rows))[:global_bs]
                 gen = torch.Generator(device=device).manual_seed(args.seed + 777 + epoch)
-                m = vfn(trainable, torch.as_tensor(vb, device=device).long(), gen)
+                m = vfn(trainable, torch.as_tensor(rows_of(mesh, vb), device=device).long(), gen)
                 for k, v in zip(m, torch.stack(list(m.values())).tolist()):
                     acc[k] = acc.get(k, 0.0) + v * rows
                 cnt += rows
             stats = {k: v / max(cnt, 1) for k, v in acc.items()}
             out[key_name] = stats
-            print(f"Validation {key_name}| Loss: {stats['loss']:.5f}| IdemLoss: {stats['idem_loss']:.5f}"
+            log(f"Validation {key_name}| Loss: {stats['loss']:.5f}| IdemLoss: {stats['idem_loss']:.5f}"
                   f"| VQGANLoss: {stats['vqgan_loss']:.5f}| L0: {stats['l0']:.5f}")
         enc_d = encoder_drift(trainable["watermark_encoder"], originals["watermark_encoder"])
         dec_d = encoder_drift(trainable["decoder"], originals["decoder"])
-        print(f"[Val] ENC L2 Distance: {enc_d:.5f}, DEC L2 Distance: {dec_d:.5f}")
+        log(f"[Val] ENC L2 Distance: {enc_d:.5f}, DEC L2 Distance: {dec_d:.5f}")
         out["drift"] = {"enc": enc_d, "dec": dec_d}
         return out
 
@@ -325,7 +362,7 @@ def main(argv=None, adapter=None):
         idem_w = args.idempotence_loss_weight * (args.idempotence_loss_weight_factor ** epoch)
         if (level, idem_w) not in steps:
             cfg_e = dataclasses.replace(cfg, idem_weight=idem_w)
-            steps[(level, idem_w)] = make_train_step(adapter, cfg_e, level, perceptual, gan=gan)
+            steps[(level, idem_w)] = make_train_step(adapter, cfg_e, level, perceptual, gan=gan, mesh=mesh)
         step_fn = steps[(level, idem_w)]
         val_stats = run_validation(epoch, level, idem_w, state.trainable)  # validation first (finetune.py:388-392)
         epoch_metrics = []
@@ -334,11 +371,11 @@ def main(argv=None, adapter=None):
         t_train = time.perf_counter()
         for bi in range(steps_per_epoch):
             idx = perm[bi * global_bs: (bi + 1) * global_bs]
-            batch = torch.as_tensor(codes[idx], device=device).long()
+            batch = torch.as_tensor(rows_of(mesh, codes[idx]), device=device).long()
             seed = args.seed + epoch * 100000 + bi
             metrics = step_fn(state, batch, torch.Generator().manual_seed(seed),
                               torch.Generator(device=device).manual_seed(seed))
-            if bi % args.log_every == 0:
+            if lead and bi % args.log_every == 0:
                 m = dict(zip(metrics, torch.stack([v.to(device).float() for v in metrics.values()]).tolist()))
                 m["enc_dist"] = encoder_drift(state.trainable["watermark_encoder"], originals["watermark_encoder"])
                 m["dec_dist"] = encoder_drift(state.trainable["decoder"], originals["decoder"])
@@ -348,6 +385,10 @@ def main(argv=None, adapter=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         train_s = time.perf_counter() - t_train
+        history.append({"epoch": epoch, "level": level, "metrics": epoch_metrics, "validation": val_stats,
+                        "train_s": train_s, "train_steps": steps_per_epoch})
+        if not lead:
+            continue
         # Per-epoch checkpoints: full weights + deltas (the published format, Flax layout)
         trained = {name: bridge.flax_tree(state.trainable[name]) for name in ("decoder", "watermark_encoder")}
         ckpt.save_pytree(os.path.join(args.outdir, f"epoch{epoch}_trainable.msgpack"), trained)
@@ -355,19 +396,18 @@ def main(argv=None, adapter=None):
                         trained["watermark_encoder"], orig_flax["watermark_encoder"])
         ckpt.save_delta(os.path.join(args.outdir, f"epoch{epoch}_decoder_delta.msgpack"),
                         trained["decoder"], orig_flax["decoder"])
-        history.append({"epoch": epoch, "level": level, "metrics": epoch_metrics, "validation": val_stats,
-                        "train_s": train_s, "train_steps": steps_per_epoch})
         save_resume(resume_path, state)
         with open(meta_path, "w") as f:
             json.dump({"next_epoch": epoch + 1, "history": history}, f)
     if levels and codes_val.shape[0]:  # final validation (reference finetune.py:509-515)
-        print("Done! Doing final validation.")
+        log("Done! Doing final validation.")
         final_idem = args.idempotence_loss_weight * (args.idempotence_loss_weight_factor ** (len(levels) - 1))
         final_val = run_validation(len(levels), levels[-1], final_idem, state.trainable)
         history.append({"epoch": len(levels), "level": "final", "metrics": [], "validation": final_val})
-    with open(os.path.join(args.outdir, "history.json"), "w") as f:
-        json.dump({"wall_s": time.time() - t_start, "epochs": history}, f, indent=1)
-    print(f"done in {time.time() - t_start:.1f}s")
+    if lead:
+        with open(os.path.join(args.outdir, "history.json"), "w") as f:
+            json.dump({"wall_s": time.time() - t_start, "epochs": history}, f, indent=1)
+    log(f"done in {time.time() - t_start:.1f}s")
     return state
 
 

@@ -16,6 +16,10 @@ Unless ``--disable_gan``, the reference's generator objective adds
   differentiate through it;
 * ``disc_factor`` gates on ``global_step >= disc_start``.
 
+On a dp rank the two last-kernel gradients are averaged over the ranks
+before their norms, so ``d_weight`` is the global batch's (both losses are
+means over the batch's rows).
+
 The discriminator's ``state_dict`` maps to the JAX package's parameter list
 through :func:`wmar_tpu_torch.bridge.flax_tree` (``layers.{i}`` ->
 ``{"layers": {"0": {"kernel", "bias"}, "1": {"kernel", "bn": {"scale",
@@ -189,11 +193,15 @@ def last_layer_grads(decoder: nn.Module, run: Callable[[Dict[str, torch.Tensor]]
 
 
 def gan_generator_terms(gan: GanConfig, decoder: nn.Module, run, xrec: torch.Tensor, nll_fn, step: int,
-                        ) -> Optional[dict]:
+                        mesh=None) -> Optional[dict]:
     """``g_loss``, ``d_weight`` and ``disc_factor`` of one step: ``xrec`` the
     trainable decoder's images, ``run(params)`` its decode with substituted
-    parameters, ``nll_fn(images)`` the drift loss (L1 + perceptual)."""
+    parameters, ``nll_fn(images)`` the drift loss (L1 + perceptual);
+    ``mesh``: the run's rank grid (None: one process)."""
+    from wmar_tpu_torch.parallel import mean_over
+
     g_loss = -gan.disc(xrec).mean()
-    nll_grad, g_grad = last_layer_grads(decoder, run, lambda xr: [nll_fn(xr), -gan.disc(xr).mean()])
+    nll_grad, g_grad = mean_over(torch.stack(last_layer_grads(
+        decoder, run, lambda xr: [nll_fn(xr), -gan.disc(xr).mean()])), mesh)
     return {"g_loss": g_loss, "d_weight": adaptive_weight(nll_grad, g_grad, gan.disc_weight),
             "disc_factor": adopt_weight(gan.disc_factor, step, gan.disc_start)}

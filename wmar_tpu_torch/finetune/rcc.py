@@ -21,6 +21,14 @@ device sync), applied with probability ``aug_prob``. The optimizer is
 schedule evaluated at the count before the update, as the JAX package's
 ``make_optimizer``. Images are NHWC at the adapters' boundary, as in JAX;
 the tokenizers run NCHW inside.
+
+Data parallelism (``mesh``, None for one process): each dp rank takes its
+rows of the global batch. The augmentation's gate and branch come from the
+host generator, alike on every rank; the noise branch draws the global
+batch's noise and keeps this rank's rows. The gradients are averaged over
+the ranks before ``grad_norm`` and Adam, the GAN branch's last-kernel
+gradients before its adaptive weight, and the metrics (each a mean over
+the rank's rows) after the step: the global batch's step and numbers.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from torch import nn
 from wmar_tpu_torch.augmentations import geometric as G
 from wmar_tpu_torch.augmentations import valuemetric as V
 from wmar_tpu_torch.finetune.perceptual import PerceptualLoss
+from wmar_tpu_torch.parallel import dp_size, global_randn, mean_grads, mean_metrics, rows_of
 
 # ---------------------------------------------------------------------------
 # Train-time augmentation bank (branches + idempotence masks)
@@ -83,15 +92,17 @@ class AugBranch:
     mask_kind: str = "full"  # full | rotate | croppad
 
     def __call__(self, x01: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
         """``noise`` (standard normal, the images' shape) feeds the noise
         branch's draw; else it is drawn from ``generator`` on the images'
-        device."""
+        device, at the global batch's shape on a dp rank of ``mesh``."""
         if self.name == "jpeg":
             return V.jpeg_diff(x01, int(self.param))
         if self.name == "blur":
             return V.gaussian_blur(x01, int(self.param))
         if self.name == "noise":
+            if noise is None and dp_size(mesh) > 1:
+                noise = rows_of(mesh, global_randn(mesh, x01.shape, generator, x01.dtype, x01.device))
             return V.gaussian_noise(x01, float(self.param), generator=generator, noise=noise)
         if self.name == "brightness":
             return V.brightness(x01, float(self.param))
@@ -149,6 +160,7 @@ def apply_random_augmentation(
     gate: Optional[float] = None,
     index: Optional[int] = None,
     noise: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``wmar/utils/utils.py:25-44``: with probability ``p`` one branch,
     drawn by ``branch_logits``, for the whole batch. Returns (images in
@@ -156,8 +168,9 @@ def apply_random_augmentation(
 
     The gate's uniform and the branch index come from ``generator`` (a CPU
     generator: a host decision, no device sync), the noise branch's draw
-    from ``noise_generator`` on the images' device; ``gate``, ``index`` and
-    ``noise`` feed those draws instead (a test passes JAX's)."""
+    from ``noise_generator`` on the images' device (at the global batch's
+    shape on a dp rank of ``mesh``); ``gate``, ``index`` and ``noise`` feed
+    those draws instead (a test passes JAX's)."""
     ones = torch.ones((latent_side, latent_side), dtype=torch.float32, device=x01.device)
     if not branches:
         return x01, ones
@@ -169,7 +182,7 @@ def apply_random_augmentation(
     if not gate < p:
         return x01, ones
     branch = branches[index]
-    return branch(x01, generator=noise_generator, noise=noise), _mask_on(branch, latent_side, x01.device)
+    return branch(x01, generator=noise_generator, noise=noise, mesh=mesh), _mask_on(branch, latent_side, x01.device)
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +319,12 @@ def _idem_loss(z_q: torch.Tensor, zrec: torch.Tensor, mask: torch.Tensor) -> tor
     return (sq * m).sum() / (m.sum() * sq.shape[0] * sq.shape[-1])
 
 
-def make_loss_fn(adapter, cfg: RCCConfig, level: str, perceptual: Optional[PerceptualLoss] = None, gan=None):
+def make_loss_fn(adapter, cfg: RCCConfig, level: str, perceptual: Optional[PerceptualLoss] = None, gan=None,
+                 mesh=None):
     """``loss_fn(trainable, codes, step, generator=None, noise_generator=None,
     **draws) -> (loss, metrics)`` of one curriculum level (``draws``: the
-    fed ``gate``, ``index`` and ``noise`` of the augmentation)."""
+    fed ``gate``, ``index`` and ``noise`` of the augmentation); ``codes``
+    this rank's rows on a dp rank of ``mesh``."""
     branches = expand_level(level)
     logits = _branch_logits(level) if branches else None
     perceptual = perceptual or PerceptualLoss()
@@ -326,7 +341,7 @@ def make_loss_fn(adapter, cfg: RCCConfig, level: str, perceptual: Optional[Perce
 
         x01 = xrec / 2.0 + 0.5
         x_aug01, mask = apply_random_augmentation(x01, branches, logits, side, generator, cfg.aug_prob,
-                                                  noise_generator=noise_generator, **draws)
+                                                  noise_generator=noise_generator, mesh=mesh, **draws)
         zrec = adapter.encode_latent(trainable["watermark_encoder"], x_aug01 * 2.0 - 1.0)
         idem = _idem_loss(z_q, zrec, mask)
         loss = rec_l1 + p_loss + cfg.idem_weight * idem
@@ -336,7 +351,7 @@ def make_loss_fn(adapter, cfg: RCCConfig, level: str, perceptual: Optional[Perce
 
             terms = gan_generator_terms(
                 gan, decoder, lambda params: adapter.decode_with(decoder, params, z_q), xrec,
-                lambda xr: (xrec_orig - xr).abs().mean() + perceptual(xrec_orig, xr).mean(), step)
+                lambda xr: (xrec_orig - xr).abs().mean() + perceptual(xrec_orig, xr).mean(), step, mesh)
             loss = loss + terms["d_weight"] * terms["disc_factor"] * terms["g_loss"]
             metrics.update(loss=loss, vqgan_gan_loss=terms["g_loss"], vqgan_gan_weight=terms["d_weight"],
                            vqgan_gan_factor=torch.tensor(terms["disc_factor"]))
@@ -345,32 +360,38 @@ def make_loss_fn(adapter, cfg: RCCConfig, level: str, perceptual: Optional[Perce
     return loss_fn
 
 
-def make_train_step(adapter, cfg: RCCConfig, level: str, perceptual: Optional[PerceptualLoss] = None, gan=None):
+def make_train_step(adapter, cfg: RCCConfig, level: str, perceptual: Optional[PerceptualLoss] = None, gan=None,
+                    mesh=None):
     """``train_step(state, codes, generator=None, noise_generator=None,
     **draws) -> metrics``: one Adam step on ``state`` in place. Metrics stay
     tensors on the device (no sync); ``grad_norm`` is the global norm of
-    the gradients, as ``optax.global_norm``."""
-    loss_fn = make_loss_fn(adapter, cfg, level, perceptual, gan)
+    the gradients, as ``optax.global_norm``. On a dp rank of ``mesh``
+    (``codes`` its rows) the gradients are the ranks' mean and the metrics
+    too."""
+    loss_fn = make_loss_fn(adapter, cfg, level, perceptual, gan, mesh)
 
     def train_step(state: RCCState, codes: torch.Tensor, generator=None, noise_generator=None, **draws):
         params = [p for p in state.trainable.parameters()]
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.trainable, codes, state.step, generator, noise_generator, **draws)
         loss.backward()
+        mean_grads(params, mesh)
         grads = [p.grad for p in params if p.grad is not None]
         metrics = dict(metrics, grad_norm=torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return mean_metrics(metrics, mesh)
 
     return train_step
 
 
-def make_val_step(adapter, cfg: RCCConfig, branch: Optional[AugBranch], perceptual: Optional[PerceptualLoss] = None):
+def make_val_step(adapter, cfg: RCCConfig, branch: Optional[AugBranch], perceptual: Optional[PerceptualLoss] = None,
+                  mesh=None):
     """Validation of one (aug, param) cell, the reference's ``validate()``
     (``finetune.py:73-128``): the branch at p = 1 (``None``: Identity), and
-    loss / idem loss / drift loss / token mismatch L0, as tensors."""
+    loss / idem loss / drift loss / token mismatch L0, as tensors (on a dp
+    rank of ``mesh``, ``codes`` its rows, the ranks' means)."""
     perceptual = perceptual or PerceptualLoss()
     side = adapter.latent_side
 
@@ -383,15 +404,15 @@ def make_val_step(adapter, cfg: RCCConfig, branch: Optional[AugBranch], perceptu
         p_loss = perceptual(xrec_orig, xrec).mean()
         x01 = xrec / 2.0 + 0.5
         if branch is not None:
-            x01 = V.clip01(branch(x01, generator=generator, noise=noise))
+            x01 = V.clip01(branch(x01, generator=generator, noise=noise, mesh=mesh))
             mask = _mask_on(branch, side, x01.device)
         else:
             mask = torch.ones((side, side), dtype=torch.float32, device=x01.device)
         zrec = adapter.encode_latent(trainable["watermark_encoder"], x01 * 2.0 - 1.0)
         idem = _idem_loss(z_q, zrec, mask)
         l0 = (adapter.nearest_codes(zrec) != codes.reshape(codes.shape[0], -1)).float().mean()
-        return {"loss": rec_l1 + p_loss + cfg.idem_weight * idem, "idem_loss": idem,
-                "vqgan_loss": rec_l1 + p_loss, "vqgan_rec_loss": rec_l1, "l0": l0}
+        return mean_metrics({"loss": rec_l1 + p_loss + cfg.idem_weight * idem, "idem_loss": idem,
+                              "vqgan_loss": rec_l1 + p_loss, "vqgan_rec_loss": rec_l1, "l0": l0}, mesh)
 
     return val_step
 

@@ -1,8 +1,10 @@
-"""Mimi RCC finetuning on one CUDA card (PyTorch port of the root
+"""Mimi RCC finetuning on CUDA cards (PyTorch port of the root
 ``finetune_mimi.py``).
 
     python -m wmar_tpu_torch.finetune_mimi --mimi_weights mimi.msgpack \\
         --audio_dir wavs/ --batch_size 8 --output_dir out/
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.finetune_mimi \\
+        --mimi_weights mimi.msgpack --audio_dir wavs/ --output_dir out/
     python -m wmar_tpu_torch.finetune_mimi --tiny --synthetic 24 --device cpu \\
         --batch_size 8 --epochs 2 --steps_per_epoch 2 --output_dir out/
 
@@ -42,7 +44,17 @@ indices again); restarted with the same flags it ends at that run's
 weights. The schedule follows ``--epochs``, as in JAX, so a resume with a
 larger ``--epochs`` trains its earlier epochs at other rates.
 
-One card: data parallelism is not ported, and the batch is never split.
+Data parallelism, as JAX's ``(dp, 1)`` mesh: under a launcher (``torchrun``,
+or SLURM) the dp size is the world size, NCCL with one card a rank (gloo
+with ``--device cpu``, or in a process group the caller made); without a
+launcher, one process. The batch is rounded as in JAX, to ``max(dp,
+(batch_size // dp) * dp)``; every rank draws the same indices and loads
+and trains its rows (:mod:`wmar_tpu_torch.audio.finetune` makes the step
+the global batch's). In an eval each rank scores its rows, the device
+metrics are the ranks' means, and the reconstructions are gathered onto
+the first rank, which alone computes the host metrics, runs the
+token-match sweep, and writes files and logs. Every rank reads the
+auto-resume file from its ``--output_dir``.
 Precision: cuDNN convolutions may use TF32, matmuls stay float32
 (:func:`wmar_tpu_torch.finetune.cli.set_precision`).
 """
@@ -153,9 +165,9 @@ def main(argv=None):
     """Run the finetune; returns the final
     :class:`~wmar_tpu_torch.audio.finetune.MimiFTState`."""
     args = get_parser().parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA card is visible (pass --device cpu to run on the CPU)")
+    from wmar_tpu_torch.finetune.cli import _quiet, load_resume, run_mesh, save_resume, set_precision
+
+    device, mesh = run_mesh(args.device)
     from wmar_tpu_torch import bridge
     from wmar_tpu_torch.audio.augmenter import Augmenter
     from wmar_tpu_torch.audio.dataloader import AudioDataset, train_valid_split
@@ -170,7 +182,7 @@ def main(argv=None):
     )
     from wmar_tpu_torch.audio.losses import get_audio_loss, get_code_loss
     from wmar_tpu_torch.audio.prompts import write_wav
-    from wmar_tpu_torch.finetune.cli import load_resume, save_resume, set_precision
+    from wmar_tpu_torch.parallel import dp_size, gather_rows, is_lead, rows_of, same_on_all
     from wmar_tpu_torch.utils import checkpoint as ckpt
     from wmar_tpu_torch.utils.metrics import pesq_metric, sisnr, snr, stoi
 
@@ -179,7 +191,10 @@ def main(argv=None):
     augs_params = json.loads(args.augs_params.replace("'", '"'))
     if (args.target_duration * 1000) % 80 != 0:
         raise SystemExit("Target duration should be a multiple of 80ms (s/frame of mimi).")
-    os.makedirs(args.output_dir, exist_ok=True)
+    lead = is_lead(mesh)
+    log = print if lead else _quiet
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
     mimi = build_mimi(args, device)
     wrapper = MimiFTWrapper(mimi)
     clip_len = int(args.target_sr * args.target_duration) if not args.tiny else mimi.cfg.hop_length * 8
@@ -199,8 +214,11 @@ def main(argv=None):
 
         def get_batch(idx):
             return np.stack([ds[int(i)] for i in idx])
-    print(f"Dataset split: Train={len(tr_idx)}, Valid={len(va_idx)}")
-    bs = args.batch_size
+    log(f"Dataset split: Train={len(tr_idx)}, Valid={len(va_idx)}")
+    n_dp = dp_size(mesh)
+    bs = max(n_dp, (args.batch_size // n_dp) * n_dp)
+    if bs != args.batch_size:
+        log(f"batch_size {args.batch_size} -> {bs} (divisible by {n_dp} devices)")
 
     # ----- optimizer: AdamW + warmup-cosine to lr / 100 ----------------------
     warmup_steps = args.warmup_epochs * args.steps_per_epoch
@@ -222,13 +240,14 @@ def main(argv=None):
         load_resume(resume_path, state)
         with open(meta_path) as f:
             start_epoch = json.load(f)["epoch"]
-        print(f"resumed from {resume_path} at epoch {start_epoch}")
+        log(f"resumed from {resume_path} at epoch {start_epoch}")
+    same_on_all(mesh, start_epoch, "the epoch to resume at")
 
     # ----- augmenter + losses ----------------------------------------------
-    augmenter = Augmenter(augs, augs_params, args.num_augmentations, args.target_sr) if augs else None
-    audio_loss_fn = get_audio_loss(args.audio_loss_type, args.target_sr)
+    augmenter = Augmenter(augs, augs_params, args.num_augmentations, args.target_sr, mesh=mesh) if augs else None
+    audio_loss_fn = get_audio_loss(args.audio_loss_type, args.target_sr, mesh)
     code_loss_fn = get_code_loss(args.code_loss_type)
-    step_kw = dict(audio_target_type=args.audio_target_type, code_target_type=args.code_target_type)
+    step_kw = dict(audio_target_type=args.audio_target_type, code_target_type=args.code_target_type, mesh=mesh)
     step_plain = make_rcc_train_step(state, audio_loss_fn, code_loss_fn, args.audio_loss_weight,
                                      args.code_loss_weight, None, **step_kw)
     step_aug = make_rcc_train_step(state, audio_loss_fn, code_loss_fn, args.audio_loss_weight,
@@ -240,11 +259,15 @@ def main(argv=None):
         return np.concatenate([vb] * (-(-bs // vb.shape[0])))[:bs] if vb.shape[0] < bs else vb
 
     def run_eval(epoch):
+        """The eval's numbers (on the first rank; the others return none)."""
         stats, cnt = {}, 0
         for s in range(0, len(va_idx), bs):
-            vb = get_batch(va_idx[s:s + bs])
-            rows = vb.shape[0]
-            m, recon, pred = eval_step(torch.from_numpy(tiled(vb)).to(device))
+            idx = va_idx[s:s + bs]
+            rows = len(idx)
+            m, recon, pred = eval_step(torch.from_numpy(get_batch(rows_of(mesh, tiled(idx)))).to(device))
+            recon, pred = gather_rows(recon, mesh), gather_rows(pred, mesh)
+            if not lead:
+                continue
             m = dict(zip(m, torch.stack(list(m.values())).tolist()))
             recon, pred = recon.cpu().numpy(), pred.cpu().numpy()
             m["sisnr"] = sisnr(pred[:rows], recon[:rows])
@@ -260,7 +283,7 @@ def main(argv=None):
                 write_wav(os.path.join(args.output_dir, f"{epoch:03d}_pred.wav"), pred[0, :, 0], args.target_sr)
             cnt += rows
         stats = {k: v / max(cnt, 1) for k, v in stats.items()}
-        if tm_augs:
+        if lead and tm_augs:
             vb = torch.from_numpy(tiled(get_batch(va_idx[:max(1, min(bs, len(va_idx)))]))).to(device)
             codes = mimi.encode(vb)
             for name, fn, params in tm_augs:
@@ -285,17 +308,17 @@ def main(argv=None):
         idxs = [rng.choice(tr_idx, size=bs, replace=len(tr_idx) < bs) for _ in range(args.steps_per_epoch)]
         if epoch < start_epoch:
             continue
-        print(f"Epoch {epoch}/{args.epochs}")
+        log(f"Epoch {epoch}/{args.epochs}")
         use_aug = augmenter is not None and 0 <= args.augmentation_start <= epoch
         step_fn = step_aug if use_aug else step_plain
         rows = []
         t_train = synced()
         for bi, idx in enumerate(idxs):
-            batch = torch.from_numpy(get_batch(idx)).to(device)
+            batch = torch.from_numpy(get_batch(rows_of(mesh, idx))).to(device)
             gen = torch.Generator(device).manual_seed(args.seed + epoch * 100000 + bi)
             metrics = step_fn(batch, gen)
             rows.append(torch.stack(list(metrics.values())))
-            if bi % 10 == 0 or bi == args.steps_per_epoch - 1:
+            if lead and (bi % 10 == 0 or bi == args.steps_per_epoch - 1):
                 m = {k: round(v, 6) for k, v in zip(metrics, rows[-1].tolist())}
                 m["lr"] = schedule(state.step)
                 print(f"Epoch: [{epoch}] [{bi}/{args.steps_per_epoch}] {m}")
@@ -306,8 +329,10 @@ def main(argv=None):
 
         if (epoch + 1) % args.eval_freq == 0:
             eval_logs = run_eval(epoch)
-            print(f"Eval Epoch: [{epoch}] " + json.dumps({k: round(v, 5) for k, v in eval_logs.items()}))
+            log(f"Eval Epoch: [{epoch}] " + json.dumps({k: round(v, 5) for k, v in eval_logs.items()}))
             train_logs.update({f"eval_{k}": v for k, v in eval_logs.items()})
+        if not lead:
+            continue
         with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(train_logs) + "\n")
 
@@ -319,7 +344,7 @@ def main(argv=None):
                             bridge.mimi_tree(module), orig[part])
         if (epoch + 1) % args.save_freq == 0:
             save_resume(os.path.join(args.output_dir, f"checkpoint{epoch:03d}.msgpack"), state)
-    print(f"Training completed. Elapsed time: {(time.time() - t0) / 3600:.2f} hours.")
+    log(f"Training completed. Elapsed time: {(time.time() - t0) / 3600:.2f} hours.")
     return state
 
 

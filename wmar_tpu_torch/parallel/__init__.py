@@ -1,6 +1,20 @@
 """Multi-GPU runs: the rank grid (dp x tp), the launcher's rendezvous, the
-sharding specs and their slicer, and the collectives of tensor parallelism."""
+sharding specs and their slicer, the collectives of tensor parallelism and
+the data-parallel pieces of the trainers."""
 
+from wmar_tpu_torch.parallel.data import (
+    dp_size,
+    gather_rows,
+    global_randn,
+    is_lead,
+    mean_grads,
+    mean_metrics,
+    mean_over,
+    reset_traffic,
+    rows_of,
+    same_on_all,
+    traffic,
+)
 from wmar_tpu_torch.parallel.mesh import (
     Mesh,
     P,
@@ -23,6 +37,17 @@ __all__ = [
     "all_gather",
     "all_reduce",
     "apply_specs",
+    "dp_size",
+    "gather_rows",
+    "global_randn",
+    "is_lead",
+    "mean_grads",
+    "mean_metrics",
+    "mean_over",
+    "reset_traffic",
+    "rows_of",
+    "same_on_all",
+    "traffic",
     "gpt_tp_specs",
     "init_distributed",
     "kvcache_tp_spec",
