@@ -41,10 +41,13 @@ phases:
    CUDA cores) at every (K, N) of Taming-1.4B (32 rows), Chameleon-7B (24
    rows) and RAR-XL (128 rows) and at ragged row counts, for groups 128, 64
    and 32, at group 128 with every split count of K from 1 to its most
-   forced, twice (equal bits), one launch replayed from a CUDA graph, and
-   timed at Taming's four products and Chameleon's FFN beside its bound,
-   ``torch._weight_int4pack_mm`` and a bf16 matmul
-   (``wmar_tpu_torch.tools.bench_w4``); kernels #5 and #6 (``flash_decode_attention`` over a bf16 or f32
+   forced, twice (equal bits), one launch replayed from a CUDA graph, on
+   the strided slices of Chameleon-7B's ``w2`` that ranks of ``--tp 2``
+   and ``--tp 4`` with int4 weights hold (groups of 64 and 32, K 5504 and
+   2752) with every split count forced, and timed at Taming's four
+   products, Chameleon's FFN and those two slices beside its bound,
+   ``torch._weight_int4pack_mm`` (where it takes the shape) and a bf16
+   matmul (``wmar_tpu_torch.tools.bench_w4``); kernels #5 and #6 (``flash_decode_attention`` over a bf16 or f32
    cache, ``flash_decode_attention_q8`` over an int8 one) at the
    interleaved Chameleon shape (3 rows, 32 heads of 128, 4096 slots) and at
    a RAR-like shape (16 rows, 16 heads of 80), ``valid_len`` 1, 2, 1043,
@@ -67,14 +70,16 @@ phases:
    every kernel's bound (bytes over 3.35 TB/s or operations over the peak
    rate) is computed from the run's own inputs;
 4. RAR path: RAR-XL with int8 weights and the ``linear-rand-h=1-d=2.0-g=0.25``
-   watermark through the port's ``generate_and_evaluate`` on 64 classes,
+   watermark through the port's ``generate_and_evaluate`` on 32 classes
+   (64 before the multi-rank phase's part (d), for the script's time),
    a warm-up batch on the int8 packed cache (kernel #2) and a timed one on
    the packed4 cache (kernel #1), with random weights from a seed; checks
    codes, images, p-values, the green fraction, and that every
    decode-attention call went through its kernel (255 steps x 32 layers
    per batch);
 5. Chameleon path, from the reference's files (``build_chameleon_from_files``):
-   a random CHAMELEON_7B at full width and 16 of its 32 layers written as two
+   a random CHAMELEON_7B at full width and 8 of its 32 layers (16 before the
+   multi-rank phase's part (d), for the script's time) written as two
    bf16 tensor-parallel ``consolidated.*.pth`` shards in the reference's
    layout, a random CHAMELEON_F16 ``vqgan.ckpt`` and a synthetic 65,536-entry
    byte-level ``tokenizer/text_tokenizer.json``, converted by ``python -m
@@ -86,7 +91,7 @@ phases:
    temperature 0.9, top-p 0.9, the same watermark and one round trip,
    through ``generate_and_evaluate``: a warm-up batch on the packed cache
    (kernel #3), a timed one on the packed4 cache (kernel #4), at a
-   eighth of its depth (the first 4 of the files' 16 layers, ``CHAMELEON_RUN_LAYERS``,
+   eighth of its depth (the first 4 of the files' 8 layers, ``CHAMELEON_RUN_LAYERS``,
    :func:`first_layers`, for the script's time; #3 and #4 keep their
    full-depth shapes in phase 2), 1023
    steps x 4 layers each; checks image tokens, 512 px images in [-1, 1], p-values,
@@ -325,7 +330,21 @@ phases:
    more than 0.01 lr apart;
    rank 1 changes no file.
    Prints each trainer's seconds a step, peak GiB and bytes all-reduced a
-   step per rank.
+   step per rank. (d), in the same two ranks between (b) and (c): Chameleon
+   text-to-image at ``--tp 2 --weight_dtype int4`` (the run's int8 weights
+   requantized as grouped int4, cut by ``generate.make_run_mesh``: kernel
+   #8 on each rank's slices, ``w2``'s bytes split into groups of 64 rows,
+   ``w1``/``w3`` on the strided hidden units they hold, ``wo`` by whole
+   heads) through ``generate_and_evaluate``, its launches exact (#8 1024 x
+   29, #4 1023 x 4 a rank); its float32 teacher-forced logits within
+   ``SHARDED_F32_REL`` of one rank's int4 forward, and the same gate
+   refusing the logits of a run where rank 1 leaves its part of every
+   ``w2`` product out; then ``--sp 2`` (ring attention) and ``--pp 2``
+   (GPipe), each the wrapper's own prefill of the 8 prompts (24 CFG rows)
+   in float32 over a float32 cache and 16 teacher-forced steps through its
+   ``step_fn``: the last logits, every layer's cache at the valid slots and
+   the steps' logits within ``PARALLEL_F32_REL`` of one rank's. Prints
+   seconds a step a rank and the prefill seconds beside one rank's.
 
 Prints, before the last line, one JSON object with each kernel's numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -358,10 +377,11 @@ F32_REL_TOL = 1e-5
 ABS_FLOOR = 1e-6
 
 SEED = 0
-CLASSES = 64
+CLASSES = 32  # the RAR path's classes (64 before the multi-rank phase's part (d), for the script's time)
 WATERMARK = "linear-rand-h=1-d=2.0-g=0.25"
-# the layers of the random Chameleon-7B written as the reference's files (of 32)
-CHAMELEON_FILE_LAYERS = 16
+# the layers of the random Chameleon-7B written as the reference's files (of 32; 16 before the multi-rank phase's
+# part (d), for the script's time)
+CHAMELEON_FILE_LAYERS = 8
 # the first of them that phases 5-7 run: the script's time, not the kernels' shapes
 CHAMELEON_RUN_LAYERS = 4
 # 8 prompts whose first 16 characters differ in length, so the CFG rows are ragged
@@ -819,7 +839,35 @@ def _w4_weights(k, n, group, gen, device, copies=1):
             for _ in range(copies)]
 
 
-def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_bytes=120e6) -> dict:
+CHAMELEON_W2 = (11008, 4096)  # Chameleon-7B's w2 (K, N): 86 groups of 128 rows
+W2_SLICE_TPS = (2, 4)  # --tp 2 cuts w2's bytes into groups of 64 rows (K 5504), --tp 4 into groups of 32 (K 2752)
+
+
+def w2_rank_slices(device, gen, tps=W2_SLICE_TPS, rows: int = 24) -> list:
+    """Kernel #8's inputs on a tp rank of ``generate --tp N --weight_dtype
+    int4`` at Chameleon-7B's ``w2``: a random ``[11008, 4096]`` grouped-int4
+    matrix cut as ``llama_tp_specs`` cuts it (the byte axis; rank 0 and the
+    last rank) and ``rows`` bf16 rows of the hidden units that slice holds
+    (``int4_hidden_units``). Returns ``(label, x, q4, s4)`` a slice."""
+    from wmar_tpu_torch.models import llama
+    from wmar_tpu_torch.parallel import apply_specs, make_mesh
+
+    k, n = CHAMELEON_W2
+    (w,) = _w4_weights(k, n, 128, gen, device)
+    x = torch.randn((rows, k), generator=gen, device=device).to(torch.bfloat16)
+    specs = llama.int4_row_specs(k // 128, 128)
+    out = []
+    for tp in tps:
+        for r in (0, tp - 1):
+            view = make_mesh(dp=1, tp=tp, rank=r)
+            q4, s4 = (apply_specs(view, w[f], specs[f]) for f in ("q4", "s4"))
+            units = llama.int4_hidden_units(k // 128, 128, tp, r).to(device)
+            out.append((f"chameleon w2, rank {r} of tp {tp}", x[:, units].contiguous(), q4, s4))
+    return out
+
+
+def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_bytes=120e6,
+             slices=W2_SLICE_TPS) -> dict:
     """Kernel #8 (``matmul_w4``) against its plain float32 version with bf16
     x, at every ``(label, M, K, N)`` case and group size (and with f32 x, the
     CUDA-core route, at the first case); on the card also, at group 128,
@@ -830,7 +878,11 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
     the L2 cache as a decode step does: replayed from a CUDA graph and by
     CUDA events, beside the byte bound, the plain version, one
     ``torch._weight_int4pack_mm`` call (the library yardstick) and one bf16
-    ``torch.matmul`` on the dequantized weight. Returns the numbers of the
+    ``torch.matmul`` on the dequantized weight. ``slices``: the tp sizes
+    whose rank slices of Chameleon-7B's ``w2`` (:func:`w2_rank_slices`:
+    groups of 64 rows and K 5504 at tp 2, 32 and 2752 at tp 4) are held to
+    the plain version on the slice, every split count forced on the card,
+    and timed at the slice's shape and group. Returns the numbers of the
     first timed case, and every timed case under ``"shapes"``."""
     from wmar_tpu_torch.ops import w4_matmul as tw4
     from wmar_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_plain
@@ -868,6 +920,21 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
         print(f"kernel vs plain matmul_w4 {label} M={m} K={k} N={n}: ok, groups {list(groups)}"
               f"{', bf16 and f32 x' if ci == 0 else ', bf16 x'}"
               + (f"; at G=128 S forced to each of 1..{min(-(-k // 128), 8)}, twice with equal bits" if is_cuda else ""))
+    for label, x, q4, s4 in w2_rank_slices(device, gen, slices):
+        m, k, n, group = x.shape[0], x.shape[1], q4.shape[2], 2 * q4.shape[1]
+        want = matmul_w4_plain(x.float(), q4, s4)
+        got = matmul_w4(x, q4, s4)
+        tag = f"matmul_w4 {label} M={m} K={k} N={n} G={group}"
+        worst = max(worst, _check_close(tag, got, want, x.dtype))
+        most = min(-(-k // 128), 8)
+        for splits in range(1, most + 1) if is_cuda else ():
+            one, two = tw4._launch(x, q4, s4, splits), tw4._launch(x, q4, s4, splits)
+            torch.cuda.synchronize()
+            _check_close(f"{tag} S={splits}", one, want, x.dtype)
+            if not torch.equal(one, two):
+                raise AssertionError(f"{tag} S={splits}: two calls differ in their bits")
+        print(f"kernel vs plain {tag} (the rank's strided slice; K % 128 = {k % 128}): ok"
+              + (f"; S forced to each of 1..{most}, twice with equal bits" if is_cuda else ""))
     print(f"kernel vs plain matmul_w4: worst bf16 max abs err {worst:.3e}")
     out = {"max_abs_err": worst, "ms": float("nan"), "plain_ms": float("nan"), "graph_ms": None, "shapes": []}
     if not is_cuda:  # times only on the card
@@ -890,8 +957,15 @@ def phase_w4(device, cases=None, groups=(128, 64, 32), timed=None, reps=50, l2_b
     print(f"matmul_w4 {label} M={m} K={k} N={n}: one launch (S = "
           f"{tw4.w4_splits(m, n, k, 128, torch.cuda.get_device_properties(device).multi_processor_count)}) replayed "
           f"from a CUDA graph after x changed: equal bits")
-    for ti, (label, m, k, n) in enumerate(timed):
-        shape = bench_w4.time_shape(device, label, m, k, n, gen, reps=reps, l2_bytes=l2_bytes)
+    from wmar_tpu_torch.models.llama import int4_row_split
+
+    k2, n2 = CHAMELEON_W2
+    for tp in slices:  # a rank's w2 slice: the same bytes and shapes as random weights at the slice's group
+        _, b = int4_row_split(k2 // 128, 128, tp)
+        timed = list(timed) + [(f"chameleon w2 slice, tp {tp}", 24, k2 // tp, n2, 128 // b)]
+    for ti, (label, m, k, n, *group) in enumerate(timed):
+        shape = bench_w4.time_shape(device, label, m, k, n, gen, reps=reps, l2_bytes=l2_bytes,
+                                    group=group[0] if group else 128)
         if not shape["max_abs_err"] <= shape["tol"]:
             raise AssertionError(f"matmul_w4 {label}: max abs err {shape['max_abs_err']} > {shape['tol']}")
         out["shapes"].append(shape)
@@ -1671,6 +1745,12 @@ CHAMELEON_GEN = dict(temperature=0.9, top_k=None, top_p=0.9)
 # cache, relative to the largest |logit|: only the order of the row-parallel sums differs (~1e-6 measured on the
 # CPU); a dropped part of a sum, a wrong head or a wrong vocabulary shard moves them by the logits' own size
 SHARDED_F32_REL = 1e-4
+# (d2)/(d3): --sp 2 and --pp 2's float32 prefill (last logits, every layer's cache at the valid slots) and the 16
+# teacher-forced steps after it against one rank's, each relative to its largest |value|: the ring's online softmax
+# and the pipeline's per-microbatch products sum in another order (~1e-6 on the CPU); a lost block of keys, a stage
+# that hands on the wrong hidden state or a layer's K/V from the wrong stage move them by their own size
+PARALLEL_F32_REL = 1e-4
+PARALLEL_STEPS = 16
 
 
 def _median_event_ms(fn, reps: int) -> float:
@@ -1774,6 +1854,16 @@ def chameleon_from_parts(parts: dict, device):
     return wrapper
 
 
+def float_weights(tree, dtype):
+    """The tree with its float leaves cast to ``dtype`` (a copy), save a
+    grouped-int4 leaf's scales ``s4``: kernel #8 takes them in bf16."""
+    if isinstance(tree, dict):
+        return {k: v if k == "s4" else float_weights(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [float_weights(v, dtype) for v in tree]
+    return tree.to(dtype) if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
+
+
 def teacher_forced_logits(wrapper, prompt: str, codes: torch.Tensor, dtype=None) -> torch.Tensor:
     """The combined (instruct-CFG) logits over the image tokens of every
     step of ``codes [1, N]``, fed as the tokens: the prompt's CFG rows and
@@ -1788,7 +1878,6 @@ def teacher_forced_logits(wrapper, prompt: str, codes: torch.Tensor, dtype=None)
     from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache
     from wmar_tpu_torch.models.chameleon import build_cfg_prompts
     from wmar_tpu_torch.models.llama import llama_forward
-    from wmar_tpu_torch.ops.wquant import cast_float_leaves
 
     dev, cfg = wrapper.device, wrapper.llama_cfg
     prompts, start, _ = build_cfg_prompts(wrapper.vocab, wrapper.tokenize_prompts([prompt]))
@@ -1802,7 +1891,7 @@ def teacher_forced_logits(wrapper, prompt: str, codes: torch.Tensor, dtype=None)
         kind = dataclasses.replace(kind, dtype=dtype) if isinstance(kind, CacheSpec) else dtype
     cache = KVCache.zeros(cfg.n_layers, 3, cfg.n_heads, lp + n, cfg.head_dim, kind, device=dev)
     with torch.inference_mode():
-        params = wrapper.llama_params if dtype is None else cast_float_leaves(wrapper.llama_params, dtype)
+        params = wrapper.llama_params if dtype is None else float_weights(wrapper.llama_params, dtype)
         logits, _ = llama_forward(params, cfg, tokens, cache, 0, positions, start=start, mesh=wrapper.mesh)
         full, img, uncond = logits[:, lp - 1:].chunk(3, dim=0)
         combined = instruct_cfg_combine(full, img, uncond, wrapper.cfg_opts.guidance_scale_text,
@@ -1820,14 +1909,15 @@ def _multirank_rar_argv(n_classes: int, device) -> list:
 
 
 def multirank_rank(rank: int, spec: dict) -> None:
-    """(b) of the multi-rank phase, in each of the two ranks (spawned by
-    :func:`phase_multirank`): ``generate.main --dp 2`` on RAR-XL, then
-    Chameleon text-to-image at ``--tp 2`` (the wrapper rebuilt from the
-    parent's tensors, its Llama cut to this rank's shard by
+    """(b) and (d) of the multi-rank phase, in each of the two ranks
+    (spawned by :func:`phase_multirank`): ``generate.main --dp 2`` on
+    RAR-XL, then Chameleon text-to-image at ``--tp 2`` (the wrapper rebuilt
+    from the parent's tensors, its Llama cut to this rank's shard by
     ``generate.make_run_mesh``) through ``generate_and_evaluate``, then the
     teacher-forced logits over the codes it drew, in bf16 and in float32
-    activations. Writes ``rank<r>.json`` (seconds, peak GiB, launches of
-    each run, the backend) and, on rank 0, the codes and the logits."""
+    activations; then (d), :func:`parallel_rank`; then (c) where asked.
+    Writes ``rank<r>.json`` (seconds, peak GiB, launches of each run, the
+    backend) and, on rank 0, the codes and the logits."""
     import types
 
     import torch.distributed as dist
@@ -1858,7 +1948,7 @@ def multirank_rank(rank: int, spec: dict) -> None:
 
     run("rar", lambda: generate.main(spec["rar_argv"] + ["--dp", "2", "--outdir", spec["rar_out"]]))
     wrapper = chameleon_from_parts(spec["chameleon"], device)
-    mesh = generate.make_run_mesh(types.SimpleNamespace(dp=1, tp=2), wrapper)
+    mesh = generate.make_run_mesh(types.SimpleNamespace(dp=1, tp=2, sp=1, pp=1), wrapper)
     rec = _Recording(wrapper)
     run("chameleon", lambda: generate_and_evaluate(
         spec["chameleon_out"], rec, [spec["prompt"]], GenParams(**CHAMELEON_GEN), EvalParams(max_roundtrips=1), None,
@@ -1869,11 +1959,133 @@ def multirank_rank(rank: int, spec: dict) -> None:
     if rank == 0:
         torch.save({"codes": codes.cpu(), **{k: v.cpu() for k, v in forced.items()}},
                    os.path.join(spec["reports"], "chameleon_tp2.pt"))
+    del wrapper, mesh, rec, forced
+    parallel_rank(rank, spec, device, run, report)
     if spec.get("finetune"):
-        del wrapper, mesh, rec, forced
         report["finetune"] = dp_finetune_rank(rank, spec["finetune"])
     with open(os.path.join(spec["reports"], f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
+
+
+def int4_weights(params: dict) -> dict:
+    """The grouped-int4 tree of a Chameleon tree of int8 linears: each
+    ``{"q", "s"}`` matrix dequantized and quantized again as grouped int4
+    (``wquant.quantize_matrix(bits=4)``, on its device)."""
+    from wmar_tpu_torch.models.llama import WEIGHT_KEYS
+    from wmar_tpu_torch.ops.wquant import quantize_matrix
+
+    def requant(w):
+        return quantize_matrix(w["q"].float() * w["s"].float(), bits=4)
+
+    out = dict(params)
+    out["blocks"] = [{k: requant(v) if k in WEIGHT_KEYS else v for k, v in blk.items()} for blk in params["blocks"]]
+    out["output"] = requant(params["output"])
+    return out
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prefill_and_steps(wrapper, prompts, steps: torch.Tensor) -> dict:
+    """The wrapper's own prefill over the CFG rows of ``prompts`` (its
+    ``cfg_prompts`` and ``ChameleonT2ISampler.prefill``: the ring or the
+    pipeline where ``wrapper.mesh`` has an ``sp`` or ``pp`` axis) in float32
+    weights over a float32 cache, then ``len(steps)`` decode steps through
+    its ``step_fn`` fed ``steps [S, B]``. Returns the prefill's combined
+    last logits, every step's, the cache's K and V from the prompts' first
+    slot (a left pad of the ring dropped, so that slot ``j`` is the one-rank
+    run's) through the last step's, the rows' ``start`` there and the
+    prefill's seconds."""
+    from wmar_tpu_torch.models.chameleon import ChameleonT2ISampler
+
+    dev = wrapper.device
+    tokens, start = wrapper.cfg_prompts(wrapper.tokenize_prompts(prompts))
+    pad = int(start.min())  # every CFG row is left-padded at least by the ring's pad
+    sampler = ChameleonT2ISampler(float_weights(wrapper.llama_params, torch.float32), wrapper.llama_cfg,
+                                  wrapper._image_mask, tokens, start, wrapper.cfg_opts, wrapper.image_seq_len,
+                                  torch.float32, wrapper.mesh)
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        last, cache = sampler.prefill()
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        logits = []
+        for s in range(1, steps.shape[0] + 1):
+            out, cache = sampler.step_fn(cache, steps[s - 1].to(dev), s)
+            logits.append(out)
+    end = tokens.shape[1] + steps.shape[0]
+    return {"last": last.float(), "steps": torch.stack(logits).float(), "k": cache.k[:, :, :, pad:end],
+            "v": cache.v[:, :, :, pad:end], "start": (start - pad).cpu(), "seconds": seconds}
+
+
+def parallel_prefill_gate(label: str, got: dict, want: dict) -> dict:
+    """Hold a ``--sp`` / ``--pp`` rank's :func:`prefill_and_steps` to the
+    one-rank run's: the last logits, every step's logits and every layer's
+    K and V at the valid slots (from each row's ``start``), each within
+    ``PARALLEL_F32_REL`` of its largest |value|."""
+    if not torch.equal(got["start"], want["start"]) or got["k"].shape != want["k"].shape:
+        raise AssertionError(f"multi-rank, {label}: other prompt rows than the one-rank run's")
+    valid = (torch.arange(want["k"].shape[3])[None] >= want["start"][:, None])[None, :, None, :, None]
+    out = {}
+    for key in ("last", "steps", "k", "v"):
+        a, b = got[key].cpu(), want[key].cpu()
+        if key in ("k", "v"):
+            a, b = a[valid.expand_as(a)], b[valid.expand_as(b)]
+        out[f"{key}_rel"] = float((a - b).abs().max()) / float(b.abs().max())
+    if not max(out.values()) <= PARALLEL_F32_REL:
+        raise AssertionError(f"multi-rank, {label}: float32 prefill / steps / cache {out} of the largest from the "
+                             f"one-rank run's, past {PARALLEL_F32_REL}")
+    return out
+
+
+def parallel_rank(rank: int, spec: dict, device, run, report: dict) -> None:
+    """(d) of the multi-rank phase in each of the two ranks. (d1)
+    Chameleon text-to-image at ``--tp 2 --weight_dtype int4`` (the parent's
+    int4 tree, cut by ``generate.make_run_mesh``: kernel #8 on the rank's
+    slices) through ``generate_and_evaluate``, then its teacher-forced
+    logits in float32 and, for the gate's mutation run, float32 again with
+    rank 1's part of every ``w2`` sum dropped (its ``w2`` scales
+    zero). (d2) ``--sp 2`` and (d3) ``--pp 2``: the whole int8 model (the
+    parent's tensors) on a grid of that axis, :func:`prefill_and_steps` over
+    ``PROMPTS`` and the parent's ``PARALLEL_STEPS`` teacher tokens. Rank 0
+    writes what the parent holds to the one-rank runs."""
+    import copy
+    import types
+
+    from wmar_tpu_torch import generate
+    from wmar_tpu_torch.eval import EvalParams, generate_and_evaluate
+    from wmar_tpu_torch.models import GenParams
+    from wmar_tpu_torch.parallel import make_mesh
+
+    par = spec["parallel"]
+    wrapper = chameleon_from_parts({**spec["chameleon"], "params": par["int4"]}, device)
+    mesh = generate.make_run_mesh(types.SimpleNamespace(dp=1, tp=2, sp=1, pp=1), wrapper)
+    rec = _Recording(wrapper)
+    run("chameleon_int4", lambda: generate_and_evaluate(
+        par["int4_out"], rec, [spec["prompt"]], GenParams(**CHAMELEON_GEN), EvalParams(max_roundtrips=1), None,
+        batch_size=1, seed=SEED, mesh=mesh, log_fn=lambda s: print(f"  [rank {rank}, tp=2, int4] {s}")))
+    codes = rec.sampled[-1]
+    forced = {"f32": teacher_forced_logits(wrapper, spec["prompt"], codes, torch.float32)}
+    if rank == 1:  # the mutation: this rank's part of every w2 product is left out of the sum
+        wrapper = copy.copy(wrapper)
+        wrapper.llama_params = {**wrapper.llama_params, "blocks": [
+            {**blk, "w2": {**blk["w2"], "s4": torch.zeros_like(blk["w2"]["s4"])}}
+            for blk in wrapper.llama_params["blocks"]]}
+    forced["f32_mutated"] = teacher_forced_logits(wrapper, spec["prompt"], codes, torch.float32)
+    if rank == 0:
+        torch.save({"codes": codes.cpu(), **{k: v.cpu() for k, v in forced.items()}},
+                   os.path.join(spec["reports"], "chameleon_int4_tp2.pt"))
+    del wrapper, mesh, rec, forced
+    whole = chameleon_from_parts(spec["chameleon"], device)
+    for name, grid in (("sp2", dict(sp=2)), ("pp2", dict(pp=2))):
+        whole.shard(make_mesh(dp=1, tp=1, **grid))
+        out = prefill_and_steps(whole, PROMPTS, par["steps"])
+        report[f"prefill_{name}"] = {"seconds": out.pop("seconds")}
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in out.items()}, os.path.join(spec["reports"], f"prefill_{name}.pt"))
 
 
 def _tree_codes(outdir: str) -> dict:
@@ -1912,18 +2124,20 @@ def _compare_trees(label: str, ref: dict, got: dict) -> dict:
 def sharded_logit_gate(label: str, got: dict, want: dict) -> dict:
     """Hold a ``--tp`` run's teacher-forced logits ``got["f32"]`` (float32
     activations) to the one-rank forward's ``want["f32"]``: within
-    ``SHARDED_F32_REL`` of the largest |logit|. The bf16 forwards' distance,
-    bf16's own distance from float32 (one rank), the share of steps whose
-    bf16 argmax agrees and the first step where it parts are returned, not
-    gated: in bf16 each rank rounds its half of a row-parallel sum."""
+    ``SHARDED_F32_REL`` of the largest |logit|. Where ``want`` has bf16
+    forwards, their distance, bf16's own distance from float32 (one rank),
+    the share of steps whose bf16 argmax agrees and the first step where it
+    parts are returned, not gated: in bf16 each rank rounds its half of a
+    row-parallel sum."""
     scale = float(want["f32"].abs().max())
-    agree = got["bf16"].argmax(-1) == want["bf16"].argmax(-1)
-    parted = torch.nonzero(~agree).flatten()
-    out = {"forced_f32_rel": float((got["f32"] - want["f32"]).abs().max()) / scale,
-           "forced_bf16_rel": float((got["bf16"] - want["bf16"]).abs().max()) / scale,
-           "bf16_vs_f32_rel": float((want["bf16"] - want["f32"]).abs().max()) / scale,
-           "bf16_argmax_agree": float(agree.float().mean()),
-           "bf16_argmax_first_parts": int(parted[0]) if parted.numel() else None}
+    out = {"forced_f32_rel": float((got["f32"] - want["f32"]).abs().max()) / scale}
+    if "bf16" in want:
+        agree = got["bf16"].argmax(-1) == want["bf16"].argmax(-1)
+        parted = torch.nonzero(~agree).flatten()
+        out.update(forced_bf16_rel=float((got["bf16"] - want["bf16"]).abs().max()) / scale,
+                   bf16_vs_f32_rel=float((want["bf16"] - want["f32"]).abs().max()) / scale,
+                   bf16_argmax_agree=float(agree.float().mean()),
+                   bf16_argmax_first_parts=int(parted[0]) if parted.numel() else None)
     if not out["forced_f32_rel"] <= SHARDED_F32_REL:
         raise AssertionError(f"multi-rank, {label}: float32 teacher-forced logits {out['forced_f32_rel']:.3e} of the "
                              f"largest from the one-rank forward's, past {SHARDED_F32_REL}")
@@ -2300,6 +2514,44 @@ def phase_dp_finetune(device, workdir: str, tiny: bool = False) -> dict:
     return {"gates": gates, "ranks": per_rank, "reference": reference, "spec": spec}
 
 
+def parallel_gates(chameleon, spec: dict, prompt: str, device) -> dict:
+    """The one-rank sides of (d) and their gates, after the ranks: (d1)
+    ``chameleon``'s int4 tree (``spec``'s) forced over the codes the ranks
+    drew, in float32 (TF32 off, as in the ranks), held by
+    :func:`sharded_logit_gate`, which must refuse the mutation run's
+    logits; (d2)/(d3) :func:`prefill_and_steps` on one rank, held by
+    :func:`parallel_prefill_gate`."""
+    import copy
+
+    reports = spec["reports"]
+    got = torch.load(os.path.join(reports, "chameleon_int4_tp2.pt"))
+    view = copy.copy(chameleon)
+    view.llama_params = spec["parallel"]["int4"]
+    codes = got["codes"].to(device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = {"f32": teacher_forced_logits(view, prompt, codes, torch.float32).cpu()}
+        steps = prefill_and_steps(chameleon, PROMPTS, spec["parallel"]["steps"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"int4": sharded_logit_gate("Chameleon int4 --tp 2", got, one)}
+    mutated = float((got["f32_mutated"] - one["f32"]).abs().max()) / float(one["f32"].abs().max())
+    try:
+        sharded_logit_gate("Chameleon int4 --tp 2, rank 1 without its part of w2", {**got, "f32": got["f32_mutated"]},
+                           one)
+    except AssertionError:
+        out["int4"]["mutated_f32_rel"] = mutated
+    else:
+        raise AssertionError(f"multi-rank, Chameleon int4 --tp 2: the gate passed logits with rank 1's part of w2 left "
+                             f"out ({mutated:.3e} of the largest)")
+    out["one_prefill_seconds"] = steps.pop("seconds")
+    for name in ("sp2", "pp2"):
+        out[name] = parallel_prefill_gate(f"Chameleon --{name[:2]} 2",
+                                          torch.load(os.path.join(reports, f"prefill_{name}.pt")), steps)
+    return out
+
+
 def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: int = MULTIRANK_CLASSES,
                     prompt: str = MULTIRANK_PROMPT, shapes=MULTIRANK_SHAPES, finetune: bool = False) -> dict:
     """The multi-rank phase: (a) :func:`phase_sharded_kernels`; (b) two
@@ -2316,11 +2568,15 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     to ``--dp 1``'s (:func:`_compare_trees`); ``--tp 2``'s float32
     teacher-forced logits by :func:`sharded_logit_gate`. The kernel on a
     rank's shard is held to its plain version in (a); a teacher-forced
-    forward is one prefill, on the plain path. ``shapes``: (a)'s. With
-    ``finetune``, (c): after (b) the ranks run data-parallel finetuning
-    (:func:`dp_finetune_rank`), this process the start and the one-process
-    runs (:func:`dp_reference`) after its ``--dp 1``, and
-    :func:`dp_finetune_gates` holds them. Returns the
+    forward is one prefill, on the plain path. ``shapes``: (a)'s. (d),
+    after (b) in the same ranks (:func:`parallel_rank`): ``--tp 2
+    --weight_dtype int4`` (one generation, kernel #8 on the ranks' slices,
+    its launches exact), ``--sp 2`` and ``--pp 2`` (the wrapper's prefill
+    and 16 steps in float32); this process holds them to one rank
+    (:func:`parallel_gates`). With ``finetune``, (c): after (d) the ranks
+    run data-parallel finetuning (:func:`dp_finetune_rank`), this process
+    the start and the one-process runs (:func:`dp_reference`) after its
+    ``--dp 1``, and :func:`dp_finetune_gates` holds them. Returns the
     launches of both ranks and of ``--dp 1``."""
     from wmar_tpu_torch import generate
     from wmar_tpu_torch.parallel.launch import spawn_ranks, wait
@@ -2336,10 +2592,15 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     reports = os.path.join(workdir, "reports")
     os.makedirs(reports, exist_ok=True)
     chameleon.cache_dtype = "packed4"
+    image_ids = torch.as_tensor(chameleon.vocab.image_tokens)
+    steps = image_ids[torch.randint(len(image_ids), (PARALLEL_STEPS, len(PROMPTS)),
+                                    generator=torch.Generator().manual_seed(SEED + 60))]
     spec = {"rar_argv": _multirank_rar_argv(n_classes, device), "rar_out": os.path.join(workdir, "rar_dp2"),
             "device_type": "cuda" if cuda else "cpu",
             "chameleon": chameleon_parts(chameleon, modelpath), "chameleon_out": os.path.join(workdir, "cham_tp2"),
             "prompt": prompt, "reports": reports,
+            "parallel": {"int4": int4_weights(chameleon.llama_params), "int4_out": os.path.join(workdir, "cham_int4"),
+                         "steps": steps},
             "finetune": dp_finetune_spec(device, workdir) if finetune else None}
     t0 = time.perf_counter()
     ranks = spawn_ranks(multirank_rank, 2, backend, args=(spec,), devices=devices, join=False)
@@ -2359,6 +2620,7 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
             per_rank.append(json.load(f))
     rar_steps = 255 * 32  # RAR-XL: 255 decode steps x 32 layers a batch
     cham_steps = (chameleon.image_seq_len - 1) * chameleon.llama_cfg.n_layers
+    w4_calls = chameleon.image_seq_len * (7 * chameleon.llama_cfg.n_layers + 1)  # 7 linears a layer and the head
     _check_launches(device, ref["rar"]["launches"], {"packed4_decode_attention": rar_steps},
                     "multi-rank, RAR-XL, --dp 1")
     for r in per_rank:
@@ -2366,6 +2628,9 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
                         f"multi-rank, RAR-XL, rank {r['rank']}")
         _check_launches(device, r["chameleon"]["launches"], {"packed4_decode_attention_chunked": cham_steps},
                         f"multi-rank, Chameleon, rank {r['rank']}")
+        _check_launches(device, r["chameleon_int4"]["launches"], {"packed4_decode_attention_chunked": cham_steps,
+                                                                  "matmul_w4": w4_calls},
+                        f"multi-rank, Chameleon int4, rank {r['rank']}")
     rar = _compare_trees("RAR-XL --dp 2", _tree_codes(os.path.join(workdir, "rar_dp1")), _tree_codes(spec["rar_out"]))
     tp2 = torch.load(os.path.join(reports, "chameleon_tp2.pt"))
     codes = tp2["codes"].to(device)
@@ -2380,9 +2645,10 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
     if not tree or not all(0.0 <= p <= 1.0 for p, _, _ in tree.values()):
         raise AssertionError(f"multi-rank, Chameleon --tp 2: no records or a p-value out of [0, 1]: {tree}")
     cham = {"records": len(tree), **sharded_logit_gate("Chameleon --tp 2", tp2, one)}
+    par = parallel_gates(chameleon, spec, prompt, device)
     tuned = dp_finetune_gates(spec["finetune"]) if finetune else None
-    counts = {name: ref["rar"]["launches"][name] + sum(r["rar"]["launches"][name] + r["chameleon"]["launches"][name]
-                                                       for r in per_rank)
+    counts = {name: ref["rar"]["launches"][name] + sum(r[run]["launches"][name] for r in per_rank
+                                                       for run in ("rar", "chameleon", "chameleon_int4"))
               for name, _, _, _ in _kernels()}
     print(f"multi-rank: {transport}; {seconds:.1f} s; RAR-XL --dp 2 ({n_classes} classes, int8, packed4) against "
           f"--dp 1: {rar}; Chameleon t2i --tp 2 ({chameleon.llama_cfg.n_layers} layers, int8, packed4, 1 prompt), "
@@ -2392,12 +2658,23 @@ def phase_multirank(device, chameleon, modelpath: str, workdir: str, n_classes: 
                       f"; Chameleon {r['chameleon']['seconds']:.1f} s, peak {r['chameleon']['peak_gib']:.2f} GiB, "
                       f"launches #4 {r['chameleon']['launches']['packed4_decode_attention_chunked']}" for r in per_rank)
           + f"; --dp 1 (this process, beside the ranks): RAR {ref['rar']['seconds']:.1f} s")
+    print(f"multi-rank (d): (d1) Chameleon t2i --tp 2 --weight_dtype int4 ({chameleon.llama_cfg.n_layers} layers, "
+          f"packed4, 1 prompt), teacher-forced against one rank's int4 forward: {par['int4']}; "
+          + "; ".join(f"rank {r['rank']}: {d1['seconds']:.1f} s, {1e3 * d1['seconds'] / chameleon.image_seq_len:.1f} "
+                      f"ms a step, peak {d1['peak_gib']:.2f} GiB, launches #8 {d1['launches']['matmul_w4']}, #4 "
+                      f"{d1['launches']['packed4_decode_attention_chunked']}"
+                      for r, d1 in ((r, r["chameleon_int4"]) for r in per_rank))
+          + f"; (d2) --sp 2 and (d3) --pp 2, float32 prefill of {len(PROMPTS)} prompts ({3 * len(PROMPTS)} CFG rows) "
+          f"and {PARALLEL_STEPS} teacher-forced steps against one rank: sp2 {par['sp2']}, pp2 {par['pp2']}; "
+          f"prefill seconds: one rank {par['one_prefill_seconds']:.3f}, "
+          + ", ".join(f"rank {r['rank']} sp2 {r['prefill_sp2']['seconds']:.3f} pp2 {r['prefill_pp2']['seconds']:.3f}"
+                      for r in per_rank) + f" ({transport})")
     if finetune:
         print("multi-rank: " + dp_finetune_line(spec["finetune"], tuned, [r["finetune"] for r in per_rank],
                                                 ref["finetune"]))
     return {"launches": counts, "sharded_kernels": sharded, "backend": backend, "transport": transport,
             "seconds": seconds, "ranks": per_rank, "references": ref, "rar": rar, "chameleon": cham,
-            "finetune": tuned}
+            "parallel": par, "finetune": tuned}
 
 
 def build_taming(device, gpt_cfg=None, vq_cfg=None):

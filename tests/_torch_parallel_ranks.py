@@ -35,9 +35,10 @@ def megatron_rank(rank: int, workdir: str) -> None:
 
 def transport_check(rank: int, mesh) -> dict:
     """The port's collectives over the tp axis on tensors drawn from
-    ``100 + rank``: ``{dtype: (input, all_reduce, all_gather along dim 1)}``
-    and rank 0's tensor as ``replicate`` hands it on."""
-    from wmar_tpu_torch.parallel import all_gather, all_reduce, replicate
+    ``100 + rank``: ``{dtype: (input, all_reduce, all_gather along dim 1)}``,
+    rank 0's tensor as ``replicate`` hands it on, rank 1's as ``broadcast``
+    does, and what one ``ring_exchange`` hop brings."""
+    from wmar_tpu_torch.parallel import all_gather, all_reduce, broadcast, replicate, ring_exchange
 
     g = torch.Generator().manual_seed(100 + rank)
     out = {}
@@ -45,6 +46,8 @@ def transport_check(rank: int, mesh) -> dict:
         x = (torch.randn((3, 5, 7), generator=g) * 100).to(dtype)
         out[str(dtype)] = (x, all_reduce(x.clone(), mesh), all_gather(x, mesh, dim=1))
     out["replicated"] = replicate(mesh, {"x": torch.full((4,), float(rank + 7))})["x"]
+    out["broadcast"] = broadcast(torch.full((4,), float(rank + 7)), mesh, "tp", 1)
+    out["ring"] = ring_exchange(torch.full((2, 3), float(rank)), mesh, "tp")
     return out
 
 
@@ -63,12 +66,90 @@ def run_llama_steps(params, cfg, inputs, cache, mesh=None):
 
 def generate_rank(rank: int, workdir: str, cases: dict) -> None:
     """``generate.main`` for each ``{name: argv}`` case, into
-    ``<workdir>/<name>``, in the process group the launcher made."""
-    from wmar_tpu_torch import generate
-
+    ``<workdir>/<name>``, in the process group the launcher made; a case
+    given as ``(argv, tiny)`` runs with ``generate.TINY_CHAMELEON`` set to
+    ``tiny``."""
     torch.set_num_threads(1)
     for name, argv in cases.items():
-        generate.main(list(argv) + ["--outdir", os.path.join(workdir, name)])
+        argv, tiny = argv if isinstance(argv, tuple) else (argv, None)
+        run_generate(list(argv) + ["--outdir", os.path.join(workdir, name)], tiny)
+
+
+def run_generate(argv, tiny=None):
+    """``generate.main(argv)``, with the ``--tiny`` Chameleon's Llama at
+    ``tiny`` (a ``TINY_CHAMELEON`` dict) where given."""
+    from wmar_tpu_torch import generate
+
+    saved = generate.TINY_CHAMELEON
+    generate.TINY_CHAMELEON = tiny or saved
+    try:
+        return generate.main(argv)
+    finally:
+        generate.TINY_CHAMELEON = saved
+
+
+def grid_block(mesh, x, row_dim=0, head_dim=None, seq_dim=None):
+    """This rank's block of a global tensor: its rows over ``dp``, its
+    heads over ``tp``, its positions over ``sp`` (each where a dim is given)."""
+    from wmar_tpu_torch.parallel import sequence_block
+
+    for dim, axis in ((row_dim, "dp"), (head_dim, "tp")):
+        if dim is not None:
+            n, i = mesh.size_of(axis), mesh.axis_index(axis)
+            x = x.narrow(dim, i * (x.shape[dim] // n), x.shape[dim] // n)
+    return sequence_block(x, mesh, seq_dim) if seq_dim is not None else x
+
+
+def sp_pp_rank(rank: int, workdir: str) -> None:
+    """The sequence- and pipeline-parallel pieces on this rank, for each
+    case of ``inputs.pt`` (every rank makes each case's grid, in the same
+    order): the ring attention on the rank's block of rows, heads and
+    positions; ``llama_prefill_sp`` / ``llama_prefill_pp`` on the rank's
+    tp shard (ragged ``start``), then one decode step from the cache they
+    built; ``sample_interleaved_fused`` with an ``sp_mesh`` (greedy); then
+    ``generate.main`` for each ``generate`` case. Writes ``rank<r>.pt``:
+    per case the rank's coordinates and what it computed."""
+    from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache
+    from wmar_tpu_torch.models import GenParams, llama
+    from wmar_tpu_torch.models.chameleon_interleaved import TextGenOptions, sample_interleaved_fused
+    from wmar_tpu_torch.parallel import apply_specs, llama_prefill_pp, make_mesh, ring_prefill_attention
+
+    torch.set_num_threads(1)
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    out = {}
+    for name, grid, case in inputs["ring"]:
+        mesh = make_mesh(**grid)
+        q, k, v = (grid_block(mesh, case[x], 0, 1, 2) for x in "qkv")
+        got = ring_prefill_attention(q, k, v, mesh, start=grid_block(mesh, case["start"]),
+                                     key_mask=grid_block(mesh, case["key_mask"]))
+        out[name] = ({a: mesh.axis_index(a) for a in ("dp", "tp", "sp")}, got)
+    for name, grid, case in inputs["prefill"]:
+        mesh = make_mesh(**grid)
+        cfg, params, tokens, start, positions = (case[x] for x in ("cfg", "params", "tokens", "start", "positions"))
+        if mesh.tp > 1:
+            params = apply_specs(mesh, params, llama.llama_tp_specs(params))
+        b, t = tokens.shape
+        cache = KVCache.zeros(cfg.n_layers, b, cfg.n_heads, case["t_max"], cfg.head_dim,
+                              CacheSpec(torch.float32, mesh, None, "tp") if mesh.tp > 1 else torch.float32)
+        if mesh.pp > 1:
+            logits, cache = llama_prefill_pp(params, cfg, tokens, cache, positions, mesh,
+                                             microbatches=case["microbatches"], start=start)
+        else:
+            logits, cache = llama.llama_prefill_sp(params, cfg, tokens, cache, positions, mesh, start=start)
+        step, _ = llama.llama_forward(params, cfg, case["next"], cache, t, (t - start)[:, None].to(torch.int64),
+                                      start=start, mesh=mesh)
+        out[name] = ({"tp": mesh.axis_index("tp")}, logits, cache.k, cache.v, step)
+    for name, grid, case in inputs["interleaved"]:
+        from wmar_tpu_torch import generate
+
+        mesh = make_mesh(**grid)
+        wrapper = generate.load_chameleon(generate.get_parser().parse_args(case["argv"]), torch.device("cpu"))
+        out[name] = sample_interleaved_fused(wrapper, case["prompt"], GenParams(greedy=True),
+                                             text_opts=TextGenOptions(max_gen_len=8, greedy=True), max_images=1,
+                                             sp_mesh=mesh)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    for name, argv in inputs["generate"].items():
+        run_generate(list(argv) + ["--outdir", os.path.join(workdir, name)])
 
 
 def finetune_rank(rank: int, workdir: str, cases: list) -> None:

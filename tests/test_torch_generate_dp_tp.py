@@ -1,4 +1,4 @@
-"""Port parity, ``python -m wmar_tpu_torch.generate --dp/--tp`` on the CPU.
+"""Port parity, ``python -m wmar_tpu_torch.generate --dp/--tp/--sp/--pp`` on the CPU.
 
 Two gloo ranks (``parallel.launch.spawn_ranks``, a ``file://`` rendezvous
 under the test's directory, spawned once for the file) run ``generate.main``
@@ -7,7 +7,10 @@ same codes and ``l0`` and p-values to rtol 1e-6, as
 ``tests/test_generate_dp.py`` asks of JAX. ``--dp 2`` runs tiny RAR on 3
 rows (not a multiple of dp: the pad-and-trim path and the whole-batch noise
 draw) with the packed and packed4 caches; ``--tp 2`` runs tiny Chameleon
-text-to-image with the bf16 and packed caches.
+text-to-image with the bf16 and packed caches, and with int4 weights at a
+width whose int4 groups split over two ranks (``WIDE_TINY``); ``--sp 2``
+and ``--pp 2`` run it with the ring's and the pipeline's prefill.
+(``--sp 2 --tp 2`` over four ranks: ``tests/test_torch_parallel_sp_pp.py``.)
 """
 
 import glob
@@ -36,13 +39,21 @@ def _chameleon(prompts):
             "--seed", "7", "--no_augs", "--device", "cpu"]
 
 
+# The --tiny Chameleon at dim 256, 2 heads of 64 a rank of tp 2: wo's 2 groups of 128 and w2's 6 split over 2
+WIDE_TINY = dict(dim=256, n_layers=2, n_heads=4, multiple_of=128)
+
+
 def _cases(workdir):
+    """``{name: (argv of both runs, the ranks' flags, the tiny Chameleon's Llama or None)}``."""
     prompts = os.path.join(workdir, "prompts.txt")
     return {
-        "dp_packed": (RAR + ["--cache_dtype", "packed"], ["--dp", "2"]),
-        "dp_packed4": (RAR + ["--cache_dtype", "packed4"], ["--dp", "2"]),
-        "tp_bf16": (_chameleon(prompts) + ["--cache_dtype", "bf16"], ["--tp", "2"]),
-        "tp_packed": (_chameleon(prompts) + ["--cache_dtype", "packed"], ["--tp", "2"]),
+        "dp_packed": (RAR + ["--cache_dtype", "packed"], ["--dp", "2"], None),
+        "dp_packed4": (RAR + ["--cache_dtype", "packed4"], ["--dp", "2"], None),
+        "tp_bf16": (_chameleon(prompts) + ["--cache_dtype", "bf16"], ["--tp", "2"], None),
+        "tp_packed": (_chameleon(prompts) + ["--cache_dtype", "packed"], ["--tp", "2"], None),
+        "tp_int4": (_chameleon(prompts) + ["--weight_dtype", "int4"], ["--tp", "2"], WIDE_TINY),
+        "sp": (_chameleon(prompts), ["--sp", "2"], None),
+        "pp": (_chameleon(prompts), ["--pp", "2"], None),
     }
 
 
@@ -60,14 +71,15 @@ def runs(tmp_path_factory):
         f.write("a red car\nthe sea\n")
     cases = _cases(workdir)
     spawn_ranks(ranks.generate_rank, 2, "gloo", f"file://{workdir}/rendezvous",
-                args=(os.path.join(workdir, "ranks"), {name: base + flags for name, (base, flags) in cases.items()}))
+                args=(os.path.join(workdir, "ranks"),
+                      {name: (base + flags, tiny) for name, (base, flags, tiny) in cases.items()}))
     torch.set_num_threads(1)
-    for name, (base, _) in cases.items():
-        generate.main(base + ["--outdir", os.path.join(workdir, "one", name)])
+    for name, (base, _, tiny) in cases.items():
+        ranks.run_generate(base + ["--outdir", os.path.join(workdir, "one", name)], tiny)
     return workdir
 
 
-@pytest.mark.parametrize("case", ["dp_packed", "dp_packed4", "tp_bf16", "tp_packed"])
+@pytest.mark.parametrize("case", ["dp_packed", "dp_packed4", "tp_bf16", "tp_packed", "tp_int4", "sp", "pp"])
 def test_two_ranks_equal_one(runs, case):
     recs1, codes1 = _collect(os.path.join(runs, "one", case))
     recs2, codes2 = _collect(os.path.join(runs, "ranks", case))
@@ -79,39 +91,46 @@ def test_two_ranks_equal_one(runs, case):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--sp", "2"], r"ROADMAP queue 1, item 14\.3"),
-    (["--pp", "2"], r"ROADMAP queue 1, item 14\.3"),
+    (["--sp", "2", "--model", "chameleon7b"], "needs 2 ranks, this run has 1"),
+    (["--pp", "2", "--model", "chameleon7b"], "needs 2 ranks, this run has 1"),
     (["--tp", "2"], "chameleon7b TP path"),
     (["--dp", "2"], "needs 2 ranks, this run has 1"),
     (["--dp", "0", "--tp", "2", "--model", "chameleon7b"], "needs 2 ranks, this run has 1"),
 ], ids=["sp", "pp", "tp_rar", "dp_one_process", "tp_one_process"])
 def test_refusals(tmp_path, extra, match):
-    """What is not ported, or cannot run in one process, exits with a
-    message; ``--sp``/``--pp`` name their ROADMAP item."""
+    """A multi-rank run in one process exits naming the ranks it needs;
+    ``--tp`` on a model without a Llama exits as in JAX."""
     with pytest.raises(SystemExit, match=match):
         generate.main(RAR + extra + ["--outdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("extra", [["--weight_dtype", "int4"], ["--interleaved", "PROMPTS"]], ids=["int4", "interleaved"])
+@pytest.mark.parametrize("extra", [["--sp", "2", "--pp", "2"], ["--interleaved", "PROMPTS", "--sp", "2"]],
+                         ids=["int4", "interleaved"])
 def test_tp_refusals_name_their_item(tmp_path, extra):
-    """``--tp`` with int4 weights or on the interleaved path exits before
-    anything is built, naming ROADMAP queue 1, item 14.2; the wrapper and
-    both interleaved samplers refuse the same under a tp shard."""
+    """The two flag sets JAX runs wrongly exit before anything is built,
+    each naming its fault of ROADMAP section 3: ``--sp`` with ``--pp``
+    (JAX's prefill drops the ring, fault (r)) and ``--interleaved`` with a
+    multi-rank flag (JAX ignores it, fault (q)). (The ids are those of the
+    refusals that stood here before ``--tp`` took int4 weights.)"""
     prompts = tmp_path / "p.txt"
     prompts.write_text("a cat\n")
     argv = _chameleon(str(prompts)) + [str(prompts) if a == "PROMPTS" else a for a in extra]
-    with pytest.raises(SystemExit, match=r"ROADMAP queue 1, item 14\.2"):
-        generate.main(argv + ["--tp", "2", "--outdir", str(tmp_path)])
+    fault = "r" if "--pp" in extra else "q"
+    with pytest.raises(SystemExit, match=rf"fault \({fault}\)"):
+        generate.main(argv + ["--outdir", str(tmp_path)])
 
 
 def test_wrapper_refuses_what_tp_does_not_take():
+    """The wrapper shards int4 weights where their groups line up with the
+    rank's heads (a ``ValueError`` naming the shape at the tiny width, whose
+    ``wo`` is one group), and both interleaved samplers refuse a tp shard."""
     from wmar_tpu_torch.models import quantize_llama_params_int8
 
     args = generate.get_parser().parse_args(_chameleon("x") + ["--outdir", "unused"])
     wrapper = generate.load_chameleon(args, torch.device("cpu"))
     int4 = quantize_llama_params_int8(wrapper.llama_params, bits=4)
     wrapper.llama_params, plain = int4, wrapper.llama_params
-    with pytest.raises(NotImplementedError, match=r"item 14\.2"):
+    with pytest.raises(ValueError, match=r"\(1, 16, 32\) does not split over tp=2"):
         wrapper.shard(make_mesh(dp=1, tp=2, rank=0))
     wrapper.llama_params = plain
     wrapper.shard(make_mesh(dp=1, tp=2, rank=1))
@@ -129,12 +148,15 @@ def test_chip_smoke_multirank_phase_on_cpu(monkeypatch, tmp_path):
     ``generate.main --dp 2`` on tiny RAR and Chameleon t2i at ``--tp 2``
     from files (rebuilt in each rank from the parent's tensors), beside the
     parent's ``--dp 1``: equal RAR trees, and the ``--tp 2`` float32
-    teacher-forced logits within the phase's bound of one rank's."""
+    teacher-forced logits within the phase's bound of one rank's; then part
+    (d): ``--tp 2`` with int4 weights (its gate, and the gate failing with
+    one rank's part of ``w2`` dropped), ``--sp 2`` and ``--pp 2``."""
     import chip_smoke
     from wmar_tpu_torch import models as tmodels
     from wmar_tpu_torch.models import llama as tllama
 
-    tiny = tmodels.LlamaConfig(dim=64, n_layers=2, n_heads=4, vocab_size=65536, multiple_of=16)
+    # 2 heads of 64 a rank: wo's 2 int4 groups of 128 and w2's 6 split over (d1)'s two ranks
+    tiny = tmodels.LlamaConfig(dim=256, n_layers=2, n_heads=4, vocab_size=65536, multiple_of=128)
     for module in (tmodels, tllama):  # the file route sets and restores both
         monkeypatch.setattr(module, "CHAMELEON_7B", tiny)
     monkeypatch.setattr(tmodels, "CHAMELEON_F16", tmodels.VQGANConfig(
@@ -150,6 +172,10 @@ def test_chip_smoke_multirank_phase_on_cpu(monkeypatch, tmp_path):
     assert cham["forced_f32_rel"] < cham["bf16_vs_f32_rel"] / 100  # float32 leaves bf16's rounding far behind
     assert set(out["sharded_kernels"]) == {"RAR-XL packed4", "RAR-XL packed", "Chameleon-7B packed4",
                                            "Chameleon-7B packed"}
+    par = out["parallel"]  # (d): int4 --tp 2, its gate refusing the mutation, --sp 2 and --pp 2
+    assert par["int4"]["forced_f32_rel"] <= chip_smoke.SHARDED_F32_REL < par["int4"]["mutated_f32_rel"]
+    for name in ("sp2", "pp2"):
+        assert max(par[name].values()) <= chip_smoke.PARALLEL_F32_REL
 
 
 def _tree(codes, l0=5, p=0.25):

@@ -196,7 +196,8 @@ def test_chip_smoke_attack_sweep_on_cpu(one_torch_thread):
 
 
 def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
-    """What is still unported (the sequence-parallel prefill) exits with its ROADMAP item; the
+    """``--sp`` on a model without a Llama exits as JAX's entry point does
+    (the sequence-parallel prefill, ported since, is the chameleon7b path); the
     clustering split, a run with the attack grid (no ``--no_augs``), the
     neural-compression and the DiffPure flags, which this test once saw
     refused, now run: with ``--no_augs`` those flags are accepted and
@@ -205,7 +206,7 @@ def test_generate_refuses_what_is_not_ported(tmp_path, one_torch_thread):
     from wmar_tpu_torch import generate as tgen
 
     base = ["--model", "rar", "--tiny", "--no_augs", "--outdir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="chameleon7b prefill path"):
         tgen.main(base + ["--device", "cpu", "--sp", "2"])
     for extra in (["--include_diffpure", "true"], ["--diffpure_weights", "w.pt"]):
         assert len(tgen.main(base + ["--device", "cpu"] + extra)) == 2

@@ -244,9 +244,15 @@ def test_fused_quantized_caches_structure(cache, monkeypatch):
 
 
 def test_fused_sp_mesh_raises():
+    """The fused sampler runs the whole model: an ``sp_mesh`` with a ``tp``
+    axis (which would sum whole weights over tp) is refused. An ``sp``
+    grid alone is held to the replicated prefill in
+    ``tests/test_torch_parallel_sp_pp.py``."""
+    from wmar_tpu_torch.parallel import make_mesh
+
     _, tw = _pair(port_only=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        til.sample_interleaved_fused(tw, "x", TGenParams(greedy=True), sp_mesh=object())
+    with pytest.raises(NotImplementedError, match=r"fault \(q\)"):
+        til.sample_interleaved_fused(tw, "x", TGenParams(greedy=True), sp_mesh=make_mesh(tp=2, sp=2, rank=0))
 
 
 def test_fused_matches_reprefill_greedy():

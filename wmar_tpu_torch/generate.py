@@ -61,17 +61,26 @@ NCCL with one card a rank (``cuda:LOCAL_RANK``)::
         --weight_dtype int8 --cache_dtype packed4 --conditioning 0,1,2 --dp 2 --outdir out/
     torchrun --nproc_per_node 2 -m wmar_tpu_torch.generate --model chameleon7b \
         --weight_dtype int8 --cache_dtype packed4 --conditioning prompts.txt --tp 2 --outdir out/
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.generate --model chameleon7b \
+        --weight_dtype int4 --cache_dtype packed4 --conditioning prompts.txt --tp 2 --outdir out/
+    torchrun --nproc_per_node 4 -m wmar_tpu_torch.generate --model chameleon7b \
+        --weight_dtype int8 --conditioning prompts.txt --sp 2 --tp 2 --outdir out/
+    torchrun --nproc_per_node 2 -m wmar_tpu_torch.generate --model chameleon7b \
+        --weight_dtype int8 --conditioning prompts.txt --pp 2 --outdir out/
 
 ``--dp N`` shards each batch's rows over N ranks (``--dp 0``: the world
-size over ``--tp``; integer conditionings only) and gives the codes, and so
-the records, of ``--dp 1``: every rank draws the whole batch's noise and
-keeps its rows. ``--tp N`` (chameleon7b) runs the Llama as Megatron shards
-over N ranks, each with a cache of its heads. The ranks' packed caches run
-the unchanged decode kernels on their rows and heads. Rank 0 decodes,
-attacks and scores the gathered codes and alone writes files. A process
-group that is up already (``torch.distributed``) is used as it is.
-``--sp``/``--pp``, int4 weights and the interleaved path under ``--tp`` are
-refused with the ROADMAP item that ports them.
+size over ``--tp x --sp x --pp``; integer conditionings only) and gives the
+codes, and so the records, of ``--dp 1``: every rank draws the whole
+batch's noise and keeps its rows. ``--tp N`` (chameleon7b) runs the Llama as
+Megatron shards over N ranks, each with a cache of its heads; with
+``--weight_dtype int4`` kernel #8 runs on each rank's slices of the grouped
+weights. ``--sp N`` runs the prompt's prefill as ring attention over N
+ranks, ``--pp N`` as a GPipe pipeline of N stages; the decode after it runs
+on every rank. Both compose with ``--dp`` and ``--tp``, not with each other.
+The ranks' packed caches run the unchanged decode kernels on their rows and
+heads. Rank 0 decodes, attacks and scores the gathered codes and alone
+writes files. A process group that is up already (``torch.distributed``) is
+used as it is. ``--interleaved`` takes none of the multi-rank flags.
 Without ``--tiny`` or ``--modelpath`` the model runs at its published widths
 with random weights drawn from ``--seed``. For Taming that means the 1.4B
 cin_transformer (48 layers, width 1664) and the f16 ImageNet VQGAN; for
@@ -143,12 +152,17 @@ def get_parser():
     p.add_argument("--chunk_id", type=int, default=0)
     p.add_argument("--num_chunks", type=int, default=1)
     p.add_argument("--dp", type=int, default=1,
-                   help="shard each batch over this many ranks (0: the world size over --tp); the codes of --dp 1; "
-                        "integer conditionings only")
+                   help="shard each batch over this many ranks (0: the world size over --tp x --sp x --pp); the "
+                        "codes of --dp 1; integer conditionings only")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ranks (chameleon7b: Megatron sharding of the Llama; composes with --dp)")
-    for flag in ("sp", "pp"):
-        p.add_argument(f"--{flag}", type=int, default=1, help="not ported yet (ROADMAP queue 1, item 14.3)")
+                   help="tensor-parallel ranks (chameleon7b: Megatron sharding of the Llama, any --weight_dtype; "
+                        "composes with --dp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks for the prompt's prefill (chameleon7b: ring attention over an sp "
+                        "axis, parallel/ring.py; composes with --dp/--tp); the codes of --sp 1")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel ranks for the prompt's prefill (chameleon7b: GPipe over a pp axis, "
+                        "parallel/pipeline.py; composes with --dp/--tp); the codes of --pp 1")
     p.add_argument("--orig_only", type=str2bool, default=False)
     p.add_argument("--include_neural_compress", type=str2bool, default=False)
     p.add_argument("--nc_weights_dir", type=str, default=None)
@@ -236,47 +250,53 @@ def run_interleaved(args, wrapper, apply_wm: bool):
     return records
 
 
-def _refuse_unported(args) -> None:
-    if args.sp != 1 or args.pp != 1:
-        raise SystemExit("--sp/--pp: the sequence- and pipeline-parallel prefill are not ported yet "
-                         "(ROADMAP queue 1, item 14.3)")
-    if args.tp > 1:
-        from wmar_tpu_torch.models.chameleon import TP_INT4, TP_INTERLEAVED
+def _refuse(args) -> None:
+    """Exit, before anything is built, on flags that do not go together.
+    Two are JAX's faults, which the port does not copy: ``--interleaved``
+    with a multi-rank flag (JAX runs the interleaved path before its mesh
+    block and ignores them) and ``--sp`` with ``--pp`` (JAX's prefill takes
+    the pipeline and drops the ring)."""
+    from wmar_tpu_torch.models.chameleon import SP_WITH_PP, TP_INTERLEAVED
 
-        if args.model != "chameleon7b":
+    if args.interleaved and _multi_rank(args):
+        raise SystemExit(TP_INTERLEAVED)
+    if args.sp > 1 and args.pp > 1:
+        raise SystemExit(SP_WITH_PP)
+    if args.model != "chameleon7b":
+        if args.tp > 1:
             raise SystemExit("--tp > 1 is the chameleon7b TP path")
-        if args.weight_dtype == "int4":
-            raise SystemExit(TP_INT4)
-        if args.interleaved:
-            raise SystemExit(TP_INTERLEAVED)
+        if args.sp > 1 or args.pp > 1:
+            raise SystemExit("--sp/--pp > 1 is the chameleon7b prefill path")
 
 
 def _multi_rank(args) -> bool:
-    return args.dp != 1 or args.tp > 1
+    return args.dp != 1 or args.tp > 1 or args.sp > 1 or args.pp > 1
 
 
 def make_run_mesh(args, wrapper):
-    """The ``(dp, tp)`` grid of a ``--dp``/``--tp`` run over the process
-    group, with the wrapper made ready for it: a packed cache dtype wrapped
-    in a :class:`~wmar_tpu_torch.engine.kvcache.CacheSpec` (the kernels on
-    this rank's rows and heads) and, under ``--tp``, the Llama cut to this
-    rank's shard."""
+    """The ``(dp, tp[, sp][, pp])`` grid of a multi-rank run over the
+    process group, with the wrapper made ready for it: a packed cache dtype
+    wrapped in a :class:`~wmar_tpu_torch.engine.kvcache.CacheSpec` (the
+    kernels on this rank's rows and heads) and, for Chameleon, the grid
+    handed over by ``wrapper.shard`` (under ``--tp`` the Llama cut to this
+    rank's shard; ``--sp``/``--pp`` pick the prefill)."""
     import torch.distributed as dist
 
     from wmar_tpu_torch.engine.kvcache import CacheSpec
     from wmar_tpu_torch.parallel import make_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp = max(1, world // args.tp) if args.dp == 0 else args.dp
-    if dp * args.tp != world:
-        raise SystemExit(f"--dp {dp} x --tp {args.tp} needs {dp * args.tp} ranks, this run has {world}: launch it "
-                         f"with torchrun --nproc_per_node {dp * args.tp}")
-    mesh = make_mesh(dp=dp, tp=args.tp)
-    print(f"sharded generation: dp={dp} tp={args.tp}, rank {mesh.rank} of {world}")
+    rest = args.tp * args.sp * args.pp
+    dp = max(1, world // rest) if args.dp == 0 else args.dp
+    if dp * rest != world:
+        raise SystemExit(f"--dp {dp} x --tp {args.tp} x --sp {args.sp} x --pp {args.pp} needs {dp * rest} ranks, "
+                         f"this run has {world}: launch it with torchrun --nproc_per_node {dp * rest}")
+    mesh = make_mesh(dp=dp, tp=args.tp, sp=args.sp, pp=args.pp)
+    print(f"sharded generation: dp={dp} tp={args.tp} sp={args.sp} pp={args.pp}, rank {mesh.rank} of {world}")
     if str(wrapper.cache_dtype).startswith("packed"):
         wrapper.cache_dtype = CacheSpec(wrapper.cache_dtype, mesh, "dp" if dp > 1 else None,
                                         "tp" if args.tp > 1 else None)
-    if args.tp > 1:
+    if hasattr(wrapper, "shard"):
         wrapper.shard(mesh)
     return mesh
 
@@ -336,6 +356,10 @@ def load_chameleon_files(modelpath: str, device: torch.device):
                          image_seq_len=CHAMELEON_F16.codes_per_side**2, device=device)
 
 
+# The --tiny Chameleon's Llama (JAX's tiny CLI's); tests widen it where a split needs whole int4 groups
+TINY_CHAMELEON = dict(dim=32, n_layers=2, n_heads=4, multiple_of=16)
+
+
 def load_chameleon(args, device: torch.device):
     if getattr(args, "modelpath", None) and not args.tiny:
         return load_chameleon_files(args.modelpath, device)
@@ -352,8 +376,7 @@ def load_chameleon(args, device: torch.device):
 
     if args.tiny:
         vocab = ChameleonVocab.synthetic(n_codes=16, n_text=20)
-        lcfg = LlamaConfig(dim=32, n_layers=2, n_heads=4, vocab_size=vocab.vocab_size, multiple_of=16,
-                           qk_normalization=True)
+        lcfg = LlamaConfig(**TINY_CHAMELEON, vocab_size=vocab.vocab_size, qk_normalization=True)
         vq_cfg = VQGANConfig(resolution=8, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
                              z_channels=32, n_embed=16, embed_dim=8)
         dtype, image_seq_len, tok, cache_dtype = torch.float32, 16, synthetic_tokenizer(5), torch.float32
@@ -488,7 +511,7 @@ def main(argv=None):
     for attr in ("encoder_ft_ckpt", "decoder_ft_ckpt", "syncpath", "modelpath"):
         if getattr(args, attr, None) == "none":
             setattr(args, attr, None)
-    _refuse_unported(args)
+    _refuse(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA card is visible; pass --device cpu to run on the CPU")

@@ -21,13 +21,18 @@ as in the reference; translation to VQGAN codebook ids happens inside
 The interleaved text-and-image frontend is
 :mod:`wmar_tpu_torch.models.chameleon_interleaved`.
 
-Tensor parallelism (``generate --tp``): :meth:`ChameleonARMM.shard` keeps
-this rank's Megatron shard of the Llama (:func:`llama_tp_specs`); the
-sampler then runs the rank's heads over a cache of those heads and gets the
-whole vocabulary's logits from the forward, so every tp rank draws the same
-tokens. Refused under tensor parallelism, each naming its ROADMAP item:
-int4 weights and the interleaved entry point (queue 1, item 14.2).
-Sequence- and pipeline-parallel prefill are not ported yet (item 14.3).
+Multi-GPU runs (``generate --tp/--sp/--pp``): :meth:`ChameleonARMM.shard`
+hands the wrapper its rank's grid (``parallel.Mesh``) and, under ``tp``,
+keeps this rank's Megatron shard of the Llama (:func:`llama_tp_specs`,
+grouped-int4 weights included); the sampler then runs the rank's heads over
+a cache of those heads and gets the whole vocabulary's logits from the
+forward, so every tp rank draws the same tokens. With ``pp`` in the grid
+the prompt's prefill is the GPipe pipeline
+(:func:`wmar_tpu_torch.parallel.llama_prefill_pp`), with ``sp`` the ring
+(:func:`wmar_tpu_torch.models.llama.llama_prefill_sp`; the prompts are
+left-padded to a multiple of the ring's size, ``start`` absorbing the
+pad), as in JAX; the decode after it runs on every rank. The interleaved
+samplers run the whole model and refuse a tp shard (:data:`TP_INTERLEAVED`).
 """
 
 from __future__ import annotations
@@ -43,11 +48,13 @@ from wmar_tpu_torch.core.sampling import instruct_cfg_combine
 from wmar_tpu_torch.engine.decode import SamplerConfig, decode_tokens
 from wmar_tpu_torch.engine.kvcache import CacheSpec, KVCache
 from wmar_tpu_torch.models.armm import ARMMWrapper, GenParams
-from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_tp_specs
+from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_prefill_sp, llama_tp_specs
 
-TP_INT4 = ("--tp with int4 weights is not ported yet: a row-parallel int4 matrix splits its within-group byte "
-           "axis, so w1 and w3 must take the same strided hidden units (ROADMAP queue 1, item 14.2)")
-TP_INTERLEAVED = "--tp on the interleaved path is not ported yet (ROADMAP queue 1, item 14.2)"
+TP_INTERLEAVED = ("the interleaved samplers run the whole model: --dp, --tp, --sp and --pp are refused on the "
+                  "interleaved path, which JAX's entry point runs before its mesh block, ignoring them (ROADMAP "
+                  "section 3, fault (q))")
+SP_WITH_PP = ("--sp and --pp together: JAX's prefill takes the pipeline and silently drops the ring (ROADMAP section "
+              "3, fault (r)); give one of them")
 
 
 def refuse_tp_interleaved(wrapper) -> None:
@@ -185,13 +192,29 @@ class ChameleonT2ISampler:
         return torch.where(self.image_token_mask, logits, -1e10)
 
     def prefill(self):
+        """The prompt's forward: the GPipe pipeline where the grid has a
+        ``pp`` axis, the ring where it has an ``sp`` axis, else
+        :func:`llama_forward`. Returns the combined last logits and the
+        cache."""
+        from wmar_tpu_torch.parallel import llama_prefill_pp
+
         dev = self.prompts.device
         max_len = self.prompt_len + self.image_seq_len
         cache = KVCache.zeros(self.cfg.n_layers, self.prompts.shape[0], self.cfg.n_heads, max_len,
                               self.cfg.head_dim, self.cache_dtype, device=dev)
         positions = torch.clamp_min(torch.arange(self.prompt_len, device=dev)[None, :] - self.start[:, None], 0)
-        logits, cache = llama_forward(self.params, self.cfg, self.prompts, cache, 0, positions, start=self.start,
-                                      mesh=self.mesh)
+        mesh = self.mesh
+        if mesh is not None and mesh.sp > 1 and mesh.pp > 1:
+            raise ValueError(SP_WITH_PP)
+        if mesh is not None and mesh.pp > 1:
+            logits, cache = llama_prefill_pp(self.params, self.cfg, self.prompts, cache, positions, mesh,
+                                             start=self.start)
+        elif mesh is not None and mesh.sp > 1:
+            logits, cache = llama_prefill_sp(self.params, self.cfg, self.prompts, cache, positions, mesh,
+                                             start=self.start)
+        else:
+            logits, cache = llama_forward(self.params, self.cfg, self.prompts, cache, 0, positions, start=self.start,
+                                          mesh=mesh)
         return self._combine(logits[:, -1]), cache
 
     def step_fn(self, cache, prev: torch.Tensor, step: torch.Tensor):
@@ -244,14 +267,14 @@ class ChameleonARMM(ARMMWrapper):
         self.mesh = None
 
     def shard(self, mesh) -> None:
-        """Keep only this rank's tensor-parallel shard of the Llama (``mesh``
-        a ``parallel.Mesh``); the tokenizer stays whole. int4 weights are
-        refused (:data:`TP_INT4`)."""
+        """Run on this rank's place of ``mesh`` (a ``parallel.Mesh``): under
+        ``tp`` keep only the rank's Megatron shard of the Llama (any weight
+        form: float, int8 or grouped int4); the tokenizer stays whole."""
         from wmar_tpu_torch.parallel import apply_specs
 
+        if mesh.sp > 1 and mesh.pp > 1:
+            raise ValueError(SP_WITH_PP)
         if mesh.tp > 1:
-            if any("q4" in blk[k] for blk in self.llama_params["blocks"] for k in blk if isinstance(blk[k], dict)):
-                raise NotImplementedError(TP_INT4)
             self.llama_params = apply_specs(mesh, self.llama_params, llama_tp_specs(self.llama_params))
         self.mesh = mesh
 
@@ -287,14 +310,25 @@ class ChameleonARMM(ARMMWrapper):
         Gumbel noise; otherwise it comes from ``generator``."""
         return self.sample_from_ids(self.tokenize_prompts(conditioning), gen_params, apply_watermark, generator, noise)
 
+    def cfg_prompts(self, prompt_ids: List[List[int]]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The CFG rows of ``prompt_ids`` as the sampler takes them:
+        ``prompts [3B, L]`` int64 and ``start [3B]`` int32 on the wrapper's
+        device, left-padded to a multiple of the ring's size under ``sp``
+        (``start`` moved by the pad), as JAX's ``sample`` does."""
+        prompts, start, _ = build_cfg_prompts(self.vocab, prompt_ids)
+        pad = -prompts.shape[1] % (self.mesh.sp if self.mesh is not None else 1)
+        if pad:  # the ring's prefill cuts the sequence into sp blocks
+            prompts = np.pad(prompts, ((0, 0), (pad, 0)), constant_values=self.vocab.pad_id)
+            start = start + pad
+        return (torch.as_tensor(prompts, dtype=torch.int64, device=self.device),
+                torch.as_tensor(start, dtype=torch.int32, device=self.device))
+
     @torch.inference_mode()
     def sample_from_ids(self, prompt_ids: List[List[int]], gen_params: GenParams, apply_watermark: bool = False,
                         generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
         """:meth:`sample` for prompts given as BPE id lists (for example an
         interleaved history that ends with <boi>)."""
-        prompts, start, _ = build_cfg_prompts(self.vocab, prompt_ids)
-        prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
-        start = torch.as_tensor(start, dtype=torch.int32, device=self.device)
+        prompts, start = self.cfg_prompts(prompt_ids)
         sampler = ChameleonT2ISampler(self.llama_params, self.llama_cfg, self._image_mask, prompts, start,
                                       self.cfg_opts, self.image_seq_len, self._cache_dtype(), self.mesh)
         init_logits, cache = sampler.prefill()

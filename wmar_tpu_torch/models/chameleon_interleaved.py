@@ -42,8 +42,8 @@ from wmar_tpu_torch.core.sampling import (
     warp_and_sample,
 )
 from wmar_tpu_torch.engine.kvcache import KVCache
-from wmar_tpu_torch.models.chameleon import ChameleonVocab, refuse_tp_interleaved
-from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward
+from wmar_tpu_torch.models.chameleon import TP_INTERLEAVED, ChameleonVocab, refuse_tp_interleaved
+from wmar_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_prefill_sp
 
 NEG = -1e10
 
@@ -213,9 +213,14 @@ def sample_interleaved_fused(
 
     ``cache_budget`` sizes the KV cache beyond the generation budget (for
     example the reference's 4096-token context), so the attention runs at a
-    real cache geometry. ``noise [budget, 1, V]`` feeds the Gumbel noise:
-    slice 0 draws the first token (from the prefill logits), slice ``s + 1``
-    the token of loop step ``s``; a step's text and image draws share it.
+    real cache geometry. ``sp_mesh``: a grid with an ``sp`` axis (and no
+    ``tp``), on whose ranks the prompt's prefill runs as the ring
+    (:func:`~wmar_tpu_torch.models.llama.llama_prefill_sp`), as in JAX:
+    the prompt is right-padded to a multiple of the ring's size and the
+    pad slots stay key-masked; every rank then runs the same loop.
+    ``noise [budget, 1, V]`` feeds the Gumbel noise: slice 0 draws the
+    first token (from the prefill logits), slice ``s + 1`` the token of
+    loop step ``s``; a step's text and image draws share it.
 
     All three instruct-CFG rows share one KV cache over one token history;
     per-row key masks give each row its context (everything | image tokens
@@ -230,9 +235,9 @@ def sample_interleaved_fused(
     whatever is drawn: nothing is read back before the end, so the launch
     count is exact. Slot indices are Python ints of the loop counter.
     """
-    if sp_mesh is not None:
-        raise NotImplementedError("the sequence-parallel prefill is not ported yet (ROADMAP queue 1, item 14.3)")
     refuse_tp_interleaved(wrapper)
+    if sp_mesh is not None and sp_mesh.tp > 1:
+        raise NotImplementedError(TP_INTERLEAVED)  # the wrapper's weights are whole: a tp grid would sum them twice
     text_opts = text_opts or TextGenOptions()
     vocab, cfg, opts = wrapper.vocab, wrapper.llama_cfg, wrapper.cfg_opts
     dev = wrapper.device
@@ -279,8 +284,16 @@ def sample_interleaved_fused(
     key_mask, row2_reset, positions, prompt_tokens = (x.to(dev) for x in (key_mask, row2_reset, positions,
                                                                            prompt_tokens))
     cache = KVCache.zeros(cfg.n_layers, 3, cfg.n_heads, t_max, cfg.head_dim, wrapper.cache_dtype, device=dev)
-    logits, cache = llama_forward(params, cfg, prompt_tokens[None].expand(3, lp), cache, 0, positions,
-                                  key_mask=key_mask)
+    toks3 = prompt_tokens[None].expand(3, lp)
+    if sp_mesh is not None and sp_mesh.sp > 1:
+        # the ring's prefill over the prompt right-padded to a multiple of the ring's size; the pad slots stay
+        # key-masked and the decode overwrites them from slot lp on
+        pad = -lp % sp_mesh.sp
+        logits, cache = llama_prefill_sp(params, cfg, torch.nn.functional.pad(toks3, (0, pad)), cache,
+                                         torch.nn.functional.pad(positions, (0, pad)), sp_mesh, key_mask=key_mask)
+        logits = logits[:, :lp]
+    else:
+        logits, cache = llama_forward(params, cfg, toks3, cache, 0, positions, key_mask=key_mask)
 
     def process(last3, mode, counts, img_buf, img_count, images_done, step: int, text_count):
         last3 = last3.to(torch.float32)

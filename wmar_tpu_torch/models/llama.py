@@ -29,9 +29,15 @@ heads and hidden units), wo and w2 row-parallel with an all-reduce after
 each, the embedding vocab-parallel (ids outside this rank's rows masked,
 then an all-reduce) and the vocab head column-parallel, its logits
 all-gathered, so the sampler sees the whole vocabulary. The qk-norms are
-per head over ``head_dim`` and replicate. Not ported yet: the sequence-
-and pipeline-parallel prefill (ROADMAP queue 1, item 14.3) and int4
-weights under tensor parallelism (item 14.2).
+per head over ``head_dim`` and replicate. Grouped-int4 weights keep their
+bytes: ``w2`` splits its within-group byte axis as JAX's spec does, so
+``w1`` and ``w3`` take the strided hidden units whose rows those bytes
+hold, and ``wo`` splits its group axis, whole heads (see
+:func:`llama_tp_specs`); kernel #8 then runs on the rank's slices.
+
+:func:`llama_prefill_sp` is the sequence-parallel prefill (ring attention
+over ``sp``, :mod:`wmar_tpu_torch.parallel.ring`);
+:mod:`wmar_tpu_torch.parallel.pipeline` holds the pipeline-parallel one.
 
 Chameleon-7B config: dim 4096, 32 layers/heads, ffn 11008, qk_normalization,
 vocab 65536.
@@ -50,6 +56,7 @@ from wmar_tpu_torch.engine.kvcache import Packed4QuantKVCache, PackedQuantKVCach
 from wmar_tpu_torch.ops import wquant
 from wmar_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_attention_q8
 from wmar_tpu_torch.parallel.mesh import P, all_gather, all_reduce
+from wmar_tpu_torch.parallel.ring import ring_prefill_attention, sequence_block
 
 # The flash-decode kernels for single-token steps over a float or int8
 # cache. None = auto: the kernels when the cache has >= 2048 slots, the
@@ -275,6 +282,41 @@ def llama_forward(
     return all_gather(wquant.matmul(x, params["output"]).to(torch.float32), mesh), cache
 
 
+def llama_prefill_sp(params, cfg: LlamaConfig, tokens: torch.Tensor, cache, positions: torch.Tensor, mesh, *,
+                     sp_axis: str = "sp", start: Optional[torch.Tensor] = None,
+                     key_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, object]:
+    """Sequence-parallel prefill: :func:`llama_forward` at write position 0
+    with ring attention over ``sp_axis`` of ``mesh``, JAX's
+    ``llama_prefill_sp``.
+
+    Every rank of the ``sp`` line calls this with the whole ``tokens,
+    positions [B, T]`` (``T`` a multiple of the ``sp`` size: pad the
+    prompt, and mask the pads by ``start`` / ``key_mask``). The
+    position-wise layers run on this rank's ``T/sp`` positions and the
+    attention goes round the ring; before each layer's cache write the
+    ranks' K/V blocks are all-gathered over ``sp``, so that every rank
+    writes, and quantizes, the whole block a one-rank prefill writes. The
+    logits ``[B, T, vocab]`` float32 are gathered too: every rank holds all
+    of them, and the decode after the prefill runs on every rank. Under
+    ``tp`` the ranks hold their Megatron shard, as in
+    :func:`llama_forward`."""
+    t = tokens.shape[1]
+    km = key_mask[:, :t] if key_mask is not None else None
+    tokens_l = sequence_block(tokens, mesh, 1, sp_axis)
+    positions_l = sequence_block(positions, mesh, 1, sp_axis)
+    x = embed_tokens(params["tok_embeddings"], tokens_l, mesh)
+    rope = rope_angles(positions_l, cfg.head_dim, cfg.rope_theta)
+    for li, blk in enumerate(params["blocks"]):
+        q, k, v = block_attn_inputs(blk, cfg, x, positions_l, rope)
+        kv = all_gather(torch.stack([k, v]), mesh, sp_axis, dim=3)  # [2, B, H, T, D]
+        cache = cache.write(li, 0, kv[0], kv[1])
+        attn = ring_prefill_attention(q.contiguous(), k, v, mesh, sp_axis=sp_axis, start=start, key_mask=km)
+        x = block_finish(blk, cfg, x, attn, mesh)
+    x = _rms(x, params["norm"], cfg.norm_eps)
+    logits = all_gather(wquant.matmul(x, params["output"]).to(torch.float32), mesh)
+    return all_gather(logits, mesh, sp_axis, dim=1), cache
+
+
 WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
 
@@ -298,20 +340,86 @@ def quantize_llama_params_int8(params, compute_dtype=None, bits: int = 8) -> dic
     return out
 
 
+def int4_row_split(gc: int, group: int, tp: int) -> Tuple[int, int]:
+    """How a row-parallel grouped-int4 matrix of ``gc`` groups of ``group``
+    rows splits over ``tp`` ranks: ``(a, b)``, ``a`` ways along the group
+    axis and ``b`` along the within-group byte axis, ``a * b = tp``. ``b``
+    is the largest factor of ``tp`` that leaves a rank groups of 128, 64 or
+    32 rows (kernel #8's sizes: ``group / b``) and ``a`` a divisor of
+    ``gc``: JAX's byte-axis split (``b = tp``) at tp 2 and 4 over groups
+    of 128; at tp 8, 2 ways by groups and 4 by bytes (groups of 32 a rank).
+    Raises ``ValueError`` where no factor does."""
+    for b in sorted((f for f in range(1, tp + 1) if tp % f == 0), reverse=True):
+        if group % (2 * b) == 0 and group // b in wquant.GROUPS and gc % (tp // b) == 0:
+            return tp // b, b
+    raise ValueError(f"a grouped-int4 matrix of {gc} groups of {group} rows has no split over tp={tp} that leaves "
+                     f"each rank whole groups of {wquant.GROUPS}")
+
+
+def int4_hidden_units(gc: int, group: int, tp: int, rank: int) -> torch.Tensor:
+    """The input rows of a row-parallel grouped-int4 matrix (``gc`` groups
+    of ``group``) that tp rank ``rank`` holds under :func:`int4_row_split`,
+    in the order of its slice: for each of its groups, the low-nibble rows
+    of its bytes, then their high-nibble rows (``i`` and ``i + group/2``).
+    The column-parallel product before it must give these units, in this
+    order."""
+    a, b = int4_row_split(gc, group, tp)
+    ra, rb = divmod(rank, b)
+    half, per = group // 2, group // (2 * b)
+    groups = torch.arange(ra * (gc // a), (ra + 1) * (gc // a))
+    j = rb * per + torch.arange(per)
+    return (groups[:, None, None] * group + torch.tensor([0, half])[None, :, None] + j[None, None, :]).reshape(-1)
+
+
+def int4_row_specs(gc: int, group: int) -> dict:
+    """The specs of a row-parallel grouped-int4 leaf of ``gc`` groups of
+    ``group`` rows: a rank keeps its groups and, of each, its bytes
+    (:func:`int4_row_split`); the scales go with the groups."""
+
+    def cut(mesh, w):
+        a, b = int4_row_split(gc, group, mesh.tp)
+        ra, rb = divmod(mesh.axis_index("tp"), b)
+        w = w[ra * (gc // a):(ra + 1) * (gc // a)]
+        per = group // (2 * b)
+        return w[:, rb * per:(rb + 1) * per] if w.dim() == 3 else w
+
+    return {"q4": cut, "s4": cut}
+
+
+def _units_spec(gc: int, group: int):
+    """The spec of a column-parallel leaf (any form: its last dim is the
+    output) that feeds a row-parallel grouped-int4 matrix of ``gc`` groups
+    of ``group``: the rank's strided hidden units (:func:`int4_hidden_units`)."""
+
+    def take(mesh, w):
+        return w.index_select(-1, int4_hidden_units(gc, group, mesh.tp, mesh.axis_index("tp")).to(w.device))
+
+    return take
+
+
 def llama_tp_specs(params: dict) -> dict:
     """Megatron specs of a llama tree, JAX's ``llama_tp_specs``:
     column-parallel wq/wk/wv/w1/w3 and vocab head, row-parallel wo/w2, the
     embedding's rows sharded. A weight-only-int8 ``{"q", "s"}`` leaf shards
     ``q`` as the matrix and ``s`` with the output dim (replicated where the
-    input dim is sharded); a grouped-int4 ``{"q4", "s4"}`` leaf shards its
-    within-group byte axis where the input dim is sharded, as in JAX (which
-    the forward does not take yet: ROADMAP queue 1, item 14.2)."""
+    input dim is sharded).
+
+    A grouped-int4 ``{"q4": [gc, G/2, N], "s4": [gc, N]}`` leaf keeps its
+    bytes. Column-parallel: a slice of ``N``. Row-parallel ``w2``: JAX's
+    split of the within-group byte axis (mixed with the group axis where a
+    rank's group would be under 32 rows: :func:`int4_row_split`), so the
+    rank's input rows are strided, and ``w1`` and ``w3`` (in whatever form)
+    take those hidden units in that order (:func:`int4_hidden_units`).
+    Row-parallel ``wo``: its input rows are the rank's heads, which a byte
+    split would cut, so it splits the group axis (the same sum as JAX's
+    split, in another order). A shape where the split does not line up
+    raises ``ValueError`` naming it when the shard is cut."""
 
     def mat_spec(w, spec: P):
         if isinstance(w, dict):
             in_axis, out_axis = spec[0], spec[1]
             if "q4" in w:  # grouped int4: [gc, G/2, n_out] + [gc, n_out]
-                return {"q4": P(None, in_axis, out_axis), "s4": P(None, out_axis)}
+                return {"q4": P(in_axis, None, out_axis), "s4": P(in_axis, out_axis)}
             return {"q": spec, "s": P(out_axis)}
         return spec
 
@@ -328,6 +436,13 @@ def llama_tp_specs(params: dict) -> dict:
             "w2": P("tp", None),
         }
         spec = {k: (mat_spec(blk[k], v) if k in WEIGHT_KEYS else v) for k, v in spec.items()}
+        w2 = blk["w2"]
+        if isinstance(w2, dict) and "q4" in w2:
+            gc, half, _ = w2["q4"].shape
+            spec["w2"] = int4_row_specs(gc, 2 * half)
+            units = _units_spec(gc, 2 * half)
+            for k in ("w1", "w3"):
+                spec[k] = {f: units for f in blk[k]} if isinstance(blk[k], dict) else units
         if "q_norm" in blk:
             spec["q_norm"] = {"scale": P(), "bias": P()}
             spec["k_norm"] = {"scale": P(), "bias": P()}

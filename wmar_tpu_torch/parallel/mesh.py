@@ -12,9 +12,13 @@ explicit (:func:`all_reduce`, :func:`all_gather`) over the process
 group's backend: NCCL, one card a rank, or gloo where the caller names it.
 
 Conventions, as in JAX: axis ``dp`` shards the batch, axis ``tp`` shards
-attention heads, the MLP hidden dim and the vocabulary (Megatron). The rank
-grid is ``np.arange(dp * tp).reshape(dp, tp)``, JAX's device order, so rank
-``r`` sits at ``(r // tp, r % tp)``.
+attention heads, the MLP hidden dim and the vocabulary (Megatron), axis
+``sp`` the prompt's sequence (ring-attention prefill,
+:mod:`wmar_tpu_torch.parallel.ring`) and axis ``pp`` the layers (GPipe
+prefill, :mod:`wmar_tpu_torch.parallel.pipeline`). The rank grid is
+``np.arange(n).reshape(dp, tp[, sp][, pp])``, JAX's device order, with
+``sp`` and ``pp`` present only when larger than 1: rank ``r`` sits where
+JAX puts device ``r``, and a ``(dp, tp)`` grid is the same as before.
 
 A :class:`Mesh` made with ``rank=`` and no process group is a view of one
 rank of a grid, for code that slices shards in one process (the tests);
@@ -31,12 +35,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("dp", "tp")
-
-
 class P(tuple):
-    """A partition spec: one entry a dim, ``"dp"``, ``"tp"`` or None
-    (not sharded); missing trailing entries are not sharded."""
+    """A partition spec: one entry a dim, an axis name or None (not
+    sharded); missing trailing entries are not sharded. Where a layout is
+    no block of a grid (grouped int4's strided hidden units), a spec leaf
+    may instead be a function ``(mesh, tensor) -> shard``."""
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
@@ -44,75 +47,111 @@ class P(tuple):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """This rank's place in the ``(dp, tp)`` grid and its process groups.
+    """This rank's place in the ``(dp, tp[, sp][, pp])`` grid and its
+    process groups.
 
-    ``devices``: the rank grid ``[dp, tp]``; ``rank``: this process's rank
-    in it; ``groups``: per axis the group of the ranks that share this
-    rank's other coordinate (None in one process)."""
+    ``devices``: the rank grid; ``rank``: this process's rank in it;
+    ``groups``: per axis the group of the ranks that share this rank's other
+    coordinates (None in one process); ``names``: the grid's axes, in order.
+    An axis that is not in ``names`` has size 1."""
 
     devices: np.ndarray
     rank: int
     groups: dict = dataclasses.field(default_factory=dict)
+    names: tuple = ("dp", "tp")
 
     @property
     def shape(self) -> dict:
-        return dict(zip(AXES, self.devices.shape))
+        return dict(zip(self.names, self.devices.shape))
+
+    def size_of(self, axis: str) -> int:
+        """The size of ``axis``, 1 where the grid lacks it."""
+        return self.shape.get(axis, 1)
 
     @property
     def dp(self) -> int:
-        return self.devices.shape[0]
+        return self.size_of("dp")
 
     @property
     def tp(self) -> int:
-        return self.devices.shape[1]
+        return self.size_of("tp")
+
+    @property
+    def sp(self) -> int:
+        return self.size_of("sp")
+
+    @property
+    def pp(self) -> int:
+        return self.size_of("pp")
 
     @property
     def size(self) -> int:
         return self.devices.size
 
     def axis_index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis``."""
-        d, t = np.argwhere(self.devices == self.rank)[0]
-        return int(d if axis == "dp" else t)
+        """This rank's coordinate along ``axis`` (0 where the grid lacks it)."""
+        if axis not in self.names:
+            return 0
+        return int(np.argwhere(self.devices == self.rank)[0][self.names.index(axis)])
+
+    def axis_ranks(self, axis: str) -> list:
+        """The global ranks of this rank's line along ``axis``, in grid order."""
+        if axis not in self.names:
+            return [self.rank]
+        where = tuple(np.argwhere(self.devices == self.rank)[0])
+        i = self.names.index(axis)
+        return [int(r) for r in self.devices[where[:i] + (slice(None),) + where[i + 1:]]]
 
     def group(self, axis: str):
         """The process group of ``axis`` (None: one rank, or one process)."""
-        if self.shape[axis] == 1:
+        if self.size_of(axis) == 1:
             return None
         group = self.groups.get(axis)
         if group is None:
-            raise RuntimeError(f"mesh axis {axis!r} spans {self.shape[axis]} ranks but this process has no group: "
+            raise RuntimeError(f"mesh axis {axis!r} spans {self.size_of(axis)} ranks but this process has no group: "
                                "call init_distributed() before make_mesh()")
         return group
 
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, rank: Optional[int] = None) -> Mesh:
-    """The ``(dp, tp)`` grid over the ranks of the process group.
+def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1, rank: Optional[int] = None) -> Mesh:
+    """The ``(dp, tp[, sp][, pp])`` grid over the ranks of the process
+    group, ``sp`` and ``pp`` only where larger than 1, as JAX's
+    ``make_mesh`` builds it.
 
-    With ``torch.distributed`` initialised, ``dp * tp`` must be its world
-    size (``dp`` None: world size over ``tp``), and every rank must call
-    this in the same order: it makes one group per row and per column of
-    the grid. Without a process group, the grid has one rank, unless
-    ``rank`` names a rank of a ``dp x tp`` grid to view (no collectives)."""
+    With ``torch.distributed`` initialised, ``dp * tp * sp * pp`` must be
+    its world size (``dp`` None: world size over the others), and every
+    rank must call this in the same order: it makes one group per line of
+    the grid along each axis. Without a process group, the grid has one
+    rank, unless ``rank`` names a rank of the grid to view (no
+    collectives)."""
+    rest = tp * sp * pp
     if dist.is_available() and dist.is_initialized():
         n = dist.get_world_size()
         me = dist.get_rank() if rank is None else rank
     else:
-        n = (dp or 1) * tp if rank is not None else 1
+        n = (dp or 1) * rest if rank is not None else 1
         me = 0 if rank is None else rank
     if dp is None:
-        dp = n // tp
-    if dp * tp != n:
-        raise ValueError(f"dp({dp}) * tp({tp}) != ranks({n})")
-    grid = np.arange(n).reshape(dp, tp)
+        dp = n // rest
+    if dp * rest != n:
+        raise ValueError(f"dp({dp}) * tp({tp}) * sp({sp}) * pp({pp}) != ranks({n})")
+    shape, names = [dp, tp], ["dp", "tp"]
+    for axis, size in (("sp", sp), ("pp", pp)):
+        if size > 1:
+            shape.append(size)
+            names.append(axis)
+    grid = np.arange(n).reshape(shape)
     groups = {}
     if dist.is_available() and dist.is_initialized():
-        for axis, lines in (("tp", list(grid)), ("dp", list(grid.T))):
-            for ranks in lines:
+        for axis in ("tp", "dp", "sp", "pp"):  # the (dp, tp) grid's order first, as before sp and pp
+            if axis not in names:
+                continue
+            i = names.index(axis)
+            for ranks in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
                 group = dist.new_group([int(r) for r in ranks])
                 if me in ranks:
                     groups[axis] = group
-    return Mesh(grid, me, groups)
+    return Mesh(grid, me, groups, tuple(names))
 
 
 def _map(fn, tree):
@@ -155,7 +194,7 @@ def replicate(mesh: Mesh, tree):
 
 def all_reduce(x: torch.Tensor, mesh: Optional[Mesh], axis: str = "tp") -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis`` (``x`` itself on one)."""
-    if mesh is None or mesh.shape[axis] == 1:
+    if mesh is None or mesh.size_of(axis) == 1:
         return x
     x = x.contiguous()
     dist.all_reduce(x, group=mesh.group(axis))
@@ -164,12 +203,47 @@ def all_reduce(x: torch.Tensor, mesh: Optional[Mesh], axis: str = "tp") -> torch
 
 def all_gather(x: torch.Tensor, mesh: Optional[Mesh], axis: str = "tp", dim: int = -1) -> torch.Tensor:
     """The ranks' ``x`` of ``axis`` joined along ``dim``, in grid order."""
-    if mesh is None or mesh.shape[axis] == 1:
+    if mesh is None or mesh.size_of(axis) == 1:
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(x) for _ in range(mesh.size_of(axis))]
     dist.all_gather(parts, x, group=mesh.group(axis))
     return torch.cat(parts, dim=dim)
+
+
+def broadcast(x: torch.Tensor, mesh: Optional[Mesh], axis: str, index: int) -> torch.Tensor:
+    """``x`` of the rank at coordinate ``index`` of ``axis`` on every rank
+    of this rank's line (in place where ``x`` is contiguous)."""
+    if mesh is None or mesh.size_of(axis) == 1:
+        return x
+    x = x.contiguous()
+    dist.broadcast(x, src=mesh.axis_ranks(axis)[index], group=mesh.group(axis))
+    return x
+
+
+def ring_exchange(x: torch.Tensor, mesh: Optional[Mesh], axis: str) -> torch.Tensor:
+    """One hop of a ring along ``axis``: sends ``x`` to the next rank of
+    the line (the last to the first) and returns what the previous rank
+    sent (``x`` itself on a line of one).
+
+    On NCCL the tensors go rank to rank (``dist.batch_isend_irecv``). On
+    gloo they go through the host: gloo's point-to-point calls read and
+    write the buffer's memory from the CPU, so a CUDA tensor is copied to
+    the host, sent, received into a host buffer and copied back. That is
+    the backend's branch (the collectives of gloo stage through the host
+    too), not a fallback: nothing is tried first."""
+    n = mesh.size_of(axis) if mesh is not None else 1
+    if n == 1:
+        return x
+    ranks, i = mesh.axis_ranks(axis), mesh.axis_index(axis)
+    group = mesh.group(axis)
+    host = dist.get_backend(group) == "gloo" and x.device.type != "cpu"
+    send = (x.cpu() if host else x).contiguous()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, ranks[(i + 1) % n], group), dist.P2POp(dist.irecv, recv, ranks[i - 1], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(x.device) if host else recv
 
 
 def parse_distributed_env(env=None) -> dict:
@@ -289,7 +363,7 @@ def _slice(mesh: Mesh, x: torch.Tensor, spec: P) -> torch.Tensor:
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
-        n, i = mesh.shape[axis], mesh.axis_index(axis)
+        n, i = mesh.size_of(axis), mesh.axis_index(axis)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {axis}={n}")
         size = x.shape[dim] // n
@@ -300,10 +374,13 @@ def _slice(mesh: Mesh, x: torch.Tensor, spec: P) -> torch.Tensor:
 def apply_specs(mesh: Mesh, tree, specs):
     """This rank's shard of ``tree`` under ``specs`` (a tree of :class:`P`
     of the same structure): each tensor sliced along its sharded dims, in
-    grid order, as a contiguous copy; a cache becomes this rank's local
+    grid order, as a contiguous copy (a function in place of a :class:`P`
+    is called as ``spec(mesh, tensor)``); a cache becomes this rank's local
     cache, carrying ``mesh``."""
     if isinstance(specs, P):
         return _slice(mesh, tree, specs)
+    if callable(specs):
+        return specs(mesh, tree).contiguous()
     if isinstance(specs, dict):
         return {k: apply_specs(mesh, tree[k], s) for k, s in specs.items()}
     if isinstance(specs, (list, tuple)):

@@ -69,12 +69,14 @@ def dequantized_bf16(w) -> torch.Tensor:
 
 
 def time_shape(device, label: str, m: int, k: int, n: int, gen, reps: int = 50, l2_bytes: float = 120e6,
-               splits=(), yardsticks: bool = True) -> dict:
-    """Every variant at one ``(M, K, N)``, group 128; see the module's doc.
-    ``yardsticks`` False: the kernel alone (graph-replayed, forced splits)."""
-    wbytes = k * n // 2 + 2 * (k // 128) * n  # nibbles + bf16 scales
+               splits=(), yardsticks: bool = True, group: int = 128) -> dict:
+    """Every variant at one ``(M, K, N)`` and ``group``; see the module's
+    doc. ``yardsticks`` False: the kernel alone (graph-replayed, forced
+    splits). Where ``torch._weight_int4pack_mm`` refuses the shape or the
+    group, its times are None."""
+    wbytes = k * n // 2 + 2 * (k // group) * n  # nibbles + bf16 scales
     copies = max(1, int(-(-l2_bytes // wbytes)))
-    ws = [quantize_matrix_int4(torch.randn((k, n), generator=gen, device=device) * 0.02, group=128)
+    ws = [quantize_matrix_int4(torch.randn((k, n), generator=gen, device=device) * 0.02, group=group)
           for _ in range(copies)]
     x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
     want = tw4.matmul_w4_plain(x.float(), ws[0]["q4"], ws[0]["s4"])
@@ -88,8 +90,8 @@ def time_shape(device, label: str, m: int, k: int, n: int, gen, reps: int = 50, 
     # weights and scales, x and the output once each; 2 flops per weight and row at the bf16 rate
     bound_ms, bound_by = ba.bound(wbytes + 2 * m * (k + n), 2.0 * m * k * n, torch.bfloat16)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    out = {"label": label, "m": m, "k": k, "n": n, "card": ba.card_line(),
-           "splits": tw4.w4_splits(m, n, k, 128, sms) if hasattr(tw4, "w4_splits") else None,
+    out = {"label": label, "m": m, "k": k, "n": n, "group": group, "card": ba.card_line(),
+           "splits": tw4.w4_splits(m, n, k, group, sms) if hasattr(tw4, "w4_splits") else None,
            "graph_ms": ba.graph_ms(kernel, copies), "ms": min(times[1], times[2]),
            "plain_ms": min(times[0], times[3]), "bound_ms": bound_ms, "bound_by": bound_by, "times": times,
            "max_abs_err": (kernel(0).float() - want).abs().max().item(), "tol": tol}
@@ -102,23 +104,32 @@ def time_shape(device, label: str, m: int, k: int, n: int, gen, reps: int = 50, 
         print(f"{label} M={m} K={k} N={n}, S = {out['splits']}: kernel {out['graph_ms']:.4f} ms from a graph; "
               f"forced S from a graph: " + " ".join(f"{s}: {t:.4f}" for s, t in out["forced"].items()), flush=True)
         return out
-    libs = [int4pack_library(w, 128) for w in ws]
-    out["int4pack_max_abs_err"] = (libs[0](x).float() - want).abs().max().item()
-    out["int4pack_same_function"] = out["int4pack_max_abs_err"] <= 2 * tol  # the library rounds in bf16 too
-    out["int4pack_graph_ms"] = ba.graph_ms(lambda i: libs[i](x), copies)
-    out["int4pack_ms"] = ba.median_ms(lambda i: libs[i](x), copies, reps)
+    try:
+        libs = [int4pack_library(w, group) for w in ws]
+        lib_out = libs[0](x)
+    except RuntimeError as e:  # the library takes K in multiples of its tile and a group it was built for
+        libs, out["int4pack_refused"] = None, str(e).splitlines()[0]
+    if libs is None:
+        out.update(int4pack_max_abs_err=None, int4pack_same_function=False, int4pack_graph_ms=None, int4pack_ms=None)
+    else:
+        out["int4pack_max_abs_err"] = (lib_out.float() - want).abs().max().item()
+        out["int4pack_same_function"] = out["int4pack_max_abs_err"] <= 2 * tol  # the library rounds in bf16 too
+        out["int4pack_graph_ms"] = ba.graph_ms(lambda i: libs[i](x), copies)
+        out["int4pack_ms"] = ba.median_ms(lambda i: libs[i](x), copies, reps)
     del libs
     dense_copies = max(1, int(-(-l2_bytes // (2 * k * n))))
     dense = [dequantized_bf16(ws[i % copies]) for i in range(dense_copies)]
     out["bf16_matmul_graph_ms"] = ba.graph_ms(lambda i: torch.matmul(x, dense[i]), dense_copies)
     out["bf16_matmul_ms"] = ba.median_ms(lambda i: torch.matmul(x, dense[i]), dense_copies, reps)
     del dense
-    print(f"{label} M={m} K={k} N={n}, {copies} weight copies walked, S = {out['splits']}: kernel "
+    lib = (f"torch._weight_int4pack_mm refused: {out['int4pack_refused']}" if "int4pack_refused" in out else
+           f"torch._weight_int4pack_mm {out['int4pack_graph_ms']:.4f} from a graph, {out['int4pack_ms']:.4f} by "
+           f"events (max abs err {out['int4pack_max_abs_err']:.3e}"
+           f"{'' if out['int4pack_same_function'] else ', NOT the same function'})")
+    print(f"{label} M={m} K={k} N={n} G={group}, {copies} weight copies walked, S = {out['splits']}: kernel "
           f"{out['graph_ms']:.4f} ms from a graph, {out['ms']:.4f} by events (bound {bound_ms:.4f} by {bound_by}, "
           f"{100 * bound_ms / out['graph_ms']:.0f}%; max abs err {out['max_abs_err']:.3e}, tol {tol:.3e}); plain "
-          f"{out['plain_ms']:.4f}; torch._weight_int4pack_mm {out['int4pack_graph_ms']:.4f} from a graph, "
-          f"{out['int4pack_ms']:.4f} by events (max abs err {out['int4pack_max_abs_err']:.3e}"
-          f"{'' if out['int4pack_same_function'] else ', NOT the same function'}); bf16 torch.matmul "
+          f"{out['plain_ms']:.4f}; {lib}; bf16 torch.matmul "
           f"{out['bf16_matmul_graph_ms']:.4f} from a graph, {out['bf16_matmul_ms']:.4f} by events"
           + ("; forced S from a graph: " + " ".join(f"{s}: {t:.4f}" for s, t in out["forced"].items())
              if out["forced"] else ""), flush=True)
